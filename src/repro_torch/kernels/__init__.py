@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain PyTorch version
+(dispatch and loader in ``ops``)."""
