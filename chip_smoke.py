@@ -7,21 +7,29 @@
    ``nvcc`` per source, all started together).
 3. Kernel phase: calls each kernel's wrapper at the shapes the main path
    gives it, on seeded inputs, and holds it against its plain PyTorch
-   version (smooth_quant bit-equal, int8_matmul exact, flash_decode within
-   one bf16 rounding step: rtol 2^-7, atol 1e-5 — both accumulate in f32 and
-   round once to bf16).  Times the kernel, the plain version and, where one
-   PyTorch call
-   computes the same function, that call (CUDA events, L2 flushed before
-   every launch, median of many), beside the least time the card could take.
+   version (smooth_quant bit-equal, int8_matmul and int4_matmul exact,
+   flash_decode — chain and token-tree windows — within one bf16 rounding
+   step: rtol 2^-7, atol 1e-5 — both accumulate in f32 and round once to
+   bf16), and the tree variant with the chain template bit-equal to the
+   chain variant.  Times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (CUDA events, L2
+   flushed before every launch, median of many), beside the least time the
+   card could take; int4_matmul, which no PyTorch call computes, has
+   int8_matmul at the same shape beside it as its yardstick.
 4. Path phase: runs the port's serve CLI in process on ``quasar-paper-7b``
-   with seeded random weights — W8A8 verifier, ngram drafter, γ 5, batch 4,
-   1024-token prompts, 64 new tokens — with a bf16 and with an int8 KV
-   cache, then with the vanilla drafter.  Each run starts from zeroed launch
-   counters; it fails unless every kernel of its path launched and no row
-   tripped the non-finite-logits flag.  A torch.profiler window over a few
-   decode steps, with each KV-cache dtype, gives the device's busy and idle
-   share and device time by kernel.  Then the repo's own lossless gate,
-   spec == vanilla, on the reduced config on the card.
+   with seeded random weights — batch 4, 1024-token prompts, 64 new tokens,
+   greedy: the W8A8 verifier with the ngram drafter (γ 5) over a bf16 and
+   an int8 KV cache and with the vanilla drafter; the W4A8 verifier with
+   the ngram drafter; the (3,2,1,1) token tree with W8A8 (bf16 KV) and W4A8
+   (int8 KV); and the pruned drafter (retention 0.75, γ 5) with W8A8.  Each
+   run starts from zeroed launch counters; it fails unless every kernel of
+   its path launched and no row tripped the non-finite-logits flag.  A
+   torch.profiler window over a few decode steps of the spec W8A8 (both KV
+   dtypes), spec W4A8 and tree W8A8 runs gives the device's busy and idle
+   share and device time by kernel.  Then the repo's own lossless gate on
+   the reduced config on the card: greedy tokens equal to vanilla's for
+   ngram, ngram-tree (3,2,1,1), pruned and ChainTreeAdapter(ngram), with
+   W8A8 and W4A8, KV bf16 and int8.
 5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
@@ -48,13 +56,36 @@ FLASH_TOL = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step
 SDPA_TOL = 1e-2                    # the yardstick keeps bf16 intermediates; a sanity check
 SLEEP_CYCLES = 4_000_000           # ~2 ms of device time at H100 clocks
 PROFILE_STEPS = 6
+TREE = (3, 2, 1, 1)                 # the token-tree template of the tree runs
+TREE_FLAGS = ["--tree-branches", ",".join(map(str, TREE))]
+GAMMA_FLAGS = ["--gamma", str(GAMMA)]
 MAIN_PATH_RUNS = {                 # run name -> (serve flags, kernels it must launch)
-    "spec_w8a8_kv_bf16": (["--drafter", "ngram", "--kv-cache", "bf16"],
+    "spec_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
+                           "--kv-cache", "bf16"],
                           ("smooth_quant", "int8_matmul", "flash_decode")),
-    "spec_w8a8_kv_int8": (["--drafter", "ngram", "--kv-cache", "int8"],
+    "spec_w8a8_kv_int8": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
+                           "--kv-cache", "int8"],
                           ("smooth_quant", "int8_matmul", "flash_decode_int8")),
-    "vanilla_w8a8_kv_bf16": (["--drafter", "vanilla", "--kv-cache", "bf16"],
+    "vanilla_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "vanilla", *GAMMA_FLAGS,
+                              "--kv-cache", "bf16"],
                              ("smooth_quant", "int8_matmul", "flash_decode")),
+    "spec_w4a8_kv_bf16": (["--verifier", "w4a8", "--drafter", "ngram", *GAMMA_FLAGS,
+                           "--kv-cache", "bf16"],
+                          ("smooth_quant", "int4_matmul", "flash_decode")),
+    "tree_w8a8_kv_bf16": (["--verifier", "w8a8", *TREE_FLAGS, "--kv-cache", "bf16"],
+                          ("smooth_quant", "int8_matmul", "flash_decode_tree")),
+    "tree_w4a8_kv_int8": (["--verifier", "w4a8", *TREE_FLAGS, "--kv-cache", "int8"],
+                          ("smooth_quant", "int4_matmul", "flash_decode_tree_int8")),
+    "pruned_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "pruned",
+                             "--pruned-retention", "0.75", *GAMMA_FLAGS,
+                             "--kv-cache", "bf16"],
+                            ("smooth_quant", "int8_matmul", "flash_decode")),
+}
+PROFILES = {                       # profiled run -> (verifier, drafter, kv, tree branches)
+    "spec_w8a8_kv_bf16": ("w8a8", "ngram", "bf16", None),
+    "spec_w8a8_kv_int8": ("w8a8", "ngram", "int8", None),
+    "spec_w4a8_kv_bf16": ("w4a8", "ngram", "bf16", None),
+    "tree_w8a8_kv_bf16": ("w8a8", "ngram-tree", "bf16", TREE),
 }
 
 
@@ -103,7 +134,9 @@ def timed(torch, kernel, plain, library, iters: int, flush) -> dict:
 
 
 def kernel_phase(torch, dev, flush, cfg):
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
     from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
     from repro_torch.models.attention import _quant_kv
@@ -211,11 +244,120 @@ def kernel_phase(torch, dev, flush, cfg):
                                      lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
                                      50, flush)))
         results[name] = rows
+
+    # -- int4_matmul: the W4A8 linears at the chain (M = 24) and tree (M = 88)
+    #    verify windows, and a prefill GEMM; int8_matmul beside it as yardstick --
+    MT = B * TreeTemplate(TREE).num_nodes
+    rows = []
+    for m, k, n in ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V),
+                    (MT, D, FF), (MT, D, V), (B * (PROMPT - 1), D, FF)):
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w4 = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        dx = torch.rand(m, generator=g, device=dev) * 1e-2
+        dw = torch.rand(n, generator=g, device=dev) * 1e-3
+        y = int4_matmul(xq, w4, dx, dw)
+        ry = int4_matmul_ref(xq, w4, dx, dw)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ry):
+            raise AssertionError(f"int4_matmul ({m},{k},{n}) differs from its plain version")
+        nbytes, ops = m * k + n * k // 2 + 4 * (m + n) + 2 * m * n, 2 * m * n * k
+        bms, by = bound_ms(nbytes, ops, "int8")
+        iters = 20 if n == V or m > MT else 50
+        # no PyTorch call computes a packed-int4 GEMM: library_ms stays null
+        row = dict(shape=[m, k, n], max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                   **timed(torch, lambda: int4_matmul(xq, w4, dx, dw),
+                           lambda: int4_matmul_ref(xq, w4, dx, dw), None, iters, flush))
+        row["yardstick_int8_matmul_ms"] = time_ms(
+            torch, lambda: int8_matmul(xq, w8, dx, dw), iters, flush)
+        rows.append(row)
+        del xq, w4, w8, y, ry
+    results["int4_matmul"] = rows
+
+    # -- tree flash_decode: the (3,2,1,1) window of the tree runs and the
+    #    widest templates, bf16 and int8 KV; each at the cache length the
+    #    main path allocates for it --
+    for name, int8 in (("flash_decode_tree", False), ("flash_decode_tree_int8", True)):
+        rows = []
+        for branches in (TREE, (4, 4, 4), (64,)):
+            tables = TreeTemplate(branches).on(dev)
+            t = tables.depths.shape[0]
+            s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128
+            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+            k = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+            v = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+            win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+            qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+            kw = dict(tree_mask=tables.mask, win_start=win_start)
+            bits = tables.mask_bits
+            if int8:
+                k, ks = _quant_kv(k)
+                v, vs = _quant_kv(v)
+                kw.update(k_scale=ks, v_scale=vs)
+            o = flash_decode(q, k, v, qpos, tree_bits=bits, **kw)
+            ro = flash_decode_ref(q, k, v, qpos, **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - ro.float()).abs().max().item()
+            if not torch.isfinite(o).all():
+                raise AssertionError(f"{name} {branches}: non-finite output")
+            torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                       msg=lambda mm: f"{name} {branches}: {mm}")
+            # each batch row reads its slots up to its window's last slot;
+            # each query row scores (and sums values over) the keys it sees
+            vis = visible(qpos, s_len, tables.mask, win_start)          # (B, T, S)
+            keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
+            kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8 else 0)
+            nbytes = 2 * 2 * B * t * HQ * DH + kv_bytes + 4 * B * t + tables.mask_bits.numel() * 4
+            bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
+            library = None
+            if not int8:       # SDPA with the materialised mask; int8 K/V has no such call
+                mask = vis[:, None]
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+                lib_err = (library().float() - ro.float()).abs().max().item()
+                if lib_err > SDPA_TOL:
+                    raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+            rows.append(dict(shape=[B, t, HQ, HKV, s_len, DH], branches=list(branches),
+                             max_abs_err=err, bound_ms=bms, bound_by=by,
+                             **timed(torch,
+                                     lambda: flash_decode(q, k, v, qpos, tree_bits=bits, **kw),
+                                     lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
+                                     50, flush)))
+        results[name] = rows
+
+    # -- the tree variant with the chain template gives the chain variant's bits --
+    for int8 in (False, True):
+        chain = TreeTemplate.chain(GAMMA).on(dev)
+        q = torch.randn(B, GAMMA + 1, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+        qpos = (torch.arange(GAMMA + 1, device=dev) + PROMPT - 1 + 17).expand(B, GAMMA + 1)
+        qpos = qpos.to(torch.int32).contiguous()
+        kw = {}
+        if int8:
+            k, ks = _quant_kv(k)
+            v, vs = _quant_kv(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        a = flash_decode(q, k, v, qpos, **kw)
+        b = flash_decode(q, k, v, qpos, tree_mask=chain.mask, win_start=qpos[:, 0].contiguous(),
+                         tree_bits=chain.mask_bits, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"tree flash_decode with the chain template (int8 KV "
+                                 f"{int8}) is not bit-equal to the chain variant")
+    log("  tree flash_decode with the chain template == chain flash_decode, bit for bit "
+        "(bf16 and int8 KV)")
     for name, rows in results.items():
         for r in rows:
-            log(f"  {name:18s} {str(r['shape']):32s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            extra = (f" int8_ms={r['yardstick_int8_matmul_ms']:.4f}"
+                     if "yardstick_int8_matmul_ms" in r else "")
+            log(f"  {name:22s} {str(r['shape']):32s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms={r['library_ms']} "
-                f"host_ms={r['host_ms']:.4f} max_abs_err={r['max_abs_err']}")
+                f"host_ms={r['host_ms']:.4f} max_abs_err={r['max_abs_err']}{extra}")
     return results
 
 
@@ -225,9 +367,8 @@ def path_phase(torch, dev):
 
     runs = {}
     for name, (flags, needed) in MAIN_PATH_RUNS.items():
-        argv = ["--arch", ARCH, "--verifier", "w8a8", "--gamma", str(GAMMA),
-                "--batch", str(B), "--prompt-len", str(PROMPT), "--new-tokens", str(NEW),
-                *flags]
+        argv = ["--arch", ARCH, "--batch", str(B), "--prompt-len", str(PROMPT),
+                "--new-tokens", str(NEW), *flags]
         log(f"path run {name}: serve {' '.join(argv)}")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -255,9 +396,8 @@ def path_phase(torch, dev):
         info["tokens"] = r.tokens[:, PROMPT:PROMPT + NEW].cpu()
         runs[name] = info
         del r
-    a = runs["spec_w8a8_kv_bf16"].pop("tokens")
-    b = runs["vanilla_w8a8_kv_bf16"].pop("tokens")
-    runs["spec_w8a8_kv_int8"].pop("tokens")
+    toks = {name: run.pop("tokens") for name, run in runs.items()}
+    a, b = toks["spec_w8a8_kv_bf16"], toks["vanilla_w8a8_kv_bf16"]
     shared = (a == b).float().mean().item()
     prefix = [int((a[i] != b[i]).nonzero()[0]) if (a[i] != b[i]).any() else NEW
               for i in range(B)]
@@ -265,14 +405,18 @@ def path_phase(torch, dev):
         f"(common prefix per row: {prefix})")
     runs["spec_vs_vanilla_shared_tokens"] = shared
     runs["spec_vs_vanilla_common_prefix"] = prefix
+    for name in ("tree_w8a8_kv_bf16", "pruned_w8a8_kv_bf16"):
+        runs[f"{name}_vs_vanilla_shared_tokens"] = (toks[name] == b).float().mean().item()
+        log(f"  greedy tokens shared by {name} and vanilla: "
+            f"{runs[f'{name}_vs_vanilla_shared_tokens']:.4f}")
     return runs
 
 
-def profile_phase(torch, dev, kv: str):
-    """Device busy share over a window of decode steps of the main path
-    (spec, W8A8, KV cache ``kv``), from a torch.profiler trace: the sum of
-    kernel times (one stream, so kernels do not overlap) over the window's
-    wall time, and device time by kernel."""
+def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=None):
+    """Device busy share over a window of decode steps of a main-path run
+    (``verifier`` × ``drafter``, KV cache ``kv``), from a torch.profiler
+    trace: the sum of kernel times (one stream, so kernels do not overlap)
+    over the window's wall time, and device time by kernel."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -286,12 +430,13 @@ def profile_phase(torch, dev, kv: str):
 
     cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype=kv)
     model = Model(cfg, device=dev)
-    engine = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8"))
+    engine = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
+                                          tree_branches=branches))
     params = engine.prepare_params(
         model.init_params(torch.Generator(device=dev).manual_seed(0)))
     prompts = torch.as_tensor(task_prompts("gsm8k", B, PROMPT, cfg.vocab_size),
                               device=dev, dtype=torch.int32)
-    buf = PROMPT + NEW + GAMMA + 2
+    buf = PROMPT + NEW + engine.drafter.gamma + 2
     full = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)  # noqa: E731
     with torch.inference_mode():
         state = engine._init_state(params, prompts, full(PROMPT), full(PROMPT + NEW), buf,
@@ -318,7 +463,8 @@ def profile_phase(torch, dev, kv: str):
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda item: -item[1])[:12]
-    info = dict(kv_cache=kv, steps=PROFILE_STEPS, wall_ms=wall_ms,
+    info = dict(verifier=verifier, drafter=drafter, kv_cache=kv, tree_branches=branches,
+                steps=PROFILE_STEPS, wall_ms=wall_ms,
                 step_ms=wall_ms / PROFILE_STEPS,
                 device_busy_ms=busy_ms or None,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
@@ -328,31 +474,50 @@ def profile_phase(torch, dev, kv: str):
 
 
 def lossless_gate(torch, dev):
-    """The repo's own gate on the card: spec == vanilla (greedy) on the
-    reduced config, for both KV-cache dtypes."""
+    """The repo's own gate on the card: greedy tokens of every drafter equal
+    vanilla's on the reduced config (4 layers, so the pruned drafter keeps
+    3), for each quantized verifier and KV-cache dtype; and the chain
+    drafter run through the tree route gives the chain route's tokens."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.config import SpecConfig
+    from repro_torch.core.drafters import ChainTreeAdapter
+    from repro_torch.core.protocols import get_drafter
     from repro_torch.data import task_prompts
     from repro_torch.models import Model
     from repro_torch.serving.engine import SpecEngine
 
     for kv in ("bf16", "int8"):
-        cfg = dataclasses.replace(get_config("smollm-135m").reduced(), kv_cache_dtype=kv)
+        cfg = dataclasses.replace(get_config("smollm-135m").reduced(), kv_cache_dtype=kv,
+                                  num_layers=4)
         model = Model(cfg, device=dev)
         params = model.init_params(torch.Generator(device=dev).manual_seed(1))
         prompts = torch.as_tensor(task_prompts("gsm8k", 4, 64, cfg.vocab_size), device=dev)
-        toks = {}
-        for drafter in ("ngram", "vanilla"):
-            scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier="w8a8")
-            r = SpecEngine(model, scfg).generate(params, prompts, 32)
-            if bool(r.bad.any()):
-                raise AssertionError(f"reduced {kv}: non-finite logits")
-            toks[drafter] = r.tokens[:, :64 + 32]
-        if not torch.equal(toks["ngram"], toks["vanilla"]):
-            raise AssertionError(f"reduced config, kv {kv}: spec != vanilla on the card")
-        log(f"  reduced smollm-135m w8a8 kv={kv}: spec == vanilla (32 tokens x 4 rows)")
+        for verifier in ("w8a8", "w4a8"):
+            def spec(drafter, **kw):
+                return SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
+                                  pruned_retention=0.75, **kw)
+
+            engines = {name: SpecEngine(model, scfg, drafter=d) for name, scfg, d in (
+                ("vanilla", spec("vanilla"), None),
+                ("ngram", spec("ngram"), None),
+                ("ngram-tree", spec("ngram-tree", tree_branches=TREE), None),
+                ("pruned", spec("pruned"), None),
+                ("chain-tree(ngram)", spec("ngram"),
+                 ChainTreeAdapter(get_drafter("ngram", spec("ngram")))))}
+            toks = {}
+            for name, engine in engines.items():
+                r = engine.generate(params, prompts, 32)
+                if bool(r.bad.any()):
+                    raise AssertionError(f"reduced {verifier} kv {kv} {name}: non-finite logits")
+                toks[name] = r.tokens[:, :64 + 32]
+            for name in ("ngram", "ngram-tree", "pruned", "chain-tree(ngram)"):
+                if not torch.equal(toks[name], toks["vanilla"]):
+                    raise AssertionError(f"reduced config, {verifier} kv {kv}: {name} != "
+                                         "vanilla on the card")
+            log(f"  reduced smollm-135m (4 layers) {verifier} kv={kv}: ngram, ngram-tree "
+                f"{TREE}, pruned and chain-tree(ngram) == vanilla (32 tokens x 4 rows)")
 
 
 def main() -> int:
@@ -395,13 +560,13 @@ def main() -> int:
     log("path phase")
     runs = path_phase(torch, dev)
     log("profile phase")
-    prof = {kv: profile_phase(torch, dev, kv) for kv in ("bf16", "int8")}
-    for kv, p in prof.items():
+    prof = {run: profile_phase(torch, dev, *spec) for run, spec in PROFILES.items()}
+    for run, p in prof.items():
         # the profiler slows the host; against the unprofiled run's step time
         if p["device_busy_ms"]:
-            step_ms = runs[f"spec_w8a8_kv_{kv}"]["mean_step_ms"]
+            step_ms = runs[run]["mean_step_ms"]
             p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms"] / p["steps"] / step_ms
-            log(f"  kv {kv}: device busy {p['device_busy_ms'] / p['steps']:.2f} ms/step; idle "
+            log(f"  {run}: device busy {p['device_busy_ms'] / p['steps']:.2f} ms/step; idle "
                 f"{p['device_idle_share']:.3f} under the profiler, "
                 f"{p['device_idle_share_unprofiled']:.3f} of the unprofiled step")
     log("lossless gate")
@@ -416,9 +581,17 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:117", "spec_w8a8_kv_bf16"),
         "flash_decode_int8": ("src/repro_torch/csrc/flash_decode.cu",
                               "src/repro/kernels/flash_decode.py:134", "spec_w8a8_kv_int8"),
+        "int4_matmul": ("src/repro_torch/csrc/int4_matmul.cu",
+                        "src/repro/kernels/int4_matmul.py:29", "spec_w4a8_kv_bf16"),
+        "flash_decode_tree": ("src/repro_torch/csrc/flash_decode.cu",
+                              "src/repro/kernels/flash_decode.py:125", "tree_w8a8_kv_bf16"),
+        "flash_decode_tree_int8": ("src/repro_torch/csrc/flash_decode.cu",
+                                   "src/repro/kernels/flash_decode.py:143",
+                                   "tree_w4a8_kv_int8"),
     }
     # the representative main-path shape of each kernel in the summary line
-    pick = {"smooth_quant": 0, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0}
+    pick = {"smooth_quant": 0, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
+            "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0}
     kernels = []
     for kname, (source, replaces, run) in meta.items():
         row = kern[kname][pick[kname]]

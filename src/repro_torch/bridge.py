@@ -4,9 +4,10 @@
 e.g. ``jax.tree.map(np.asarray, params)`` — into the port's parameter tree
 (:class:`~repro_torch.models.transformer.Transformer`); ``to_numpy``
 converts back.  Both handle the bf16 linear layout ``{"w"[, "b"]}`` and the
-W8A8 layout ``{"w_int8", "w_scale", "smooth"[, "b"]}``; the port stores
-``w_int8`` transposed, (dout, din) with din contiguous (models/linear.py),
-and ``to_numpy`` transposes it back.  ``cache_from_numpy`` /
+W8A8 layout ``{"w_int8", "w_scale", "smooth"[, "b"]}`` and the W4A8
+layout ``{"w_int4", ...}``; the port stores ``w_int8`` transposed, (dout,
+din) with din contiguous, and ``w_int4`` as (dout, din/2)
+(models/linear.py), and ``to_numpy`` transposes both back.  ``cache_from_numpy`` /
 ``cache_to_numpy`` do the same for a contiguous cache pytree.
 
 JAX bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
@@ -23,7 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import Norm
 from repro_torch.models.ffn import FFN
-from repro_torch.models.linear import Linear, W8A8Linear
+from repro_torch.models.linear import Linear, W4A8Linear, W8A8Linear
 from repro_torch.models.transformer import Block, Embed, Transformer
 
 
@@ -47,9 +48,10 @@ def array(t: torch.Tensor) -> np.ndarray:
 
 def _linear(p: dict, device):
     b = tensor(p["b"], device) if "b" in p else None
-    if "w_int8" in p:
-        w = tensor(p["w_int8"], device).T.contiguous()       # (din,dout) → (dout,din)
-        return W8A8Linear(w, tensor(p["w_scale"], device), tensor(p["smooth"], device), b)
+    for name, cls in (("w_int8", W8A8Linear), ("w_int4", W4A8Linear)):
+        if name in p:
+            w = tensor(p[name], device).T.contiguous()    # (din[/2],dout) → (dout,din[/2])
+            return cls(w, tensor(p["w_scale"], device), tensor(p["smooth"], device), b)
     return Linear(tensor(p["w"], device), b)
 
 
@@ -78,8 +80,9 @@ def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
 
 
 def _linear_np(m) -> dict:
-    if isinstance(m, W8A8Linear):
-        out = {"w_int8": array(m.w_int8.T), "w_scale": array(m.w_scale),
+    if isinstance(m, (W8A8Linear, W4A8Linear)):
+        name = "w_int8" if isinstance(m, W8A8Linear) else "w_int4"
+        out = {name: array(getattr(m, name).T), "w_scale": array(m.w_scale),
                "smooth": array(m.smooth)}
     else:
         out = {"w": array(m.w)}

@@ -4,12 +4,12 @@ Same three configs, fields and defaults as the reference; ``dtype`` is a
 torch dtype.
 
 * :class:`ModelConfig` — architecture definition.
-* :class:`QuantConfig` — W8A8 verification settings (the paper's technique).
+* :class:`QuantConfig` — W8A8 / W4A8 verification settings (the paper's technique).
 * :class:`SpecConfig`  — speculative-decoding settings (drafting + verify).
 
 The port so far runs the dense decoder over a contiguous KV cache; the
-fields of the other families, the tree drafter and the paged layout are
-kept for parity and rejected where they would be read.
+fields of the other families and the paged layout are kept for parity and
+rejected where they would be read.
 """
 from __future__ import annotations
 
@@ -136,7 +136,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """W8A8 quantized-verification settings (paper §3.2-3.3)."""
+    """W8A8 quantized-verification settings (paper §3.2-3.3); ``w_bits=4``
+    packs int4 weights (W4A8)."""
 
     enabled: bool = True
     alpha: float = 0.5                  # SmoothQuant migration strength (Eq. 5)
@@ -159,8 +160,8 @@ class SpecConfig:
     k_max: int = 4
     temperature: float = 0.0
     max_new_tokens: int = 64
-    drafter: str = "ngram"              # registered: ngram | vanilla
-    verifier: str = "w8a8"              # registered: w8a8 | bf16
+    drafter: str = "ngram"              # registered: ngram | vanilla | pruned | ngram-tree
+    verifier: str = "w8a8"              # registered: w8a8 | w4a8 | bf16
     pruned_retention: float = 0.75
     tree_branches: Optional[Tuple[int, ...]] = None
     kv_layout: str = "contiguous"       # the port serves "contiguous" only

@@ -1,11 +1,13 @@
 """Pluggable decoding protocols: ``Drafter`` and ``Verifier`` — port of
-``repro/core/protocols.py`` (chain proposals; token trees and the
-continuous-batching hooks wait for later slices).
+``repro/core/protocols.py`` (chain and token-tree proposals; the
+continuous-batching hook ``prefill_row`` waits for a later slice).
 
 ``Drafter``:
 
-* ``init_state(model, params, prompts, buf_len)`` → drafter state
-  (once per generation; ``{}`` for stateless drafters);
+* ``init_state(model, params, prompts, buf_len, *, draft_params=None)`` →
+  drafter state (once per generation; ``{}`` for stateless drafters, a
+  prefilled draft cache for ``pruned``); ``alloc_state`` allocates it
+  empty;
 * ``propose(model, params, tokens, length, dstate, generators)`` →
   ``(DraftProposal, dstate)`` every step.  ``proposal.tokens`` is
   ``(B, gamma)`` int32; ``probs`` is ``None`` for deterministic drafters
@@ -18,7 +20,9 @@ continuous-batching hooks wait for later slices).
 * ``prepare(model, params, act_stats=None)`` → params: offline weight
   preparation, idempotent (``w8a8`` applies SmoothQuant + INT8 here);
 * ``verify(logits, proposal, temperature, generators)`` →
-  ``VerifyResult``: the lossless accept rule (Eq. 2-3).
+  ``VerifyResult``: the lossless accept rule (Eq. 2-3);
+* ``verify_tree(logits, proposal, template, temperature, generators)`` →
+  ``TreeVerifyResult``: the same rule down a token tree.
 
 Implementations self-register by name and are built from a ``SpecConfig``
 with ``get_drafter`` / ``get_verifier``; an instance passes through.
@@ -30,7 +34,8 @@ from typing import Any, Dict, NamedTuple, Optional, Type
 import torch
 
 from repro_torch.core.config import SpecConfig
-from repro_torch.core.verification import VerifyResult, verify
+from repro_torch.core.verification import (TreeVerifyResult, VerifyResult,
+                                           verify, verify_tree)
 
 
 class DraftProposal(NamedTuple):
@@ -39,6 +44,10 @@ class DraftProposal(NamedTuple):
     tokens: torch.Tensor                  # (B, gamma) int32 drafted tokens
     probs: Optional[torch.Tensor] = None  # (B, gamma, V) f32 draft dist q, or
     #                                       None for deterministic drafters
+    parents: Optional[torch.Tensor] = None    # (N,) int32 window-parent
+    #                                           pointers, -1 at the root
+    tree_mask: Optional[torch.Tensor] = None  # (N, N) bool ancestor-or-self
+    #                                           mask over the packed window
 
 
 class Drafter:
@@ -51,7 +60,17 @@ class Drafter:
     def from_config(cls, scfg: SpecConfig) -> "Drafter":
         return cls()
 
-    def init_state(self, model, params, prompts, buf_len: int) -> Any:
+    def with_temperature(self, temperature: float) -> "Drafter":
+        """A drafter for another sampling temperature (self, unless the
+        drafter samples while it proposes)."""
+        return self
+
+    def init_state(self, model, params, prompts, buf_len: int, *,
+                   draft_params=None) -> Any:
+        return {}
+
+    def alloc_state(self, model, params, batch: int, buf_len: int, *,
+                    draft_params=None) -> Any:
         return {}
 
     def propose(self, model, params, tokens, length, dstate, generators):
@@ -78,6 +97,11 @@ class Verifier:
                generators) -> VerifyResult:
         return verify(logits, proposal.tokens, temperature, generators,
                       draft_probs=proposal.probs)
+
+    def verify_tree(self, logits, proposal: DraftProposal, template,
+                    temperature: float, generators) -> TreeVerifyResult:
+        return verify_tree(logits, proposal.tokens, template, temperature,
+                           generators, draft_probs=proposal.probs)
 
 
 _DRAFTERS: Dict[str, Type[Drafter]] = {}

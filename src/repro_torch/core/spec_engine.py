@@ -1,5 +1,5 @@
-"""Speculative decode step: draft → verify → accept → commit — port of the
-chain route of ``repro/core/spec_engine.py``.
+"""Speculative decode step: draft → verify → accept → commit — port of
+``repro/core/spec_engine.py`` (the chain and token-tree routes).
 
 :func:`make_decode_step` builds ``decode_step(params, state)`` from a
 :class:`~repro_torch.core.protocols.Drafter` and a
@@ -11,7 +11,8 @@ chain route of ``repro/core/spec_engine.py``.
                                     commits are masked so ``length`` never
                                     exceeds it
   cache          dict               verifier KV cache (covers [0, length-1))
-  drafter_state  any                drafter-owned state ({} if stateless)
+  drafter_state  any                drafter-owned state ({} if stateless, the
+                                    draft KV cache for ``pruned``)
   generators     list               one torch.Generator per row
   stats          {"commits": (B,), "steps": (), "row_steps": (B,),
                   "bad": (B,) bool}  acceptance bookkeeping, and the sticky
@@ -74,8 +75,20 @@ def make_decode_step(model, drafter, verifier, scfg):
 
     drafter = get_drafter(drafter, scfg)
     verifier = get_verifier(verifier, scfg)
-    if getattr(drafter, "template", None) is not None:
-        raise NotImplementedError("token-tree drafting waits for a later slice")
+    # a drafter with a template takes the token-tree route: the window is
+    # the packed node tree (depth positions + ancestor mask), verification
+    # walks the tree and the commit compacts the accepted path.  The chain
+    # route is the single-branch tree, bit for bit.
+    template = getattr(drafter, "template", None)
+    if template is not None:
+        if model.cfg.arch_type in ("ssm", "hybrid"):
+            raise ValueError(
+                f"tree speculation needs attention-family caches; "
+                f"{model.cfg.arch_type!r} caches are recurrent")
+        if model.cfg.sliding_window:
+            raise ValueError(
+                "tree speculation requires a contiguous KV cache; sliding-window "
+                "(ring) caches cannot hold sibling nodes at one position")
 
     def decode_step(params, state):
         tokens, length = state["tokens"], state["length"]
@@ -90,18 +103,30 @@ def make_decode_step(model, drafter, verifier, scfg):
         else:
             active_mask = torch.ones_like(length, dtype=torch.bool)
 
-        logits, cand = model.verify_step(params, state["cache"], window, start)
-        res = verifier.verify(logits, proposal, scfg.temperature, gens)
+        if template is None:
+            logits, cand = model.verify_step(params, state["cache"], window, start)
+            res = verifier.verify(logits, proposal, scfg.temperature, gens)
+        else:
+            tables = template.on(window.device)
+            logits, cand = model.verify_step(
+                params, state["cache"], window, start, tree_depths=tables.depths,
+                tree_mask=tables.mask, tree_bits=tables.mask_bits)
+            res = verifier.verify_tree(logits, proposal, template, scfg.temperature, gens)
         # per-row losslessness tripwire: non-finite verifier logits on an
         # active row
         row_bad = ~torch.isfinite(logits).flatten(1).all(dim=1) & active_mask
 
-        cache = model.commit(cand, res.n_accept)
+        if template is None:
+            cache = model.commit(cand, res.n_accept)
+            drafts = proposal.tokens
+        else:
+            cache = model.commit_tree(cand, start, res.path_nodes, res.n_accept)
+            drafts = res.path_tokens           # the accepted path, in chain order
         dstate = drafter.advance(model, dstate, proposal, res.n_accept)
         n_commit = res.n_commit
         if "target" in state:
             n_commit = torch.minimum(n_commit.clamp(min=0), state["target"] - length)
-        tokens = _commit_tokens(tokens, length, proposal.tokens, res.next_token,
+        tokens = _commit_tokens(tokens, length, drafts, res.next_token,
                                 res.n_accept, n_write=n_commit)
         stats = state["stats"]
         out = {

@@ -1,10 +1,10 @@
-"""Registered verifiers — port of ``repro/core/verifiers.py`` (``bf16`` and
-``w8a8``; ``w4a8`` waits for the W4A8 slice).
+"""Registered verifiers — port of ``repro/core/verifiers.py`` (``bf16``,
+``w8a8`` and ``w4a8``).
 
 All share the lossless accept rule; they differ in offline weight
 preparation.  ``W8A8Verifier.prepare`` applies SmoothQuant + symmetric
 INT8, so the memory-bound verification pass streams half the weight bytes
-of bf16.
+of bf16; ``W4A8Verifier.prepare`` packs int4 weights, a quarter.
 """
 from __future__ import annotations
 
@@ -35,3 +35,13 @@ class W8A8Verifier(Verifier):
     def prepare(self, model, params, act_stats=None):
         from repro_torch.quant.apply import quantize_params
         return quantize_params(params, act_stats, self.qcfg)
+
+
+@register_verifier("w4a8")
+class W4A8Verifier(W8A8Verifier):
+    """Ultra-low-bit variant (paper §6 future work): int4 weights where
+    shapes allow (even din), int8 activations."""
+
+    @classmethod
+    def from_config(cls, scfg: SpecConfig) -> "W4A8Verifier":
+        return cls(QuantConfig(w_bits=4))

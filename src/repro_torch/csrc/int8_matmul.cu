@@ -28,49 +28,13 @@
 // atomicAdd — integer addition is exact and order-free, so the result does
 // not depend on the split — and a second kernel applies the epilogue.  The
 // epilogue computes (float(acc) * dx) * dw in that order with IEEE rounding,
-// as the plain version does, so equal accumulators give equal outputs.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
+// as the plain version does, so equal accumulators give equal outputs.  The
+// parts shared with the int4 GEMM are in mma_s8.cuh.
+#include "mma_s8.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 64;
 constexpr int LDS = BK + 16;   // shared-memory row stride in bytes
-constexpr int kThreads = 128;  // 4 warps in a 2x2 grid of 32x32 sub-tiles
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float dequant(int acc, float dx, float dw) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(acc), dx), dw);
-}
 
 // Stage the 64x64 byte tiles of X (rows m0..) and W (rows n0..) at column k.
 __device__ __forceinline__ void load_tiles(uint8_t* As, uint8_t* Bs,
@@ -131,15 +95,7 @@ int8_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       unsigned a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint8_t* r0 = A + (wm + i * 16 + g) * LDS + kk + tig * 4;
-        const uint8_t* r8 = r0 + 8 * LDS;
-        a[i][0] = *reinterpret_cast<const unsigned*>(r0);
-        a[i][1] = *reinterpret_cast<const unsigned*>(r8);
-        a[i][2] = *reinterpret_cast<const unsigned*>(r0 + 16);
-        a[i][3] = *reinterpret_cast<const unsigned*>(r8 + 16);
-      }
+      load_a(a, A, LDS, wm, kk, g, tig);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint8_t* c = B + (wn + j * 8 + g) * LDS + kk + tig * 4;
@@ -154,35 +110,7 @@ int8_matmul_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
     __syncthreads();  // buffer buf is refilled at iteration t+1
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int m = m0 + wm + i * 16 + g + (v >= 2 ? 8 : 0);
-        const int n = n0 + wn + j * 8 + tig * 2 + (v & 1);
-        if (m < M && n < N) {
-          const int64_t o = static_cast<int64_t>(m) * N + n;
-          if (gridDim.z == 1)
-            store(out + o, dequant(acc[i][j][v], dx[m], dw[n]));
-          else
-            atomicAdd(ws + o, acc[i][j][v]);
-        }
-      }
-}
-
-template <typename OutT>
-__global__ void epilogue_kernel(const int* __restrict__ ws,
-                                const float* __restrict__ dx,
-                                const float* __restrict__ dw,
-                                OutT* __restrict__ out, int M, int N) {
-  const int64_t total = static_cast<int64_t>(M) * N;
-  for (int64_t o = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       o < total; o += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int m = static_cast<int>(o / N), n = static_cast<int>(o % N);
-    store(out + o, dequant(ws[o], dx[m], dw[n]));
-  }
+  store_tile(acc, m0, n0, wm, wn, g, tig, M, N, dx, dw, out, ws);
 }
 
 template <typename OutT>
@@ -193,11 +121,7 @@ void launch(const int8_t* X, const int8_t* W, const float* dx, const float* dw,
   OutT* o = static_cast<OutT*>(out);
   int8_matmul_kernel<OutT><<<grid, kThreads, 0, st>>>(X, W, dx, dw, o, ws, M, N,
                                                       K, k_chunk);
-  if (splits > 1) {
-    const int64_t total = static_cast<int64_t>(M) * N;
-    const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
-    epilogue_kernel<OutT><<<blocks, 256, 0, st>>>(ws, dx, dw, o, M, N);
-  }
+  if (splits > 1) launch_epilogue<OutT>(ws, dx, dw, o, M, N, st);
 }
 
 }  // namespace

@@ -30,7 +30,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = _CSRC / "_build"
-SOURCES = ("smooth_quant", "int8_matmul", "flash_decode")
+SOURCES = ("smooth_quant", "int8_matmul", "int4_matmul", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,9 +73,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of source ``name``, named by the hash of the source and
+    of the headers beside it (which any source may include)."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -167,3 +170,21 @@ def w8a8_matmul(
     xq, dx = smooth_quant(x2, smooth)
     y = int8_matmul(xq, w_int8, dx, w_scale, out_dtype=x.dtype)
     return y.reshape(*batch_shape, w_int8.shape[0])
+
+
+def w4a8_matmul(
+    x: torch.Tensor,         # (..., K) activations (bf16/f32)
+    w_int4: torch.Tensor,    # (N, K/2) int8, two int4 per byte, K contiguous
+    w_scale: torch.Tensor,   # (N,) f32
+    smooth: torch.Tensor,    # (K,) f32
+) -> torch.Tensor:
+    """Ultra-low-bit verification linear: smooth → quant → W4A8 GEMM →
+    dequant, in ``x.dtype``."""
+    from repro_torch.kernels.int4_matmul import int4_matmul
+    from repro_torch.kernels.smooth_quant import smooth_quant
+
+    batch_shape = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    xq, dx = smooth_quant(x2, smooth)
+    y = int4_matmul(xq, w_int4, dx, w_scale, out_dtype=x.dtype)
+    return y.reshape(*batch_shape, w_int4.shape[0])

@@ -1,15 +1,16 @@
 """Plain PyTorch versions of the kernels — port of ``repro/kernels/ref.py``.
 
 Each kernel's plain version lives beside its wrapper; this module gathers
-them with the two oracles that are not kernels: symmetric quantization
-(Eq. 6-7) and the full W8A8 linear.  The int8 weight is (N, K), the
-transpose of the reference's (K, N).
+them with the oracles that are not kernels: symmetric quantization
+(Eq. 6-7) and the full W8A8 and W4A8 linears.  The int8 weight is (N, K)
+and the packed int4 weight (N, K/2), the transposes of the reference's.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_decode import flash_decode_ref  # noqa: F401
+from repro_torch.kernels.int4_matmul import int4_matmul_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.smooth_quant import EPS, INT8_MAX, smooth_quant_ref
 
@@ -31,3 +32,12 @@ def w8a8_matmul_ref(x, w_int8, w_scale, smooth, out_dtype=None):
     xq, dx = smooth_quant_ref(x.reshape(-1, x.shape[-1]), smooth)
     y = int8_matmul_ref(xq, w_int8, dx, w_scale, out_dtype)
     return y.reshape(*batch_shape, w_int8.shape[0])
+
+
+def w4a8_matmul_ref(x, w_int4, w_scale, smooth, out_dtype=None):
+    """Full W4A8 linear: smooth + quantize x, W4A8 GEMM, dequant."""
+    out_dtype = out_dtype or x.dtype
+    batch_shape = x.shape[:-1]
+    xq, dx = smooth_quant_ref(x.reshape(-1, x.shape[-1]), smooth)
+    y = int4_matmul_ref(xq, w_int4, dx, w_scale, out_dtype)
+    return y.reshape(*batch_shape, w_int4.shape[0])

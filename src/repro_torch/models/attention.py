@@ -6,8 +6,12 @@ attends over the chunk's own keys; **decode / verify** writes a T-token
 window at per-row positions and attends over the whole buffer with a
 position mask (slot index == absolute position), so speculative rollback
 is free: uncommitted slots hold future positions and stay masked until
-rewritten.  The cache-read call goes to the ``flash_decode`` kernel
-wrapper (CUDA kernel on the card, plain version on the CPU).
+rewritten.  A token-tree verify window writes node ``i`` at slot
+``start + i`` (the ``slots`` override) while its position is
+``start + depth[i]``, and the template's ancestor mask replaces position
+causality over the window's slots.  The cache-read call goes to the
+``flash_decode`` kernel wrapper (CUDA kernel on the card, plain version on
+the CPU).
 
 Cache layout per layer: ``{"k","v": (B, S, Hkv, dh)}``, plus
 ``{"k_scale","v_scale": (B, S, Hkv)}`` f32 when ``kv_cache_dtype="int8"``.
@@ -20,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, tree_override
 from repro_torch.kernels.smooth_quant import INV_INT8_MAX
 from repro_torch.models.common import apply_rope
 from repro_torch.models.ffn import apply_linear
@@ -49,12 +53,17 @@ def init_attn_cache(cfg, batch: int, max_len: int, device) -> dict:
 # Core attend: q (B,T,Hq,dh) over k/v (B,S,Hkv,dh) with a position mask
 # ---------------------------------------------------------------------------
 
-def _mask(qpos, kpos):
+def _mask(qpos, kpos, tree_mask=None, win_start=None):
     """Causal position mask: qpos (B,T); kpos (B,S) or (S,) → (B,1,1,T,S)
-    bool, key visible iff kpos <= qpos."""
+    bool, key visible iff kpos <= qpos.  With a token-tree window the slots
+    [win_start, win_start + T) hold the window's nodes in packed order, and
+    there the ancestor-or-self ``tree_mask`` (T, T) decides instead;
+    slots past the window stay masked by position."""
     if kpos.dim() == 1:
         kpos = kpos[None, :]
     valid = (qpos[:, :, None] - kpos[:, None, :]) >= 0
+    if tree_mask is not None:
+        valid = tree_override(valid, kpos, tree_mask, win_start)
     return valid[:, None, None, :, :]
 
 
@@ -113,12 +122,16 @@ def _flash_eligible(kpos) -> bool:
     return kpos.dim() == 1
 
 
-def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None):
-    """Position-masked attention.  Flash-eligible calls go to the
-    ``flash_decode`` wrapper; the others run the plain path."""
+def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
+           win_start=None, tree_bits=None):
+    """Position-masked attention (tree-masked over a token-tree window).
+    Flash-eligible calls go to the ``flash_decode`` wrapper; the others run
+    the plain path."""
     if _flash_eligible(kpos):
-        return flash_decode(q, k, v, qpos, k_scale=k_scale, v_scale=v_scale)
-    valid = _mask(qpos, kpos)
+        return flash_decode(q, k, v, qpos, k_scale=k_scale, v_scale=v_scale,
+                            tree_mask=tree_mask, win_start=win_start,
+                            tree_bits=tree_bits)
+    valid = _mask(qpos, kpos, tree_mask, win_start)
     S = k.shape[1]
     if S > CHUNK_THRESHOLD:
         pad = (-S) % KV_CHUNK
@@ -147,11 +160,11 @@ def _quant_kv(x):
     return q.to(torch.int8), scale
 
 
-def write_cache(cache: dict, k, v, qpos) -> dict:
-    """Scatter T new K/V rows into the cache at per-row absolute positions,
-    in place."""
-    bidx = torch.arange(qpos.shape[0], device=qpos.device)[:, None]
-    slots = qpos.long()
+def write_cache(cache: dict, k, v, slots) -> dict:
+    """Scatter T new K/V rows into the cache at per-row slots (the absolute
+    positions, or a tree window's packed slots), in place."""
+    bidx = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    slots = slots.long()
     if cache["k"].dtype == torch.int8:
         k, ks = _quant_kv(k)
         v, vs = _quant_kv(v)
@@ -183,8 +196,12 @@ class Attention(nn.Module):
                    Linear.init(generator, cfg.q_dim, D, cfg.ffn_bias, dt, device))
 
     def forward(self, x, qpos, *, cache: dict | None = None, read_cache: bool = True,
-                collect=None, path: str = ""):
-        """x (B,T,D), qpos (B,T) int32 → (out (B,T,D), cache or None)."""
+                collect=None, path: str = "", tree: dict | None = None):
+        """x (B,T,D), qpos (B,T) int32 → (out (B,T,D), cache or None).
+
+        ``tree`` (a token-tree verify window): ``slots`` (B,T) where the
+        window's K/V go, ``mask`` (T,T) and its bit words ``bits``, and
+        ``win_start`` (B,), the window's first slot."""
         cfg = self.cfg
         B, T, _ = x.shape
         q = apply_linear(self.q, x, collect, f"{path}/q").reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -193,12 +210,15 @@ class Attention(nn.Module):
         if cfg.use_rope:
             q = apply_rope(q, qpos, cfg.rope_theta)
             k = apply_rope(k, qpos, cfg.rope_theta)
+        tree = tree or {}
         if cache is not None:
-            cache = write_cache(cache, k, v, qpos)
+            cache = write_cache(cache, k, v, tree.get("slots", qpos))
         if cache is not None and read_cache:
             kpos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
             o = attend(q, cache["k"], cache["v"], qpos, kpos,
-                       k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+                       k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                       tree_mask=tree.get("mask"), win_start=tree.get("win_start"),
+                       tree_bits=tree.get("bits"))
         else:
             o = attend(q, k, v, qpos, qpos)
         out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")

@@ -1,5 +1,5 @@
-"""Linear layer with bf16 and W8A8 (quantized-verification) forms — port of
-``repro/models/linear.py`` (the int4 form waits for the W4A8 slice).
+"""Linear layer with bf16, W8A8 and W4A8 (quantized-verification) forms —
+port of ``repro/models/linear.py``.
 
 * :class:`Linear` — ``w`` (din, dout) in the model dtype [+ ``b`` (dout,)].
 * :class:`W8A8Linear` — what ``repro_torch.quant.apply.quantize_params``
@@ -9,6 +9,10 @@
   (din, dout) — because the int8 tensor-core GEMM reads four consecutive K
   values of one output column per register; it is transposed once, at
   quantization (and in the bridge), never per call.
+* :class:`W4A8Linear` — ``w_int4`` (dout, din/2) int8, two int4 weights
+  per byte along din (``repro_torch.quant.int4``), with ``w_scale``,
+  ``smooth`` [+ ``b``] as above: the verify pass streams 0.5 byte per
+  weight.
 
 At run time the activations are smoothed and quantized per token (Eq. 9),
 the GEMM runs in int8 and the result is dequantized by Δw·Δx (Eq. 10).
@@ -51,3 +55,17 @@ class W8A8Linear(nn.Module):
         y = ops.w8a8_matmul(x, self.w_int8, self.w_scale, self.smooth)
         return y + self.b.to(y.dtype) if self.b is not None else y
 
+
+
+class W4A8Linear(nn.Module):
+    def __init__(self, w_int4: torch.Tensor, w_scale: torch.Tensor,
+                 smooth: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.register_buffer("w_int4", w_int4)      # (dout, din/2), din contiguous
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("smooth", smooth)
+        self.register_buffer("b", b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = ops.w4a8_matmul(x, self.w_int4, self.w_scale, self.smooth)
+        return y + self.b.to(y.dtype) if self.b is not None else y

@@ -72,7 +72,8 @@ class SpecEngine:
         self._prepared = (params, self.prepare_params(params))
         return self._prepared[1]
 
-    def _init_state(self, params, prompts, lengths, targets, buf, generators):
+    def _init_state(self, params, prompts, lengths, targets, buf, generators,
+                    draft_params=None):
         """Prefill + assemble the decode-loop state."""
         B, P = prompts.shape
         if P < 2:
@@ -84,7 +85,8 @@ class SpecEngine:
         # the cache covers committed tokens except the last, which is the
         # first token of the first verify window
         state["cache"] = self.model.prefill(params, state["cache"], prompts[:, :-1])
-        state["drafter_state"] = self.drafter.init_state(self.model, params, prompts, buf)
+        state["drafter_state"] = self.drafter.init_state(
+            self.model, params, prompts, buf, draft_params=draft_params)
         return state
 
     def _run(self, params, state, max_steps: int):
@@ -107,10 +109,12 @@ class SpecEngine:
     def generate(self, params, prompts: torch.Tensor,
                  max_new_tokens: Optional[int] = None, *,
                  generators: Optional[Sequence[torch.Generator]] = None,
-                 seed: int = 0) -> GenResult:
+                 seed: int = 0, draft_params=None) -> GenResult:
         """Homogeneous batch: prompts (B, P) int32 on the model's device,
         shared budget.  ``generators`` (one per row) default to request
-        streams seeded ``seed, seed+1, …``."""
+        streams seeded ``seed, seed+1, …``.  ``draft_params``: separate
+        weights for the pruned drafter's prefill (default: the prepared
+        verifier weights, as in the reference)."""
         max_new = max_new_tokens or self.scfg.max_new_tokens
         dev = self.model.device
         prompts = prompts.to(device=dev, dtype=torch.int32)
@@ -124,7 +128,8 @@ class SpecEngine:
         targets = torch.full((B,), P + max_new, dtype=torch.int32, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
-        state = self._init_state(params, prompts, lengths, targets, buf, generators)
+        state = self._init_state(params, prompts, lengths, targets, buf, generators,
+                                 draft_params)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         state, wall = self._run(params, state, max_new * 2 + 8)

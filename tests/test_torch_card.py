@@ -22,7 +22,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.core.tree import TreeTemplate
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
 from repro_torch.models import Model
@@ -95,6 +97,41 @@ def test_int8_matmul_exact_on_card(dev, m, k, n, out_dtype):
     assert torch.equal(y, int8_matmul_ref(x, w, dx, dw, out_dtype))
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (1, 2, 1), (7, 48, 200), (65, 4096, 130), (130, 96, 64), (24, 12288, 72),
+    (300, 256, 97), (5, 62, 33), (24, 4096, 1031)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_bit_equal_on_card(dev, m, k, n, out_dtype):
+    """Ragged M and N, K not a multiple of the 64-wide tile, and K not a
+    multiple of 32 (packed rows not 16-byte aligned: the byte-load path)."""
+    g = _gen(dev, m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+    ones_m, ones_n = torch.ones(m, device=dev), torch.ones(n, device=dev)
+    # unit scales, f32 out: the output is the int32 accumulator itself
+    acc = int4_matmul(x, w, ones_m, ones_n, out_dtype=torch.float32)
+    lo = (w.cpu().to(torch.int64) << 60) >> 60
+    hi = w.cpu().to(torch.int64) >> 4
+    unpacked = torch.stack([lo, hi], dim=2).reshape(n, k)
+    assert torch.equal(acc.cpu().to(torch.int64), x.cpu().to(torch.int64) @ unpacked.T)
+    dx = torch.rand(m, generator=g, device=dev) * 1e-2
+    dw = torch.rand(n, generator=g, device=dev) * 1e-3
+    y = int4_matmul(x, w, dx, dw, out_dtype=out_dtype)
+    assert y.dtype == out_dtype
+    assert torch.equal(y, int4_matmul_ref(x, w, dx, dw, out_dtype))
+
+
+def test_int4_matmul_unaligned_pointer_on_card(dev):
+    """A packed weight that does not start 16-byte aligned takes the
+    byte-load path and stays exact."""
+    g = _gen(dev, 5)
+    x = torch.randint(-127, 128, (9, 128), generator=g, device=dev, dtype=torch.int8)
+    buf = torch.randint(-128, 128, (40 * 64 + 1,), generator=g, device=dev, dtype=torch.int8)
+    w = buf[1:].view(40, 64)
+    dx, dw = torch.rand(9, device=dev), torch.rand(40, device=dev)
+    assert torch.equal(int4_matmul(x, w, dx, dw), int4_matmul_ref(x, w, dx, dw))
+
+
 def _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed):
     gen = _gen(dev, seed)
     q = torch.randn(b, t, hkv * g, dh, generator=gen, device=dev).to(dtype)
@@ -148,10 +185,67 @@ def test_flash_decode_row_does_not_depend_on_window_length(dev, int8):
                                rtol=2 ** -7, atol=1e-5)
 
 
-def test_nan_activation_sets_bad_row_on_card(dev):
-    """A NaN planted in one row's activations (an embedding row only that
-    row's prompt uses) reaches its W8A8 verifier logits through the
-    smooth_quant and int8_matmul kernels and sets its ``bad`` flag."""
+def _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8, seed):
+    tpl = TreeTemplate(branches)
+    T = tpl.num_nodes
+    q, k, v, _, kw = _attn(dev, b, T, s, hkv, g, dh, dtype, int8, seed)
+    gen = _gen(dev, seed + 1)
+    win_start = torch.randint(0, s - T + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    win_start[0] = s - T                    # one window ends at the last slot
+    tables = tpl.on(dev)
+    qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+    kw.update(tree_mask=tables.mask, win_start=win_start)
+    return q, k, v, qpos, kw, tables
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("branches,b,s,hkv,g,dh", [
+    ((3, 2, 1, 1), 4, 1152, 8, 4, 128),   # the 7B tree window
+    ((2, 2), 2, 300, 2, 3, 64),           # several splits, the window in the last
+    ((4, 4, 4), 2, 700, 8, 4, 128),       # 340 rows per KV head: three row blocks
+    ((64,), 1, 200, 2, 4, 128),           # the widest template: 260 rows
+    ((3, 1), 2, 40, 1, 9, 32),            # S under one split
+    ((1,) * 40, 1, 160, 1, 2, 64)])       # a 41-node chain: two mask words per node
+def test_flash_decode_tree_matches_plain_on_card(dev, branches, b, s, hkv, g, dh, dtype,
+                                                 int8):
+    q, k, v, qpos, kw, tables = _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8,
+                                           seed=s + g)
+    ops.reset_launch_counts()
+    o = flash_decode(q, k, v, qpos, tree_bits=tables.mask_bits, **kw)
+    o2 = flash_decode(q, k, v, qpos, **kw)      # bit words made from the mask
+    ro = flash_decode_ref(q, k, v, qpos, **kw)
+    torch.cuda.synchronize()
+    name = "flash_decode_tree_int8" if int8 else "flash_decode_tree"
+    assert ops.launch_counts() == {name: 2}
+    assert torch.equal(o, o2)
+    assert o.dtype == dtype and bool(torch.isfinite(o).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("t,dtype", [(6, torch.bfloat16), (6, torch.float32),
+                                     (1, torch.bfloat16), (43, torch.bfloat16)])
+def test_flash_decode_chain_template_tree_bit_equal_to_chain(dev, t, dtype, int8):
+    """The tree variant with the chain template (lower-triangular mask,
+    win_start = start) gives the chain variant's bits: same splits, same
+    visible keys, same order of sums — also when G*T rows span row blocks."""
+    g = 4
+    q, k, v, qpos, kw = _attn(dev, 4, t, 1152, 8, g, 128, dtype, int8, seed=t)
+    tables = TreeTemplate.chain(t - 1).on(dev)
+    chain = flash_decode(q, k, v, qpos, **kw)
+    tree = flash_decode(q, k, v, qpos, tree_mask=tables.mask, win_start=qpos[:, 0].contiguous(),
+                        tree_bits=tables.mask_bits, **kw)
+    assert torch.equal(chain, tree)
+
+
+def _nan_row_run(dev, verifier, **spec):
+    """Serve two rows with a NaN planted in row 0's activations (an
+    embedding row only that row's prompt uses); returns (result, launch
+    counts)."""
     from repro_torch.core.config import SpecConfig
     from repro_torch.serving.engine import SpecEngine
 
@@ -166,10 +260,27 @@ def test_nan_activation_sets_bad_row_on_card(dev):
     with torch.no_grad():
         params.embed.w[poison] = float("nan")
     ops.reset_launch_counts()
-    scfg = SpecConfig(temperature=0.0, gamma=4, drafter="ngram", verifier="w8a8")
+    scfg = SpecConfig(temperature=0.0, verifier=verifier, **spec)
     r = SpecEngine(model, scfg).generate(params, prompt.to(dev), 4)
-    counts = ops.launch_counts()
+    return r, ops.launch_counts()
+
+
+def test_nan_activation_sets_bad_row_on_card(dev):
+    """The planted NaN reaches row 0's W8A8 verifier logits through the
+    smooth_quant and int8_matmul kernels and sets its ``bad`` flag."""
+    r, counts = _nan_row_run(dev, "w8a8", gamma=4, drafter="ngram")
     assert counts.get("smooth_quant", 0) > 0 and counts.get("int8_matmul", 0) > 0
+    assert r.bad.tolist() == [True, False]
+
+
+@pytest.mark.parametrize("spec", [dict(gamma=4, drafter="ngram"),
+                                  dict(drafter="ngram-tree", tree_branches=(3, 2, 1, 1))])
+def test_w4a8_nan_activation_sets_bad_row_on_card(dev, spec):
+    """The same through the W4A8 path (smooth_quant and int4_matmul), on the
+    chain and the tree route."""
+    r, counts = _nan_row_run(dev, "w4a8", **spec)
+    assert counts.get("smooth_quant", 0) > 0 and counts.get("int4_matmul", 0) > 0
+    assert "int8_matmul" not in counts
     assert r.bad.tolist() == [True, False]
 
 
@@ -178,15 +289,22 @@ def test_each_launch_counts_once(dev):
     s = torch.ones(64, device=dev)
     w = torch.ones(32, 64, dtype=torch.int8, device=dev)
     q, k, v, qpos, kw = _attn(dev, 1, 2, 40, 1, 2, 32, torch.float32, True, seed=0)
+    tree = dict(tree_mask=torch.ones(2, 2, dtype=torch.bool, device=dev).tril(),
+                win_start=qpos[:, 0].contiguous())
     ops.reset_launch_counts()
     xq, dx = smooth_quant(x, s)
     int8_matmul(xq, w, dx, torch.ones(32, device=dev))
+    int4_matmul(xq, w[:, :32].contiguous(), dx, torch.ones(32, device=dev))
     flash_decode(q, k, v, qpos, **kw)
     flash_decode(q, k.float(), v.float(), qpos)
+    flash_decode(q, k, v, qpos, **kw, **tree)
+    flash_decode(q, k.float(), v.float(), qpos, **tree)
     ops.w8a8_matmul(x, w, torch.ones(32, device=dev), s)
+    ops.w4a8_matmul(x, w[:, :32].contiguous(), torch.ones(32, device=dev), s)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"smooth_quant": 2, "int8_matmul": 2,
-                                   "flash_decode": 1, "flash_decode_int8": 1}
+    assert ops.launch_counts() == {"smooth_quant": 3, "int8_matmul": 2, "int4_matmul": 2,
+                                   "flash_decode": 1, "flash_decode_int8": 1,
+                                   "flash_decode_tree": 1, "flash_decode_tree_int8": 1}
 
 
 def test_wrappers_reject_card_only_faults(dev):
@@ -232,3 +350,40 @@ def test_verify_step_on_card_matches_cpu(dev, verifier_w8a8):
         out.append(logits.cpu())
     tol = 1e-2 if verifier_w8a8 else 1e-4
     torch.testing.assert_close(out[1], out[0], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("verifier", ["bf16", "w4a8"])
+def test_tree_verify_step_on_card_matches_cpu(dev, verifier):
+    """Prefill → tree verify_step ((3, 2, 1, 1) window) → commit_tree on the
+    card (through the kernels) against the same weights on the CPU (plain
+    versions), f32 reduced config; W4A8 held to 1e-2 as W8A8 is above."""
+    from repro_torch.quant.apply import quantize_params
+    from repro_torch.core.config import QuantConfig
+
+    cfg = get_config("smollm-135m").reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    if verifier == "w4a8":
+        params = quantize_params(params, qcfg=QuantConfig(w_bits=4))
+    gpu = Model(cfg, device=dev)
+    params_gpu = copy.deepcopy(params).to(dev)
+    tpl = TreeTemplate((3, 2, 1, 1))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 22 + tpl.num_nodes))
+                            .astype(np.int32))
+    start = torch.tensor([22, 22], dtype=torch.int32)
+    path = torch.from_numpy(np.stack([tpl.paths[3], tpl.paths[0]])).to(torch.int32)
+    n_accept = torch.tensor([4, 1], dtype=torch.int32)
+    out, caches = [], []
+    for m, p, d in ((cpu, params, "cpu"), (gpu, params_gpu, dev)):
+        t = tpl.on(d)
+        cache = m.prefill(p, m.init_cache(2, 60), toks[:, :22].to(d))
+        logits, cache = m.verify_step(p, cache, toks[:, 22:].to(d), start.to(d),
+                                      tree_depths=t.depths, tree_mask=t.mask,
+                                      tree_bits=t.mask_bits)
+        cache = m.commit_tree(cache, start.to(d), path.to(d), n_accept.to(d))
+        out.append(logits.cpu())
+        caches.append(cache["layers"][1]["k"][:, :27].cpu())
+    tol = 1e-2 if verifier == "w4a8" else 1e-4
+    torch.testing.assert_close(out[1], out[0], rtol=tol, atol=tol)
+    torch.testing.assert_close(caches[1], caches[0], rtol=tol, atol=tol)
