@@ -30,7 +30,29 @@
    the reduced config on the card: greedy tokens equal to vanilla's for
    ngram, ngram-tree (3,2,1,1), pruned and ChainTreeAdapter(ngram), with
    W8A8 and W4A8, KV bf16 and int8.
-5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. Paged phase (the continuous-batching scheduler over the paged,
+   prefix-shared KV cache).  Kernel part: the four ``flash_decode_paged``
+   variants (chain/tree × bf16/int8 KV) at the 7B chain and (3,2,1,1) tree
+   windows with block size 128, 16 and 24 (one that divides neither the
+   32-key chunk nor the 128-key split), over shuffled block tables with a
+   scratch tail: bit-equal to the contiguous kernel on the same logical
+   content and within rtol 2^-7 / atol 1e-5 of the plain version, timed
+   beside the plain version and the contiguous kernel (the yardstick: no
+   PyTorch call takes a block table).  Path part, through
+   ``serve.main([... "--kv-layout", "paged"])``: (a) W8A8 ngram γ 5 KV
+   bf16, 12 requests of 1024 tokens through 8 slots, 64 new tokens; (b) the
+   (3,2,1,1) tree with W4A8 and KV int8, same requests; (d) W8A8 KV int8
+   and (e) the tree with W8A8 KV bf16, 4 requests each; and (c)
+   ``generate_requests`` over the contiguous cache with (a)'s settings.
+   Each gated on its paged kernel's launches, no ``bad`` row and 64 tokens
+   per request; (a)'s tokens must equal (c)'s.  A prefix-sharing run (8
+   requests sharing a 1024-token prompt plus 128 own tokens, sharing on
+   and off), a torch.profiler window over paged ticks of (a), and the
+   lossless gate on the reduced config: paged × {ngram, ngram-tree,
+   pruned} × {W8A8, W4A8} × KV {bf16, int8} equal to the contiguous and
+   solo tokens, plus one run whose pool is small enough that preemption
+   and swap-in happen.
+6. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -81,6 +103,19 @@ MAIN_PATH_RUNS = {                 # run name -> (serve flags, kernels it must l
                              "--kv-cache", "bf16"],
                             ("smooth_quant", "int8_matmul", "flash_decode")),
 }
+PAGED_REQUESTS = 12                # (a)-(c): 12 requests through the default 8 slots
+PAGED_RUNS = {                     # paged run -> (serve flags, batch, paged kernel it must launch)
+    "paged_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
+                            "--kv-cache", "bf16"], PAGED_REQUESTS, "flash_decode_paged"),
+    "paged_tree_w4a8_kv_int8": (["--verifier", "w4a8", *TREE_FLAGS, "--kv-cache", "int8"],
+                                PAGED_REQUESTS, "flash_decode_paged_tree_int8"),
+    "paged_w8a8_kv_int8": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
+                            "--kv-cache", "int8"], B, "flash_decode_paged_int8"),
+    "paged_tree_w8a8_kv_bf16": (["--verifier", "w8a8", *TREE_FLAGS, "--kv-cache", "bf16"],
+                                B, "flash_decode_paged_tree"),
+}
+PAGED_BLOCKS = (128, 16, 24)       # block sizes of the paged kernel phase
+SHARED_PROMPT, OWN_TAIL, SHARED_REQUESTS = 1024, 128, 8
 PROFILES = {                       # profiled run -> (verifier, drafter, kv, tree branches)
     "spec_w8a8_kv_bf16": ("w8a8", "ngram", "bf16", None),
     "spec_w8a8_kv_int8": ("w8a8", "ngram", "int8", None),
@@ -452,23 +487,13 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
                 state["length"].cpu()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): a host-side op such as
-        # aten::mul also carries its kernel's time, which would count twice
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            continue
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda item: -item[1])[:12]
+    busy_ms, top = device_time(torch, prof)
     info = dict(verifier=verifier, drafter=drafter, kv_cache=kv, tree_branches=branches,
                 steps=PROFILE_STEPS, wall_ms=wall_ms,
                 step_ms=wall_ms / PROFILE_STEPS,
                 device_busy_ms=busy_ms or None,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-                top_kernels_ms=[[k[:90], v] for k, v in top])
+                top_kernels_ms=top)
     log(f"  {json.dumps(info)}")
     return info
 
@@ -518,6 +543,391 @@ def lossless_gate(torch, dev):
                                          "vanilla on the card")
             log(f"  reduced smollm-135m (4 layers) {verifier} kv={kv}: ngram, ngram-tree "
                 f"{TREE}, pruned and chain-tree(ngram) == vanilla (32 tokens x 4 rows)")
+
+
+def to_pages(torch, dev, bs: int, seed: int, tensors: dict):
+    """The logical content of contiguous (B, S, ...) tensors in shuffled
+    physical blocks of ``bs`` keys behind a (B, nb) block table whose last
+    two logical blocks stay on the scratch block 0; the scratch block and
+    three spare blocks hold junk.  Returns (table, pools)."""
+    B, S = tensors["k"].shape[:2]
+    used = -(-S // bs)
+    nb, N = used + 2, 1 + B * used + 3
+    g = torch.Generator().manual_seed(seed)
+    bt = torch.zeros((B, nb), dtype=torch.int32)
+    bt[:, :used] = (torch.randperm(N - 1, generator=g)[:B * used] + 1).view(B, used)
+    bt = bt.to(dev)
+    rows = bt[:, :used].reshape(-1).long()
+    pools = {}
+    for name, x in tensors.items():
+        tail = tuple(x.shape[2:])
+        junk = (torch.randn((N, bs) + tail, generator=g) * 3).to(x.dtype).to(dev)
+        pad = torch.zeros((B, used * bs - S) + tail, dtype=x.dtype, device=dev)
+        junk[rows] = torch.cat([x, pad], dim=1).reshape((B * used, bs) + tail)
+        pools[name] = junk
+    return bt, pools
+
+
+def paged_kernel_phase(torch, dev, flush, cfg):
+    """The four flash_decode_paged variants at the 7B chain (T = γ+1) and
+    (3,2,1,1) tree windows, for each block size of PAGED_BLOCKS: bit-equal
+    to the contiguous kernel on the same logical content, within FLASH_TOL
+    of the plain version; timed beside both."""
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
+                                                  flash_decode_paged_ref, visible)
+    from repro_torch.models.attention import _quant_kv
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    results = {}
+    for tree in (False, True):
+        tables = TreeTemplate(TREE if tree else (1,) * GAMMA).on(dev)
+        t = tables.depths.shape[0]
+        s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128         # transformer.init_cache
+        win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+        qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+        masks = dict(tree_mask=tables.mask, win_start=win_start) if tree else {}
+        bits = dict(tree_bits=tables.mask_bits) if tree else {}
+        vis = visible(qpos, s_len, masks.get("tree_mask"), masks.get("win_start"))
+        # each batch row reads its keys up to the window's last live slot once
+        keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
+        for int8 in (False, True):
+            name = "flash_decode_paged" + "_tree" * tree + "_int8" * int8
+            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+            kv = {n: torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+                  for n in ("k", "v")}
+            if int8:
+                kv["k"], kv["k_scale"] = _quant_kv(kv["k"])
+                kv["v"], kv["v_scale"] = _quant_kv(kv["v"])
+            scales = {n: kv[n] for n in ("k_scale", "v_scale") if n in kv}
+            contig = flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks, **bits)
+            rows = []
+            for bs in PAGED_BLOCKS:
+                bt, pools = to_pages(torch, dev, bs, bs + 100 * tree + 10 * int8, kv)
+                pscales = {n: pools[n] for n in scales}
+                run = lambda: flash_decode_paged(q, pools["k"], pools["v"], bt, qpos,  # noqa: E731
+                                                 **pscales, **masks, **bits)
+                plain = lambda: flash_decode_paged_ref(  # noqa: E731
+                    q, pools["k"], pools["v"], bt, qpos, pscales.get("k_scale"),
+                    pscales.get("v_scale"), masks.get("tree_mask"), masks.get("win_start"))
+                o, ro = run(), plain()
+                torch.cuda.synchronize()
+                if not torch.equal(o, contig):
+                    raise AssertionError(f"{name} bs={bs}: not bit-equal to the contiguous "
+                                         "kernel on the same logical content")
+                if not torch.isfinite(o).all():
+                    raise AssertionError(f"{name} bs={bs}: non-finite output")
+                torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                           msg=lambda m: f"{name} bs={bs}: {m}")
+                err = (o.float() - ro.float()).abs().max().item()
+                kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8
+                                                                       else 0)
+                nbytes = (2 * 2 * B * t * HQ * DH + kv_bytes + 4 * B * t + 4 * bt.numel()
+                          + (4 * tables.mask_bits.numel() if tree else 0))
+                bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
+                row = dict(shape=[B, t, HQ, HKV, s_len, DH], block_size=bs,
+                           table=list(bt.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+                           **timed(torch, run, plain, None, 50, flush))
+                row["yardstick_contiguous_ms"] = time_ms(
+                    torch, lambda: flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks,
+                                                **bits), 50, flush)
+                rows.append(row)
+                del pools
+            results[name] = rows
+    log("  flash_decode_paged == contiguous flash_decode, bit for bit, for every variant "
+        f"and block size {PAGED_BLOCKS}")
+    for name, rows in results.items():
+        for r in rows:
+            log(f"  {name:30s} bs={r['block_size']:<4d} ms={r['ms']:.4f} "
+                f"contiguous_ms={r['yardstick_contiguous_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"host_ms={r['host_ms']:.4f} max_abs_err={r['max_abs_err']}")
+    return results
+
+
+def scheduled_info(torch, dev, sr) -> dict:
+    """What a scheduled 7B run records (``serve.ScheduledResult``)."""
+    g = sr.group_stats[0]
+    return dict(tok_s=sr.tokens_per_s, L=sr.mean_accept_len, steps=g["steps"],
+                max_request_steps=sr.steps, requests=len(sr.results), slots=g["slots"],
+                new_tokens=sr.new_tokens, wall_s=sr.wall_s, mean_step_ms=1e3 * sr.step_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                kv_layout=g["kv_layout"], cache_gb=g["cache_bytes"] / 1e9,
+                **{k: g[k] for k in ("pool_blocks", "block_size", "peak_blocks",
+                                     "shared_blocks", "cow_forks") if k in g},
+                bad_rows=sum(int(r.bad) for r in sr.results))
+
+
+def check_scheduled(name: str, info: dict, sr, n_requests: int) -> None:
+    if info["bad_rows"]:
+        raise AssertionError(f"{name}: non-finite verifier logits in {info['bad_rows']} rows")
+    if len(sr.results) != n_requests or any(r is None or r.tokens.size != NEW
+                                            for r in sr.results):
+        raise AssertionError(f"{name}: not every request finished with {NEW} new tokens")
+
+
+def paged_path_phase(torch, dev):
+    """The paged runs through the serve CLI (``--kv-layout paged``)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    runs = {}
+    for name, (flags, batch, needed) in PAGED_RUNS.items():
+        argv = ["--arch", ARCH, "--batch", str(batch), "--prompt-len", str(PROMPT),
+                "--new-tokens", str(NEW), "--kv-layout", "paged", *flags]
+        log(f"paged run {name}: serve {' '.join(argv)}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sr = serve.main(argv)
+        torch.cuda.synchronize()
+        info = scheduled_info(torch, dev, sr)
+        info.update(run_s_incl_init=time.perf_counter() - t0, launches=ops.launch_counts())
+        log(f"  {json.dumps(info)}")
+        if info["launches"].get(needed, 0) <= 0:
+            raise AssertionError(f"{name}: {needed} never launched on the path")
+        check_scheduled(name, info, sr, batch)
+        info["tokens"] = np.stack([r.tokens for r in sr.results])
+        runs[name] = info
+        del sr
+    return runs
+
+
+def scheduled_phase(torch, dev, paged_tokens):
+    """One 7B W8A8 model (KV bf16) for (c), the contiguous scheduled run of
+    (a)'s requests, whose tokens must equal (a)'s; the prefix-sharing pair;
+    and a profiled window of paged ticks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="bf16")
+    model = Model(cfg, device=dev)
+    spec = SpecConfig(gamma=GAMMA, temperature=0.0, drafter="ngram", verifier="w8a8")
+    params = SpecEngine(model, spec).prepare_params(
+        model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED)))
+    prompts = task_prompts(serve.TASK, PAGED_REQUESTS, PROMPT, cfg.vocab_size)
+    reqs = [GenerationRequest(p, NEW, seed=i) for i, p in enumerate(prompts)]
+    out = {}
+
+    def scheduled(scfg, requests):
+        eng = SpecEngine(model, scfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.generate_requests(params, requests)
+        torch.cuda.synchronize()
+        tkey = f"{eng.drafter.name}:{eng.verifier.name}"
+        sr = serve.ScheduledResult(res, time.perf_counter() - t0, eng.group_stats,
+                                   eng.telemetry.summary()[tkey]["step_s"]["mean"])
+        info = scheduled_info(torch, dev, sr)
+        info["launches"] = ops.launch_counts()
+        return sr, info
+
+    log("scheduled run contiguous_w8a8_kv_bf16 (c): generate_requests, 12 requests")
+    sr, info = scheduled(spec, reqs)
+    log(f"  {json.dumps(info)}")
+    check_scheduled("contiguous_w8a8_kv_bf16", info, sr, PAGED_REQUESTS)
+    if info["launches"].get("flash_decode", 0) <= 0:
+        raise AssertionError("contiguous scheduled run: flash_decode never launched")
+    toks = np.stack([r.tokens for r in sr.results])
+    same = [bool(np.array_equal(a, b)) for a, b in zip(paged_tokens, toks)]
+    if not all(same):
+        raise AssertionError(f"paged (a) tokens differ from contiguous (c): {same}")
+    log(f"  paged (a) tokens == contiguous (c) tokens for all {PAGED_REQUESTS} requests")
+    out["contiguous_w8a8_kv_bf16"] = info
+
+    # -- prefix sharing: 8 requests = one 1024-token prompt + 128 own tokens
+    head = task_prompts(serve.TASK, 1, SHARED_PROMPT, cfg.vocab_size)[0]
+    tails = task_prompts("humaneval", SHARED_REQUESTS, OWN_TAIL, cfg.vocab_size, seed=1)
+    shared_reqs = [GenerationRequest(np.concatenate([head, tl]), NEW, seed=i)
+                   for i, tl in enumerate(tails)]
+    sharing = {}
+    for on in (True, False):
+        scfg = dataclasses.replace(spec, kv_layout="paged", kv_block_size=128,
+                                   kv_prefix_sharing=on)
+        sr, info = scheduled(scfg, shared_reqs)
+        check_scheduled(f"prefix sharing {on}", info, sr, SHARED_REQUESTS)
+        if info["launches"].get("flash_decode_paged", 0) <= 0:
+            raise AssertionError("prefix-sharing run: flash_decode_paged never launched")
+        info["tokens"] = np.stack([r.tokens for r in sr.results])
+        sharing["on" if on else "off"] = info
+        log(f"  prefix sharing {'on' if on else 'off'}: "
+            f"{json.dumps({k: v for k, v in info.items() if k != 'tokens'})}")
+    a, b = sharing["on"].pop("tokens"), sharing["off"].pop("tokens")
+    diff = [int(np.nonzero(x != y)[0][0]) if (x != y).any() else None for x, y in zip(a, b)]
+    sharing["tokens_equal"] = all(d is None for d in diff)
+    sharing["first_difference_per_request"] = diff
+    sharing["peak_blocks_ratio_off_on"] = (sharing["off"]["peak_blocks"]
+                                           / sharing["on"]["peak_blocks"])
+    if sharing["on"]["shared_blocks"] <= 0:
+        raise AssertionError("prefix-sharing run shared no block")
+    log(f"  shared_blocks {sharing['on']['shared_blocks']}, peak_blocks "
+        f"{sharing['on']['peak_blocks']} on / {sharing['off']['peak_blocks']} off "
+        f"(x{sharing['peak_blocks_ratio_off_on']:.2f}); tokens equal: "
+        f"{sharing['tokens_equal']} (first difference per request: {diff})")
+    out["prefix_sharing"] = sharing
+    out["profile_paged_w8a8_kv_bf16"] = profile_paged(
+        torch, dev, SpecEngine(model, dataclasses.replace(spec, kv_layout="paged")), params,
+        reqs)
+    return out
+
+
+def profile_paged(torch, dev, engine, params, reqs):
+    """Device busy share over PROFILE_STEPS scheduler ticks (block top-up,
+    COW sweep, decode step, the tick's host read) of the paged run (a),
+    after the first wave's admissions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.scheduler import Scheduler
+
+    group = engine.serving_group(params, reqs)
+    sched = Scheduler(reqs, group.stats["slots"])
+    state = group.state
+    with torch.inference_mode():
+        for _ in range(2):                                   # admissions + warm-up
+            state, _ = sched.tick(state, **group.hooks)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                state, _ = sched.tick(state, **group.hooks)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, by_name = device_time(torch, prof)
+    info = dict(run="paged_w8a8_kv_bf16", slots=group.stats["slots"], steps=PROFILE_STEPS,
+                wall_ms=wall_ms, step_ms=wall_ms / PROFILE_STEPS,
+                device_busy_ms=busy_ms or None,
+                device_busy_ms_per_step=busy_ms / PROFILE_STEPS if busy_ms else None,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                top_kernels_ms=by_name)
+    log(f"  paged profile: {json.dumps(info)}")
+    return info
+
+
+def device_time(torch, prof):
+    """(device busy ms, top kernels [[name, ms]]) of a torch.profiler run:
+    device-side events only — a host-side op such as aten::mul also carries
+    its kernel's time, which would count twice."""
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:12]
+    return sum(by_name.values()), [[k[:90], v] for k, v in top]
+
+
+def paged_lossless_gate(torch, dev):
+    """The paged scheduled path on the reduced config (4 layers) on the
+    card: per-request greedy tokens equal to the contiguous scheduled run
+    and to serving each request alone, for ngram, ngram-tree (3,2,1,1) and
+    pruned × W8A8, W4A8 × KV bf16, int8 (block 16, prefix sharing on);
+    then a pool small enough that a better-keyed arrival preempts a running
+    request to host memory and it resumes — tokens unchanged."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.core.paged_cache import blocks_for_tokens, request_demand_tokens
+    from repro_torch.data import task_prompts
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+    from repro_torch.serving.scheduler import Scheduler
+
+    for kv in ("bf16", "int8"):
+        cfg = dataclasses.replace(get_config("smollm-135m").reduced(), kv_cache_dtype=kv,
+                                  num_layers=4)
+        model = Model(cfg, device=dev)
+        raw = model.init_params(torch.Generator(device=dev).manual_seed(1))
+        prompts = task_prompts("gsm8k", 6, 64, cfg.vocab_size)
+        reqs = [GenerationRequest(p[:40 + 4 * i], 20 + 3 * i, seed=i)
+                for i, p in enumerate(prompts)]
+        for verifier in ("w8a8", "w4a8"):
+            params = SpecEngine(model, SpecConfig(verifier=verifier)).prepare_params(raw)
+            for drafter in ("ngram", "ngram-tree", "pruned"):
+                spec = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
+                                  pruned_retention=0.75,
+                                  tree_branches=TREE if drafter == "ngram-tree" else None)
+                contiguous = SpecEngine(model, spec)
+                paged = SpecEngine(model, dataclasses.replace(spec, kv_layout="paged",
+                                                              kv_block_size=16))
+                got = {"contiguous": contiguous.generate_requests(params, reqs, batch_slots=2),
+                       "paged": paged.generate_requests(params, reqs, batch_slots=2),
+                       "solo": [contiguous.generate_requests(params, [r], batch_slots=1)[0]
+                                for r in reqs]}
+                for name, res in got.items():
+                    if any(r.bad for r in res):
+                        raise AssertionError(f"reduced {drafter} {verifier} kv {kv} {name}: "
+                                             "non-finite logits")
+                    for r, s in zip(res, got["solo"]):
+                        if not np.array_equal(r.tokens, s.tokens):
+                            raise AssertionError(f"reduced {drafter} {verifier} kv {kv}: "
+                                                 f"{name} != solo on the card")
+            log(f"  reduced smollm-135m (4 layers) {verifier} kv={kv}: paged == contiguous "
+                "== solo for ngram, ngram-tree, pruned (6 requests, 2 slots, block 16)")
+
+    # preemption and swap-in: a low-priority request fills the pool, then
+    # two better-keyed requests arrive; the scheduler evicts it and resumes it
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), num_layers=4)
+    model = Model(cfg, device=dev)
+    spec = SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8")
+    params = SpecEngine(model, spec).prepare_params(
+        model.init_params(torch.Generator(device=dev).manual_seed(1)))
+    rng = np.random.default_rng(17)
+    pat = rng.integers(0, cfg.vocab_size, 6)
+    reqs = [GenerationRequest(rng.integers(0, cfg.vocab_size, 40), 24, seed=1, priority=2),
+            GenerationRequest(np.tile(pat, 4), 12, seed=2),
+            GenerationRequest(np.concatenate([np.tile(pat, 4), pat[:3]]), 12, seed=3)]
+    bs = 8
+    demand = blocks_for_tokens(request_demand_tokens(40, 24, GAMMA), bs)
+    eng = SpecEngine(model, dataclasses.replace(spec, kv_layout="paged", kv_block_size=bs,
+                                                kv_pool_blocks=1 + demand + 1))
+    group = eng.serving_group(params, reqs, batch_slots=2)
+    sched, state = Scheduler([], 2), group.state
+    with torch.inference_mode():
+        sched.submit(reqs[0])
+        for _ in range(2):
+            state, _ = sched.tick(state, **group.hooks)
+        sched.submit(reqs[1])
+        sched.submit(reqs[2])
+        while sched.busy:
+            state, _ = sched.tick(state, **group.hooks)
+            group.ctx.check_invariants()
+    snap = group.ctx.snapshot()
+    if not (sched.preemptions > 0 and snap["preemptions"] > 0 and snap["swap_out_blocks"] > 0
+            and snap["swap_in_blocks"] > 0):
+        raise AssertionError(f"no preemption and swap-in happened: {snap}")
+    want = SpecEngine(model, spec).generate_requests(params, reqs, batch_slots=2)
+    for i, w in enumerate(want):
+        if not np.array_equal(sched.results[i].tokens, w.tokens):
+            raise AssertionError(f"preempted run: request {i} tokens differ from the "
+                                 "uninterrupted run")
+    log(f"  reduced smollm-135m: preemption + swap-in exercised ({snap['preemptions']} "
+        f"preemptions, {snap['swap_out_blocks']} blocks out, {snap['swap_in_blocks']} in); "
+        "tokens == the uninterrupted run")
+    return snap
 
 
 def main() -> int:
@@ -571,6 +981,26 @@ def main() -> int:
                 f"{p['device_idle_share_unprofiled']:.3f} of the unprofiled step")
     log("lossless gate")
     lossless_gate(torch, dev)
+    log("paged phase: kernels")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    kern.update(paged_kernel_phase(torch, dev, flush, get_config(ARCH)))
+    del flush
+    log("paged phase: 7B paged runs")
+    paged_runs = paged_path_phase(torch, dev)
+    sched = scheduled_phase(torch, dev, paged_runs["paged_w8a8_kv_bf16"]["tokens"])
+    for run in paged_runs.values():
+        del run["tokens"]
+    runs.update(paged_runs)
+    runs["contiguous_w8a8_kv_bf16"] = sched.pop("contiguous_w8a8_kv_bf16")
+    p = sched["profile_paged_w8a8_kv_bf16"]
+    if p["device_busy_ms"]:
+        p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms_per_step"] / \
+            runs["paged_w8a8_kv_bf16"]["mean_step_ms"]
+        log(f"  paged_w8a8_kv_bf16: device busy {p['device_busy_ms_per_step']:.2f} ms/step; "
+            f"idle {p['device_idle_share']:.3f} under the profiler, "
+            f"{p['device_idle_share_unprofiled']:.3f} of the unprofiled step")
+    log("paged phase: lossless gate")
+    preempt = paged_lossless_gate(torch, dev)
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -588,10 +1018,14 @@ def main() -> int:
         "flash_decode_tree_int8": ("src/repro_torch/csrc/flash_decode.cu",
                                    "src/repro/kernels/flash_decode.py:143",
                                    "tree_w4a8_kv_int8"),
+        **{name: ("src/repro_torch/csrc/flash_decode.cu",
+                  "src/repro/kernels/flash_decode.py:273", run)
+           for run, (_, _, name) in PAGED_RUNS.items()},
     }
     # the representative main-path shape of each kernel in the summary line
     pick = {"smooth_quant": 0, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
-            "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0}
+            "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
+            **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
         row = kern[kname][pick[kname]]
@@ -602,13 +1036,17 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             host_ms=row["host_ms"],
+            **({"yardstick_contiguous_ms": row["yardstick_contiguous_ms"]}
+               if "yardstick_contiguous_ms" in row else {}),
             launches_by_run={k: v["launches"].get(kname, 0) for k, v in runs.items()
                              if isinstance(v, dict)}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-             kernels=kern, runs=runs, profile=prof), indent=1))
+             kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
+             profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt),
+        indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,7 @@ W8A8 layout ``{"w_int8", "w_scale", "smooth"[, "b"]}`` and the W4A8
 layout ``{"w_int4", ...}``; the port stores ``w_int8`` transposed, (dout,
 din) with din contiguous, and ``w_int4`` as (dout, din/2)
 (models/linear.py), and ``to_numpy`` transposes both back.  ``cache_from_numpy`` /
-``cache_to_numpy`` do the same for a contiguous cache pytree.
+``cache_to_numpy`` do the same for a contiguous or paged cache pytree.
 
 JAX bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they cross as their 16-bit patterns
@@ -116,13 +116,20 @@ def to_numpy(params: Transformer) -> dict:
 
 
 def cache_from_numpy(tree: dict, device="cuda") -> dict:
-    """Reference contiguous cache pytree ``{"layers": [{"k","v"[,scales]}]}``
-    (numpy leaves) → the port's cache."""
+    """Reference cache pytree (numpy leaves) → the port's cache: contiguous
+    ``{"layers": [{"k","v"[,scales]}]}``, or paged with the pools as the
+    layers and the block table ``"bt"`` beside them."""
     dev = resolve_device(device)
-    return {"layers": [{k: tensor(v, dev) for k, v in layer.items()}
-                       for layer in tree["layers"]]}
+    out = {"layers": [{k: tensor(v, dev) for k, v in layer.items()}
+                      for layer in tree["layers"]]}
+    if "bt" in tree:
+        out["bt"] = tensor(tree["bt"], dev)
+    return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    return {"layers": [{k: array(v) for k, v in layer.items()}
-                       for layer in cache["layers"]]}
+    out = {"layers": [{k: array(v) for k, v in layer.items()}
+                      for layer in cache["layers"]]}
+    if "bt" in cache:
+        out["bt"] = array(cache["bt"])
+    return out

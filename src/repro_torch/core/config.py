@@ -7,9 +7,9 @@ torch dtype.
 * :class:`QuantConfig` — W8A8 / W4A8 verification settings (the paper's technique).
 * :class:`SpecConfig`  — speculative-decoding settings (drafting + verify).
 
-The port so far runs the dense decoder over a contiguous KV cache; the
-fields of the other families and the paged layout are kept for parity and
-rejected where they would be read.
+The port so far runs the dense decoder over a contiguous or paged KV
+cache; the fields of the other families are kept for parity and rejected
+where they would be read.
 """
 from __future__ import annotations
 
@@ -164,7 +164,7 @@ class SpecConfig:
     verifier: str = "w8a8"              # registered: w8a8 | w4a8 | bf16
     pruned_retention: float = 0.75
     tree_branches: Optional[Tuple[int, ...]] = None
-    kv_layout: str = "contiguous"       # the port serves "contiguous" only
+    kv_layout: str = "contiguous"       # "contiguous" | "paged" (generate_requests)
     kv_block_size: int = 128
     kv_pool_blocks: Optional[int] = None
     kv_prefix_sharing: bool = True

@@ -99,6 +99,11 @@ class ChainTreeAdapter(Drafter):
         return self.base.alloc_state(model, params, batch, buf_len,
                                      draft_params=draft_params)
 
+    def prefill_row(self, model, params, dstate, row, prompt, buf_len, *,
+                    draft_params=None):
+        return self.base.prefill_row(model, params, dstate, row, prompt, buf_len,
+                                     draft_params=draft_params)
+
     def propose(self, model, params, tokens, length, dstate, generators):
         proposal, dstate = self.base.propose(model, params, tokens, length, dstate,
                                              generators)
@@ -155,6 +160,19 @@ class PrunedDrafter(Drafter):
     def alloc_state(self, model, params, batch: int, buf_len: int, *, draft_params=None):
         # an empty (un-prefilled) draft cache
         return model.init_cache(batch, buf_len, num_layers=self.n_keep(model))
+
+    def prefill_row(self, model, params, dstate, row: int, prompt, buf_len: int, *,
+                    draft_params=None):
+        """Zero the draft cache's row ``row`` and prefill the unpadded
+        ``prompt`` (1, P) into it, in place (the row views write through)."""
+        rows = {"layers": [{name: t[row:row + 1] for name, t in layer.items()}
+                           for layer in dstate["layers"]]}
+        for layer in rows["layers"]:
+            for t in layer.values():
+                t.zero_()
+        model.prefill(draft_params if draft_params is not None else params, rows,
+                      prompt[:, :-1], num_layers=self.n_keep(model))
+        return dstate
 
     def propose(self, model, params, tokens, length, dstate, generators):
         n_keep = self.n_keep(model)

@@ -1,13 +1,14 @@
 """Pluggable decoding protocols: ``Drafter`` and ``Verifier`` — port of
-``repro/core/protocols.py`` (chain and token-tree proposals; the
-continuous-batching hook ``prefill_row`` waits for a later slice).
+``repro/core/protocols.py`` (chain and token-tree proposals, and the
+continuous-batching slot lifecycle).
 
 ``Drafter``:
 
 * ``init_state(model, params, prompts, buf_len, *, draft_params=None)`` →
   drafter state (once per generation; ``{}`` for stateless drafters, a
   prefilled draft cache for ``pruned``); ``alloc_state`` allocates it
-  empty;
+  empty for a scheduler group, and ``prefill_row`` resets one slot of it
+  for a newly admitted request, in place;
 * ``propose(model, params, tokens, length, dstate, generators)`` →
   ``(DraftProposal, dstate)`` every step.  ``proposal.tokens`` is
   ``(B, gamma)`` int32; ``probs`` is ``None`` for deterministic drafters
@@ -71,7 +72,19 @@ class Drafter:
 
     def alloc_state(self, model, params, batch: int, buf_len: int, *,
                     draft_params=None) -> Any:
+        """An **empty** ``batch``-row drafter state for a scheduler group
+        (every tensor batch-leading, zeroed); ``{}`` for stateless
+        drafters."""
         return {}
+
+    def prefill_row(self, model, params, dstate, row: int, prompt, buf_len: int, *,
+                    draft_params=None) -> Any:
+        """Reset slot ``row`` of ``dstate`` for a newly admitted request, in
+        place, and return ``dstate``.  ``prompt`` is ``(1, P)`` int32, the
+        **unpadded** prompt: a draft-side cache may keep slots the drafter
+        never rewrites, and a solo run has zeros there.  A no-op for
+        stateless drafters."""
+        return dstate
 
     def propose(self, model, params, tokens, length, dstate, generators):
         raise NotImplementedError

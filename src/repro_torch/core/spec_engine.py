@@ -10,7 +10,12 @@
   target         (B,)       int32   per-request stop lengths (optional):
                                     commits are masked so ``length`` never
                                     exceeds it
-  cache          dict               verifier KV cache (covers [0, length-1))
+  cache          dict               verifier KV cache (covers [0, length-1)):
+                                    contiguous per-row buffers, or the paged
+                                    pools plus a ``"bt"`` block table
+                                    (``core/paged_cache.py``) — the step is
+                                    layout-agnostic, the model dispatches on
+                                    ``"bt"``
   drafter_state  any                drafter-owned state ({} if stateless, the
                                     draft KV cache for ``pruned``)
   generators     list               one torch.Generator per row
@@ -19,7 +24,12 @@
                                     per-row flag that the verifier produced
                                     non-finite logits for an active row
 
-The KV cache is updated in place (``models/attention.write_cache``).
+The KV cache is updated in place (``models/attention.write_cache`` /
+``write_cache_paged``); the step returns new ``tokens``, ``length`` and
+``stats`` tensors.  A scheduler group starts with every slot idle
+(``length == target == 0``): an idle row still steps, with ``start = 0``,
+and writes its discarded window into its own contiguous row or, paged,
+into the scratch block.
 """
 from __future__ import annotations
 
@@ -30,6 +40,9 @@ import torch
 
 def init_state(model, batch: int, buf_len: int, generators: Sequence[torch.Generator],
                drafter_state=None, target=None, cache=None) -> dict:
+    """The engine state with every row empty (``length`` 0).  ``cache``
+    overrides the contiguous allocation (the paged serving path passes
+    ``core/paged_cache.init_paged_cache``'s pools and block table)."""
     dev = model.device
     state = {
         "tokens": torch.zeros((batch, buf_len), dtype=torch.int32, device=dev),

@@ -50,6 +50,27 @@
 // max(l, 1e-30), reading only the live splits.  Loads are bounded by S and
 // by the last live slot: no slot past either is read.
 // Arithmetic is f32 with accurate expf (no fast math).
+//
+// Paged variant (flash_decode_paged_launch): replaces the Pallas TPU
+// kernel repro/kernels/flash_decode.py:_make_paged_kernel (chain and tree,
+// bf16/f32 and int8 KV) called by flash_decode_paged (pallas_call at
+// flash_decode.py:378).  K/V (and the int8 scales) live in physical pools
+// (N, bs, Hkv, dh) shared by all rows, and a (B, nb) int32 block table maps
+// logical block s / bs of row b to its physical block; the logical key
+// position is s.  The TPU kernel walks logical blocks through scalar-
+// prefetched BlockSpec index maps; here the split kernel is the same
+// template with another key-row functor (ContigRows / PagedRows): each
+// 16-byte load computes its key's pool row from bt[b, s / bs] and s % bs
+// (a cached __ldg of the table).  Splits, live range, row blocks and every
+// sum keep the contiguous kernel's order, so the paged kernel gives the
+// contiguous kernel's bits for the same logical content, for any bs >= 1
+// (a 32-key chunk may straddle physical blocks; a 16-byte load never
+// does, it stays inside one key's dh row).  Bound on the H100: bytes, as
+// the contiguous kernel — the live K/V rows of each batch row, read once:
+// the table lookup replaces the address arithmetic and adds no pass over
+// K/V.  Slots past the live range are never read, so the unallocated
+// logical blocks (all mapped to scratch block 0) cost nothing, and
+// results do not depend on nb beyond the live range.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +141,24 @@ __device__ __forceinline__ bool visible(int s, int qp, int t,
   return s <= qp;
 }
 
+// Key-row functors: the row of key s of batch row b in a (rows, Hkv, ...)
+// K/V (or scale) array.  Contiguous cache: row b*S + s.  Paged pools:
+// block bt[b, s / bs] at offset s % bs (s < nb*bs by the live range).
+struct ContigRows {
+  int S;
+  __device__ __forceinline__ int64_t operator()(int b, int s) const {
+    return static_cast<int64_t>(b) * S + s;
+  }
+};
+struct PagedRows {
+  const int* __restrict__ bt;
+  int nb, bs;
+  __device__ __forceinline__ int64_t operator()(int b, int s) const {
+    const int blk = __ldg(bt + static_cast<int64_t>(b) * nb + s / bs);
+    return static_cast<int64_t>(blk) * bs + s % bs;
+  }
+};
+
 __device__ __forceinline__ void fma4(float& acc, const float4 a, const float4 b) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -127,11 +166,12 @@ __device__ __forceinline__ void fma4(float& acc, const float4 a, const float4 b)
   acc = fmaf(a.w, b.w, acc);
 }
 
-template <typename QT, typename KVT, int DH>
+template <typename QT, typename KVT, int DH, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                    const KVT* __restrict__ v, const float* __restrict__ ks,
-                   const float* __restrict__ vs, const int* __restrict__ qpos,
+                   const float* __restrict__ vs, const Rows rows,
+                   const int* __restrict__ qpos,
                    const int* __restrict__ tree_bits, const int* __restrict__ win_start,
                    int tree_words, float* __restrict__ part_m,
                    float* __restrict__ part_l, float* __restrict__ part_acc, int T,
@@ -189,7 +229,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
       const int j = i / VPR, c = (i % VPR) * EPV, s = c0 + j;
       float kv[EPV], vv[EPV];
       if (s < s_end) {
-        const int64_t off = ((static_cast<int64_t>(b) * S + s) * Hkv + h) * DH + c;
+        const int64_t off = (rows(b, s) * Hkv + h) * DH + c;
         load16(k + off, kv);
         load16(v + off, vv);
       } else {
@@ -207,9 +247,13 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     if (kInt8) {
       for (int j = tid; j < CK; j += kThreads) {
         const int s = c0 + j;
-        const int64_t off = (static_cast<int64_t>(b) * S + s) * Hkv + h;
-        ksc_s[j] = s < s_end ? ks[off] : 0.f;
-        vsc_s[j] = s < s_end ? vs[off] : 0.f;
+        if (s < s_end) {
+          const int64_t off = rows(b, s) * Hkv + h;
+          ksc_s[j] = ks[off];
+          vsc_s[j] = vs[off];
+        } else {
+          ksc_s[j] = vsc_s[j] = 0.f;
+        }
       }
     }
     __syncthreads();
@@ -353,9 +397,9 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename QT, typename KVT, int DH>
-int launch(const Args& a) {
-  auto split = flash_split_kernel<QT, KVT, DH>;
+template <typename QT, typename KVT, int DH, typename Rows>
+int launch(const Args& a, const Rows rows) {
+  auto split = flash_split_kernel<QT, KVT, DH, Rows>;
   if (a.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         split, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(a.smem));
@@ -365,7 +409,7 @@ int launch(const Args& a) {
   const int row_blocks = (R + a.rows_per_block - 1) / a.rows_per_block;
   split<<<dim3(a.B * a.Hkv, a.nsplit, row_blocks), kThreads, a.smem, a.st>>>(
       static_cast<const QT*>(a.q), static_cast<const KVT*>(a.k),
-      static_cast<const KVT*>(a.v), a.ks, a.vs, a.qpos, a.tree_bits, a.win_start,
+      static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
       a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
       a.split_len, a.rows_per_block, a.scale);
   const cudaError_t e = cudaGetLastError();
@@ -377,18 +421,26 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT, typename KVT>
-int launch_dh(int dh, const Args& a) {
+template <typename QT, typename KVT, typename Rows>
+int launch_dh(int dh, const Args& a, const Rows rows) {
   switch (dh) {
     case 32:
-      return launch<QT, KVT, 32>(a);
+      return launch<QT, KVT, 32>(a, rows);
     case 64:
-      return launch<QT, KVT, 64>(a);
+      return launch<QT, KVT, 64>(a, rows);
     case 128:
-      return launch<QT, KVT, 128>(a);
+      return launch<QT, KVT, 128>(a, rows);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename Rows>
+int launch_types(int q_is_bf16, int kv_int8, int dh, const Args& a, const Rows rows) {
+  if (q_is_bf16)
+    return kv_int8 ? launch_dh<__nv_bfloat16, int8_t>(dh, a, rows)
+                   : launch_dh<__nv_bfloat16, __nv_bfloat16>(dh, a, rows);
+  return kv_int8 ? launch_dh<float, int8_t>(dh, a, rows) : launch_dh<float, float>(dh, a, rows);
 }
 
 }  // namespace
@@ -416,10 +468,30 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                part_acc, B, T, Hq, Hkv, S, tree_words, split_len, nsplit,
                rows_per_block, static_cast<size_t>(smem), scale,
                static_cast<cudaStream_t>(stream)};
-  if (q_is_bf16)
-    return kv_int8 ? launch_dh<__nv_bfloat16, int8_t>(dh, a)
-                   : launch_dh<__nv_bfloat16, __nv_bfloat16>(dh, a);
-  return kv_int8 ? launch_dh<float, int8_t>(dh, a) : launch_dh<float, float>(dh, a);
+  return launch_types(q_is_bf16, kv_int8, dh, a, ContigRows{S});
+}
+
+// As flash_decode_launch, over paged pools: k, v: (N, bs, Hkv, dh) and ks,
+// vs: (N, bs, Hkv) f32 (int8 KV) addressed through bt: (B, nb) int32
+// physical block ids in [0, N); the logical cache length is S = nb * bs,
+// and nsplit = ceil(S / split_len).  Returns a cudaError_t.
+extern "C" int flash_decode_paged_launch(const void* q, const void* k, const void* v,
+                                         const float* ks, const float* vs, const int* bt,
+                                         int nb, int bs, const int* qpos,
+                                         const int* tree_bits, const int* win_start,
+                                         int tree_words, void* out, float* part_m,
+                                         float* part_l, float* part_acc, int B, int T,
+                                         int Hq, int Hkv, int dh, int q_is_bf16,
+                                         int kv_int8, int split_len, int nsplit,
+                                         int rows_per_block, long long smem, float scale,
+                                         void* stream) {
+  const int S = nb * bs;
+  if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, out, part_m, part_l,
+               part_acc, B, T, Hq, Hkv, S, tree_words, split_len, nsplit,
+               rows_per_block, static_cast<size_t>(smem), scale,
+               static_cast<cudaStream_t>(stream)};
+  return launch_types(q_is_bf16, kv_int8, dh, a, PagedRows{bt, nb, bs});
 }
 
 extern "C" const char* flash_decode_error_string(int err) {

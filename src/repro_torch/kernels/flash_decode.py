@@ -17,6 +17,15 @@ gets them made from ``tree_mask``.
 tensors and the CUDA kernel (``csrc/flash_decode.cu``) for CUDA tensors.
 Both accumulate in f32 but sum in different orders, so they agree to f32
 rounding before the cast to ``q.dtype``.
+
+``flash_decode_paged`` is the same attention over a **paged** cache —
+port of the reference's ``flash_decode_paged``: K/V (and the int8 scales)
+live in physical pools ``(N, bs, Hkv, dh)`` and a ``(B, nb)`` int32 block
+table maps logical block ``s // bs`` of row ``b`` to its pool block.  Its
+plain version gathers the logical view (``core/paged_cache.
+gather_block_rows``) and runs :func:`flash_decode_ref`; its kernel reads
+the pools through the table and gives the contiguous kernel's bits for
+the same logical content.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.paged_cache import gather_block_rows
 from repro_torch.kernels import ops
 
 MASK_VAL = -1e30
@@ -88,12 +98,24 @@ def flash_decode_ref(q, k, v, qpos, k_scale=None, v_scale=None, tree_mask=None,
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, dh).to(q.dtype)
 
 
-def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits) -> None:
+def flash_decode_paged_ref(q, k, v, bt, qpos, k_scale=None, v_scale=None,
+                           tree_mask=None, win_start=None):
+    """Plain version of :func:`flash_decode_paged`: gather the logical
+    ``(B, nb·bs, ...)`` view through the block table, then
+    :func:`flash_decode_ref` (the reference's paged oracle)."""
+    gather = lambda pool: None if pool is None else gather_block_rows(pool, bt)  # noqa: E731
+    return flash_decode_ref(q, gather(k), gather(v), qpos, gather(k_scale), gather(v_scale),
+                            tree_mask, win_start)
+
+
+def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
+           paged: bool = False) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_decode: need q (B,T,Hq,dh) and k, v (B,S,Hkv,dh), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash_decode: need q (B,T,Hq,dh) and k, v (B,S,Hkv,dh) "
+                         f"or pools (N,bs,Hkv,dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, T, Hq, dh = q.shape
-    if k.shape[0] != B or k.shape[3] != dh or Hq % k.shape[2]:
+    if (not paged and k.shape[0] != B) or k.shape[3] != dh or Hq % k.shape[2]:
         raise ValueError(f"flash_decode: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {dh} not in {HEAD_DIMS}")
@@ -164,9 +186,24 @@ def rows_per_block(rows: int, dh: int) -> int:
     return -(-(-(-rows // blocks)) // ROW_BLOCK) * ROW_BLOCK
 
 
-def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits):
+def _check_table(q, k, bt) -> None:
+    if bt.dim() != 2 or bt.shape[0] != q.shape[0] or bt.shape[1] < 1 \
+            or bt.dtype != torch.int32:
+        raise ValueError(f"flash_decode_paged: bt must be ({q.shape[0]}, nb >= 1) int32, "
+                         f"got {tuple(bt.shape)} {bt.dtype}")
+    if not bt.is_contiguous():
+        raise ValueError("flash_decode_paged: inputs must be contiguous")
+    if bt.device != q.device:
+        raise ValueError("flash_decode_paged: inputs are on different devices")
+
+
+def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None):
+    """Launch the split and merge kernels on contiguous K/V, or on pools
+    through the block table ``bt`` (logical length nb·bs)."""
     B, T, Hq, dh = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    paged = bt is not None
+    S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
+    Hkv = k.shape[2]
     R = (Hq // Hkv) * T
     rpb = rows_per_block(R, dh)
     smem = smem_bytes(rpb, dh)
@@ -183,18 +220,28 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits):
     tree = tree_mask is not None
     if tree and tree_bits is None:
         tree_bits = tree_mask_bits(tree_mask)
-    fn = ops.c_function("flash_decode", "flash_decode_launch",
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                        + [ctypes.c_int] * 11
-                        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
-    err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
-             ops.ptr(qpos), ops.ptr(tree_bits), ops.ptr(win_start),
-             -(-T // 32), ops.ptr(out), ops.ptr(part_m), ops.ptr(part_l),
-             ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, int(q.dtype == torch.bfloat16),
-             int(int8), SPLIT_LEN, nsplit, rpb, smem, dh ** -0.5, ops.stream(q))
+    tail = [int(q.dtype == torch.bfloat16), int(int8), SPLIT_LEN, nsplit, rpb, smem,
+            dh ** -0.5, ops.stream(q)]
+    tail_types = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    if paged:
+        fn = ops.c_function("flash_decode", "flash_decode_paged_launch",
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 5 + tail_types)
+        err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
+                 ops.ptr(bt), bt.shape[1], k.shape[1], ops.ptr(qpos), ops.ptr(tree_bits),
+                 ops.ptr(win_start), -(-T // 32), ops.ptr(out), ops.ptr(part_m),
+                 ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, dh, *tail)
+    else:
+        fn = ops.c_function("flash_decode", "flash_decode_launch",
+                            [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 6 + tail_types)
+        err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
+                 ops.ptr(qpos), ops.ptr(tree_bits), ops.ptr(win_start),
+                 -(-T // 32), ops.ptr(out), ops.ptr(part_m), ops.ptr(part_l),
+                 ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, *tail)
     ops.check("flash_decode", err)
-    name = "flash_decode_tree" if tree else "flash_decode"
-    ops.LAUNCHES[name + "_int8" if int8 else name] += 1
+    ops.LAUNCHES["flash_decode" + "_paged" * paged + "_tree" * tree + "_int8" * int8] += 1
     return out
 
 
@@ -208,3 +255,20 @@ def flash_decode(q, k, v, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
     return ops.dispatch(
         q, lambda: flash_decode_ref(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start),
         lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits))
+
+
+def flash_decode_paged(q, k, v, bt, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
+                       win_start=None, tree_bits=None):
+    """q (B,T,Hq,dh); k/v pools (N,bs,Hkv,dh) of q's dtype or int8 with
+    k_scale / v_scale pools (N,bs,Hkv) f32; bt (B,nb) int32 physical block
+    ids (unallocated logical blocks at the scratch block 0); qpos (B,T)
+    int32 → (B,T,Hq,dh) in q's dtype, as :func:`flash_decode` over the
+    logical ``(B, nb·bs)`` view.  Token-tree windows as there.  The table's
+    ids are the host allocator's and are not range-checked on the card."""
+    _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, paged=True)
+    _check_table(q, k, bt)
+    return ops.dispatch(
+        q, lambda: flash_decode_paged_ref(q, k, v, bt, qpos, k_scale, v_scale, tree_mask,
+                                          win_start),
+        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
+                        bt=bt))

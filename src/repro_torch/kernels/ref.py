@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_decode import flash_decode_ref  # noqa: F401
+from repro_torch.kernels.flash_decode import flash_decode_paged_ref, flash_decode_ref  # noqa: F401
 from repro_torch.kernels.int4_matmul import int4_matmul_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.smooth_quant import EPS, INT8_MAX, smooth_quant_ref

@@ -18,13 +18,23 @@ Cache layout per layer: ``{"k","v": (B, S, Hkv, dh)}``, plus
 Unlike the reference's functional update, :func:`write_cache` writes the
 cache tensors **in place** (one buffer per layer instead of a copy per
 step) and returns the same dict.
+
+**Paged cache** (``block_tables`` given): the layer's cache holds
+physical pools ``(N, bs, Hkv, dh)`` (``core/paged_cache.py``) and logical
+slots map through the ``(B, nb)`` block table.  :func:`write_cache_paged`
+scatters the window's rows into the pools in place, and
+:func:`attend_paged` reads them through the ``flash_decode_paged``
+wrapper: the CUDA kernel on the card, the gather-then-``flash_decode_ref``
+plain version on the CPU.  Decode/verify only — admission prefills a
+contiguous row and scatters it into blocks.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_decode import flash_decode, tree_override
+from repro_torch.core.paged_cache import physical_slots
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged, tree_override
 from repro_torch.kernels.smooth_quant import INV_INT8_MAX
 from repro_torch.models.common import apply_rope
 from repro_torch.models.ffn import apply_linear
@@ -123,11 +133,12 @@ def _flash_eligible(kpos) -> bool:
 
 
 def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
-           win_start=None, tree_bits=None):
+           win_start=None, tree_bits=None, plain: bool = False):
     """Position-masked attention (tree-masked over a token-tree window).
-    Flash-eligible calls go to the ``flash_decode`` wrapper; the others run
-    the plain path."""
-    if _flash_eligible(kpos):
+    Flash-eligible calls go to the ``flash_decode`` wrapper; the others —
+    and every call with ``plain=True``, the reference's ``impl="jnp"`` —
+    run the plain path."""
+    if not plain and _flash_eligible(kpos):
         return flash_decode(q, k, v, qpos, k_scale=k_scale, v_scale=v_scale,
                             tree_mask=tree_mask, win_start=win_start,
                             tree_bits=tree_bits)
@@ -144,6 +155,19 @@ def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
                 v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
         return _attend_chunked(q, k, v, valid, k_scale, v_scale)
     return _attend_direct(q, k, v, valid, k_scale, v_scale)
+
+
+def attend_paged(q, cache: dict, bt, qpos, *, tree_mask=None, win_start=None,
+                 tree_bits=None):
+    """Position-masked attention over a **paged** cache layer: ``cache``
+    holds the pools ``k``/``v`` (N, bs, Hkv, dh) (+ int8 scale pools) and
+    ``bt`` is the (B, nb) block table.  Always the ``flash_decode_paged``
+    wrapper: its kernel on a CUDA tensor (never a gather followed by the
+    contiguous kernel), its plain version (gather + ``flash_decode_ref``)
+    on a CPU tensor."""
+    return flash_decode_paged(q, cache["k"], cache["v"], bt, qpos,
+                              k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                              tree_mask=tree_mask, win_start=win_start, tree_bits=tree_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +199,27 @@ def write_cache(cache: dict, k, v, slots) -> dict:
     return cache
 
 
+def write_cache_paged(cache: dict, k, v, slots, bt) -> dict:
+    """Scatter T new K/V rows into a *paged* layer pool through the block
+    table, in place.  ``slots`` (B, T) are logical slots;
+    ``core/paged_cache.physical_slots`` maps them onto rows of the pool
+    viewed as ``(N * bs, Hkv, dh)``.  Rows never collide across live rows:
+    the host forks a shared block (copy-on-write) before a window can
+    reach it.  Idle rows (and slots past a row's table) land in the
+    scratch block, whose content is never validly read."""
+    phys = physical_slots(bt, slots, cache["k"].shape[1]).reshape(-1)      # (B*T,)
+    if cache["k"].dtype == torch.int8:
+        k, ks = _quant_kv(k)
+        v, vs = _quant_kv(v)
+        for name, vals in (("k_scale", ks), ("v_scale", vs)):
+            cache[name].view(-1, vals.shape[-1])[phys] = vals.reshape(-1, vals.shape[-1])
+    for name, vals in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf.view((-1,) + tuple(buf.shape[2:]))[phys] = \
+            vals.reshape((-1,) + tuple(vals.shape[2:])).to(buf.dtype)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Layer
 # ---------------------------------------------------------------------------
@@ -196,12 +241,15 @@ class Attention(nn.Module):
                    Linear.init(generator, cfg.q_dim, D, cfg.ffn_bias, dt, device))
 
     def forward(self, x, qpos, *, cache: dict | None = None, read_cache: bool = True,
-                collect=None, path: str = "", tree: dict | None = None):
+                collect=None, path: str = "", tree: dict | None = None,
+                block_tables=None, plain_attn: bool = False):
         """x (B,T,D), qpos (B,T) int32 → (out (B,T,D), cache or None).
 
         ``tree`` (a token-tree verify window): ``slots`` (B,T) where the
         window's K/V go, ``mask`` (T,T) and its bit words ``bits``, and
-        ``win_start`` (B,), the window's first slot."""
+        ``win_start`` (B,), the window's first slot.  ``block_tables``
+        (B, nb) int32 makes ``cache`` a paged layer pool.  ``plain_attn``
+        reads the cache through the plain path (chunked prefill)."""
         cfg = self.cfg
         B, T, _ = x.shape
         q = apply_linear(self.q, x, collect, f"{path}/q").reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -211,14 +259,21 @@ class Attention(nn.Module):
             q = apply_rope(q, qpos, cfg.rope_theta)
             k = apply_rope(k, qpos, cfg.rope_theta)
         tree = tree or {}
-        if cache is not None:
-            cache = write_cache(cache, k, v, tree.get("slots", qpos))
-        if cache is not None and read_cache:
-            kpos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
-            o = attend(q, cache["k"], cache["v"], qpos, kpos,
-                       k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-                       tree_mask=tree.get("mask"), win_start=tree.get("win_start"),
-                       tree_bits=tree.get("bits"))
+        slots = tree.get("slots", qpos)
+        masks = dict(tree_mask=tree.get("mask"), win_start=tree.get("win_start"),
+                     tree_bits=tree.get("bits"))
+        if cache is not None and block_tables is not None:     # paged: decode/verify
+            cache = write_cache_paged(cache, k, v, slots, block_tables)
+            o = attend_paged(q, cache, block_tables, qpos, **masks)
+        elif cache is not None:
+            cache = write_cache(cache, k, v, slots)
+            if read_cache:
+                kpos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
+                o = attend(q, cache["k"], cache["v"], qpos, kpos,
+                           k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                           plain=plain_attn, **masks)
+            else:
+                o = attend(q, k, v, qpos, qpos)
         else:
             o = attend(q, k, v, qpos, qpos)
         out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")

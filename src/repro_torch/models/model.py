@@ -49,6 +49,21 @@ class Model:
                           need_logits=False, num_layers=num_layers)
         return cache
 
+    def prefill_chunk(self, params: Transformer, cache: dict, tokens, start: int,
+                      num_layers=None) -> dict:
+        """Prefill a prompt *tail* against an already-warm contiguous cache,
+        in place: rows ``[0, start)`` of ``cache`` hold earlier context (a
+        shared prompt prefix gathered from the paged prefix cache) and
+        ``tokens`` (B, T) continue it at absolute position ``start``.  The
+        chunk attends through the plain path, as the reference forces
+        ``jnp`` there, so it attends over the cached prefix as a
+        full-prompt prefill does over its own rows."""
+        st = torch.full((tokens.shape[0],), int(start), dtype=torch.int32,
+                        device=tokens.device)
+        _, cache = params(tokens, st, cache=cache, read_cache=True, need_logits=False,
+                          num_layers=num_layers, plain_attn=True)
+        return cache
+
     def verify_step(self, params: Transformer, cache: dict, window_tokens, start,
                     num_layers=None, tree_depths=None, tree_mask=None, tree_bits=None):
         """Forward a speculative window (B, T=γ+1) at per-row ``start``.

@@ -1,7 +1,7 @@
 """Decoder stack — port of the ``dense`` path of
 ``repro/models/transformer.py``: self-attention + FFN blocks over a
-contiguous KV cache, with the pruned-stack (``num_layers``) and token-tree
-verify windows, and the tree commit.
+contiguous or paged KV cache, with the pruned-stack (``num_layers``) and
+token-tree verify windows, and the tree commit.
 
 The parameter tree is an ``nn.Module`` tree whose submodule paths are the
 reference pytree's paths (``embed/w``, ``layers/<i>/attn/q``,
@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.core.paged_cache import physical_slots
 from repro_torch.models.attention import Attention, init_attn_cache
 from repro_torch.models.common import Norm, embed_init
 from repro_torch.models.ffn import FFN
@@ -26,7 +27,7 @@ from repro_torch.quant.smoothquant import record_act_stats
 def check_supported(cfg) -> None:
     if cfg.arch_type != "dense" or cfg.sliding_window or cfg.cross_attn_every:
         raise NotImplementedError(
-            f"the port runs dense decoders over a contiguous cache; "
+            f"the port runs dense full-attention decoders; "
             f"{cfg.name} ({cfg.arch_type}, window={cfg.sliding_window}) waits "
             "for a later slice")
     if cfg.attn_impl != "auto":
@@ -53,10 +54,10 @@ class Block(nn.Module):
                    Norm(cfg, cfg.d_model, device), FFN.init(generator, cfg, device))
 
     def forward(self, x, qpos, cache=None, *, read_cache=True, collect=None, path="",
-                tree=None):
+                tree=None, block_tables=None, plain_attn=False):
         h, cache = self.attn(self.attn_norm(x), qpos, cache=cache,
                              read_cache=read_cache, collect=collect, path=f"{path}/attn",
-                             tree=tree)
+                             tree=tree, block_tables=block_tables, plain_attn=plain_attn)
         x = x + h
         x = x + self.ffn(self.ffn_norm(x), collect, f"{path}/ffn")
         return x, cache
@@ -88,7 +89,8 @@ class Transformer(nn.Module):
     def forward(self, tokens, start, *, cache: Optional[dict] = None,
                 read_cache: bool = True, collect=None, need_logits: bool = True,
                 path: str = "", num_layers: Optional[int] = None,
-                tree_depths=None, tree_mask=None, tree_bits=None):
+                tree_depths=None, tree_mask=None, tree_bits=None,
+                plain_attn: bool = False):
         """tokens (B,T) int, start (B,) first position →
         (logits (B,T,V) f32 or None, cache or None).
 
@@ -98,8 +100,19 @@ class Transformer(nn.Module):
         positions follow node depth while cache slots follow packed order
         (``start + arange(T)``), and the ancestor mask replaces position
         causality inside the window; ``tree_bits`` is the mask as the bit
-        words the attention kernel reads (``TreeTables.mask_bits``)."""
+        words the attention kernel reads (``TreeTables.mask_bits``).
+
+        A cache holding a block table ``"bt"`` is the paged serving cache
+        (``core/paged_cache.py``): decode/verify only, since admission
+        prefills a contiguous row and scatters it into blocks.
+        ``plain_attn`` reads the cache through the plain attention path
+        (``Model.prefill_chunk``)."""
         cfg = self.cfg
+        block_tables = cache.get("bt") if cache is not None else None
+        if block_tables is not None and not read_cache:
+            raise NotImplementedError(
+                "paged caches do not support forward-pass prefill; admission "
+                "prefills a contiguous row and scatters it into the pool")
         T = tokens.shape[1]
         arange = torch.arange(T, dtype=torch.int32, device=tokens.device)
         tree = None
@@ -113,7 +126,8 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers[:num_layers or cfg.num_layers]):
             lcache = cache["layers"][i] if cache is not None else None
             x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
-                            path=f"{path}layers/{i}", tree=tree)
+                            path=f"{path}layers/{i}", tree=tree,
+                            block_tables=block_tables, plain_attn=plain_attn)
         logits = None
         if need_logits:
             x = self.final_norm(x)
@@ -172,9 +186,44 @@ def _compact_attn_rows(lcache: dict, start, path_nodes, n_accept) -> dict:
     return lcache
 
 
+def _compact_attn_rows_paged(lcache: dict, bt, start, path_nodes, n_accept) -> dict:
+    """Paged-layout tree commit, in place: the row moves of
+    :func:`_compact_attn_rows` with logical slots translated to pool rows
+    through the block table.  Live rows move rows only inside their own
+    blocks (``start + node <= start + gamma`` is within the request's
+    allocation); idle rows compact inside the scratch block, whose content
+    is never validly read."""
+    B, D1 = path_nodes.shape
+    D = D1 - 1
+    if D == 0:
+        return lcache
+    block_size = lcache["k"].shape[1]
+    S = bt.shape[1] * block_size
+    depth = torch.arange(1, D + 1, dtype=torch.int64, device=start.device)[None, :]
+    src = (start[:, None].long() + path_nodes[:, 1:].long()).clamp(0, S - 1)   # (B, D)
+    dst = (start[:, None].long() + depth).clamp(0, S - 1)
+    keep = depth <= n_accept[:, None]                                          # (B, D)
+    phys_src = physical_slots(bt, src, block_size)
+    phys_dst = physical_slots(bt, dst, block_size)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name not in lcache:
+            continue
+        flat = lcache[name].view((-1,) + tuple(lcache[name].shape[2:]))
+        moved, stay = flat[phys_src], flat[phys_dst]                           # (B, D, ...)
+        tail = (1,) * (moved.dim() - 2)
+        vals = torch.where(keep.reshape(keep.shape + tail), moved, stay)
+        flat[phys_dst.reshape(-1)] = vals.reshape((-1,) + tuple(vals.shape[2:]))
+    return lcache
+
+
 def commit_cache_tree(cfg, cache: dict, start, path_nodes, n_accept) -> dict:
     """Resolve tree-verify candidate caches: compact the accepted
-    root-to-leaf path of every layer (see :func:`_compact_attn_rows`)."""
+    root-to-leaf path of every layer (see :func:`_compact_attn_rows`;
+    :func:`_compact_attn_rows_paged` for a paged cache)."""
+    bt = cache.get("bt")
     for lcache in cache["layers"]:
-        _compact_attn_rows(lcache, start, path_nodes, n_accept)
+        if bt is not None:
+            _compact_attn_rows_paged(lcache, bt, start, path_nodes, n_accept)
+        else:
+            _compact_attn_rows(lcache, start, path_nodes, n_accept)
     return cache

@@ -11,7 +11,9 @@ suite's JAX conftest out:
 ``chip_smoke.py`` checks the kernels at the 7B main path's shapes; these
 tests cover the edges the main path does not reach: partial tiles, K and
 S not multiples of the blocks, every instantiated head size, f32 inputs,
-and the wrappers' card-only input checks.
+paged block sizes that divide neither the 32-key chunk nor the 128-key
+split, idle rows on the scratch block, and the wrappers' card-only input
+checks.
 """
 import copy
 import dataclasses
@@ -23,7 +25,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.core.tree import TreeTemplate
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
+                                              flash_decode_paged_ref, flash_decode_ref)
 from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
@@ -242,6 +245,121 @@ def test_flash_decode_chain_template_tree_bit_equal_to_chain(dev, t, dtype, int8
     assert torch.equal(chain, tree)
 
 
+def _to_pages(dev, bs, seed, k, v, kw):
+    """The same logical content as contiguous k/v (B, S, Hkv, dh) (+ scales)
+    in shuffled physical blocks of size ``bs`` behind a (B, nb) table whose
+    last two logical blocks are scratch (0); the scratch block and three
+    spare blocks hold junk."""
+    B, S, Hkv, dh = k.shape
+    used = -(-S // bs)
+    nb, N = used + 2, 1 + B * used + 3
+    g = torch.Generator().manual_seed(seed)
+    bt = torch.zeros((B, nb), dtype=torch.int32)
+    bt[:, :used] = (torch.randperm(N - 1, generator=g)[:B * used] + 1).view(B, used)
+    bt = bt.to(dev)
+    rows = bt[:, :used].reshape(-1).long()
+    pages = {}
+    for name, x in (("k", k), ("v", v), ("k_scale", kw.get("k_scale")),
+                    ("v_scale", kw.get("v_scale"))):
+        if x is None:
+            continue
+        junk = torch.randn((N, bs) + tuple(x.shape[2:]), generator=g) * 3
+        pool = (junk.to(torch.int8) if x.dtype == torch.int8 else junk.to(x.dtype)).to(dev)
+        pad = torch.zeros((B, used * bs - S) + tuple(x.shape[2:]), dtype=x.dtype, device=dev)
+        pool[rows] = torch.cat([x, pad], dim=1).reshape((B * used, bs) + tuple(x.shape[2:]))
+        pages[name] = pool
+    return bt, pages
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("bs,s", [(8, 300), (16, 1152), (128, 1152), (24, 300), (5, 97)])
+def test_flash_decode_paged_bit_equal_to_contiguous_on_card(dev, bs, s, tree, int8):
+    """Over the same logical content the paged kernel gives the contiguous
+    kernel's bits — for block sizes that divide the 32-key chunk, equal the
+    128-key split, and divide neither (24, 5) — and agrees with its plain
+    version within one bf16 rounding step."""
+    if tree:
+        q, k, v, qpos, kw, tables = _tree_attn(dev, (3, 2, 1, 1), 4, s, 8, 4, 128,
+                                               torch.bfloat16, int8, seed=bs)
+        kw["tree_bits"] = tables.mask_bits
+    else:
+        q, k, v, qpos, kw = _attn(dev, 4, 6, s, 8, 4, 128, torch.bfloat16, int8, seed=bs)
+    bt, pages = _to_pages(dev, bs, bs + s, k, v, kw)
+    ops.reset_launch_counts()
+    contig = flash_decode(q, k, v, qpos, **kw)
+    pkw = {n: kw[n] for n in ("tree_mask", "win_start", "tree_bits") if n in kw}
+    paged = flash_decode_paged(q, pages["k"], pages["v"], bt, qpos,
+                               k_scale=pages.get("k_scale"), v_scale=pages.get("v_scale"),
+                               **pkw)
+    ref = flash_decode_paged_ref(q, pages["k"], pages["v"], bt, qpos, pages.get("k_scale"),
+                                 pages.get("v_scale"), kw.get("tree_mask"),
+                                 kw.get("win_start"))
+    torch.cuda.synchronize()
+    name = "flash_decode_paged" + "_tree" * tree + "_int8" * int8
+    assert ops.launch_counts()[name] == 1
+    assert torch.equal(paged, contig)
+    assert bool(torch.isfinite(paged).all())
+    torch.testing.assert_close(paged.float(), ref.float(), rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_decode_paged_idle_rows_read_scratch_on_card(dev, int8):
+    """Idle rows — an all-scratch table, positions at the window's start 0
+    — read only the scratch block: finite, equal to the plain version, and
+    the live rows beside them keep the contiguous kernel's bits."""
+    q, k, v, qpos, kw = _attn(dev, 4, 6, 500, 8, 4, 128, torch.bfloat16, int8, seed=9)
+    bt, pages = _to_pages(dev, 16, 3, k, v, kw)
+    bt[1:3] = 0
+    qpos[1:3] = torch.arange(6, device=dev, dtype=torch.int32)
+    sc = dict(k_scale=pages.get("k_scale"), v_scale=pages.get("v_scale"))
+    out = flash_decode_paged(q, pages["k"], pages["v"], bt, qpos, **sc)
+    ref = flash_decode_paged_ref(q, pages["k"], pages["v"], bt, qpos, sc["k_scale"],
+                                 sc["v_scale"])
+    contig = flash_decode(q, k, v, qpos, **kw)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-5)
+    assert torch.equal(out[[0, 3]], contig[[0, 3]])
+
+
+def test_flash_decode_paged_rejects_bad_tables_on_card(dev):
+    q, k, v, qpos, kw = _attn(dev, 2, 1, 64, 1, 2, 32, torch.float32, False, seed=1)
+    bt, pages = _to_pages(dev, 16, 1, k, v, kw)
+    for bad in (bt.long(), bt[:1], bt.cpu(), bt.t().contiguous()[:, :2].t()):
+        with pytest.raises(ValueError, match="bt must be|devices|contiguous"):
+            flash_decode_paged(q, pages["k"], pages["v"], bad, qpos)
+
+
+def test_paged_generate_requests_equals_contiguous_on_card(dev):
+    """Scheduled serving on the card through the kernels: paged (prefix
+    sharing on, block 16) gives the contiguous layout's tokens per request,
+    and the paged kernel is what read the cache."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    cfg = get_config("smollm-135m").reduced()
+    model = Model(cfg, device=dev)
+    params = model.init_params(_gen(dev, 0))
+    rng = np.random.default_rng(3)
+    pat = rng.integers(0, cfg.vocab_size, 6)
+    reqs = [GenerationRequest(np.tile(pat, k), max_new_tokens=n, seed=k)
+            for k, n in ((5, 9), (4, 12), (3, 7), (6, 5), (4, 10))]
+    out = {}
+    for layout in ("contiguous", "paged"):
+        scfg = SpecConfig(temperature=0.0, gamma=3, verifier="w8a8", kv_layout=layout,
+                          kv_block_size=16)
+        ops.reset_launch_counts()
+        eng = SpecEngine(model, scfg)
+        out[layout] = eng.generate_requests(params, reqs, batch_slots=2)
+        counts = ops.launch_counts()
+        assert counts.get("flash_decode_paged" if layout == "paged" else "flash_decode", 0) > 0
+    assert eng.group_stats[0]["shared_blocks"] > 0
+    for a, b in zip(out["contiguous"], out["paged"]):
+        assert not a.bad and not b.bad
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
 def _nan_row_run(dev, verifier, **spec):
     """Serve two rows with a NaN planted in row 0's activations (an
     embedding row only that row's prompt uses); returns (result, launch
@@ -299,12 +417,22 @@ def test_each_launch_counts_once(dev):
     flash_decode(q, k.float(), v.float(), qpos)
     flash_decode(q, k, v, qpos, **kw, **tree)
     flash_decode(q, k.float(), v.float(), qpos, **tree)
+    bt, pages = _to_pages(dev, 8, 0, k, v, kw)
+    pk = dict(k_scale=pages["k_scale"], v_scale=pages["v_scale"])
+    fk, fv = pages["k"].float().contiguous(), pages["v"].float().contiguous()
+    flash_decode_paged(q, pages["k"], pages["v"], bt, qpos, **pk)
+    flash_decode_paged(q, fk, fv, bt, qpos)
+    flash_decode_paged(q, pages["k"], pages["v"], bt, qpos, **pk, **tree)
+    flash_decode_paged(q, fk, fv, bt, qpos, **tree)
     ops.w8a8_matmul(x, w, torch.ones(32, device=dev), s)
     ops.w4a8_matmul(x, w[:, :32].contiguous(), torch.ones(32, device=dev), s)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"smooth_quant": 3, "int8_matmul": 2, "int4_matmul": 2,
                                    "flash_decode": 1, "flash_decode_int8": 1,
-                                   "flash_decode_tree": 1, "flash_decode_tree_int8": 1}
+                                   "flash_decode_tree": 1, "flash_decode_tree_int8": 1,
+                                   "flash_decode_paged": 1, "flash_decode_paged_int8": 1,
+                                   "flash_decode_paged_tree": 1,
+                                   "flash_decode_paged_tree_int8": 1}
 
 
 def test_wrappers_reject_card_only_faults(dev):
