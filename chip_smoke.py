@@ -10,8 +10,10 @@
    version (smooth_quant bit-equal, int8_matmul and int4_matmul exact,
    flash_decode — chain and token-tree windows — within one bf16 rounding
    step: rtol 2^-7, atol 1e-5 — both accumulate in f32 and round once to
-   bf16), and the tree variant with the chain template bit-equal to the
-   chain variant.  Times the kernel, the plain version and, where one
+   bf16), the tree variant with the chain template bit-equal to the
+   chain variant, and a tree window's root rows bit-equal to a T = 1 chain
+   query at the window's start ((3,2,1,1) and (4,4,4), bf16 and int8 KV).
+   Times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, L2
    flushed before every launch, median of many), beside the least time the
    card could take; int4_matmul, which no PyTorch call computes, has
@@ -386,6 +388,36 @@ def kernel_phase(torch, dev, flush, cfg):
                                  f"{int8}) is not bit-equal to the chain variant")
     log("  tree flash_decode with the chain template == chain flash_decode, bit for bit "
         "(bf16 and int8 KV)")
+
+    # -- a tree window's root rows give a T = 1 chain query's bits at
+    #    qpos = win_start (the keys before the window by position, the root
+    #    by the mask), for every query head, whichever tile and row block
+    #    holds them --
+    for branches in (TREE, (4, 4, 4)):
+        tables = TreeTemplate(branches).on(dev)
+        t = tables.depths.shape[0]
+        s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128
+        win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+        qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+        for int8 in (False, True):
+            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+            k = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+            v = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+            kw = {}
+            if int8:
+                k, ks = _quant_kv(k)
+                v, vs = _quant_kv(v)
+                kw = dict(k_scale=ks, v_scale=vs)
+            tree = flash_decode(q, k, v, qpos, tree_mask=tables.mask, win_start=win_start,
+                                tree_bits=tables.mask_bits, **kw)
+            root = flash_decode(q[:, :1].contiguous(), k, v, win_start[:, None].contiguous(),
+                                **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(tree[:, :1], root):
+                raise AssertionError(f"tree flash_decode {branches} (int8 KV {int8}): the root "
+                                     "rows differ from the T = 1 chain query at win_start")
+    log(f"  tree flash_decode root rows == T = 1 chain rows at win_start, bit for bit "
+        f"({TREE} and (4, 4, 4), bf16 and int8 KV)")
     for name, rows in results.items():
         for r in rows:
             extra = (f" int8_ms={r['yardstick_int8_matmul_ms']:.4f}"

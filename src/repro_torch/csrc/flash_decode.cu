@@ -16,93 +16,102 @@
 // Replaces the Pallas TPU kernels repro/kernels/flash_decode.py:_kernel
 // (chain, bf16/f32 KV), :_kernel_int8 (chain, int8 KV), :_kernel_tree
 // (tree, bf16/f32 KV) and :_kernel_tree_int8 (tree, int8 KV), all through
-// _flash_body and the pallas_call at flash_decode.py:248.  The TPU kernel
-// gathers each score column's ancestor bit with a one-hot matmul (it has
-// no dynamic gather); here each thread reads its bit from the word.
+// _flash_body and the pallas_call at flash_decode.py:248, and — through the
+// PagedRows functor below — :_make_paged_kernel (pallas_call at
+// flash_decode.py:378).  Each computes what _flash_body does:
+// s = q.k * scale [* k_scale], masked to -1e30; m_new = max(m, max s);
+// p = valid ? exp(s - m_new) : 0; l = l*alpha + sum p; p *= v_scale;
+// acc = acc*alpha + p.V; out = acc / max(l, 1e-30).
 //
 // Bound on the H100: bytes.  Each call reads, for each batch row, the K/V
 // slots up to the window's last live slot once (Hkv*dh elements each per
-// slot, plus the scales) for only 4*G*T operations per cached element pair —
-// far below the rate at which arithmetic would bound it.  The last live slot
-// is the window's last position for a chain, and the larger of that and
-// win_start + T - 1 for a tree, whose nodes are packed past their
-// positions.  Slots past it are masked for every query row, so they are
-// never read: a split that starts past it is skipped, and the last live
-// split stops there.
+// slot, plus the scales) for only 4*G*T operations per cached element pair.
+// The last live slot is the window's last position for a chain, and the
+// larger of that and win_start + T - 1 for a tree, whose nodes are packed
+// past their positions; slots past it are masked for every query row and
+// never read.
 //
-// Design: the TPU kernel walks S as a sequential grid axis carrying (m, l,
-// acc) in VMEM; here B*Hkv blocks alone would leave most of the 132 SMs
-// idle, so S is split into ranges of split_len keys (flash-decoding).  The
-// split depends on S alone — never on T or B — so a query row's result does
-// not depend on the window length.  One block per (b, kv head, split, row
-// block) holds up to rows_per_block of the G*T query rows of its KV head in
-// shared memory — few enough that two 8-warp blocks fit an SM (a tree
-// window's rows span several row blocks; each row's sums keep their order,
-// so neither the row split nor the thread count changes a bit) — streams its key range
-// in chunks of 32 keys (16-byte loads, widened to f32 in shared memory), and
-// keeps the running max m, sum l and f32 accumulator per query row in the
-// order of flash_decode.py:100-114: s = q.k * scale [* k_scale], masked to
-// -1e30; m_new = max(m, max s); p = valid ? exp(s - m_new) : 0;
-// l = l*alpha + sum p; p *= v_scale; acc = acc*alpha + p.V.  The two
-// products are register-tiled — a thread holds 8 query rows' dot products
-// for one key, or 8 rows x 4 dims of p.V — so each shared-memory float4
-// feeds 4-32 FMAs.  A second kernel merges the splits and divides by
-// max(l, 1e-30), reading only the live splits.  Loads are bounded by S and
-// by the last live slot: no slot past either is read.
-// Arithmetic is f32 with accurate expf (no fast math).
+// Design.  S is split into 128-key ranges (flash-decoding: B*Hkv blocks
+// alone would leave most of the 132 SMs idle); the split depends on S
+// alone, never on T or B, a split past the live range is skipped, and a
+// second kernel merges the live splits in split order and divides by
+// max(l, 1e-30).  Two split bodies:
 //
-// Paged variant (flash_decode_paged_launch): replaces the Pallas TPU
-// kernel repro/kernels/flash_decode.py:_make_paged_kernel (chain and tree,
-// bf16/f32 and int8 KV) called by flash_decode_paged (pallas_call at
-// flash_decode.py:378).  K/V (and the int8 scales) live in physical pools
-// (N, bs, Hkv, dh) shared by all rows, and a (B, nb) int32 block table maps
-// logical block s / bs of row b to its physical block; the logical key
-// position is s.  The TPU kernel walks logical blocks through scalar-
-// prefetched BlockSpec index maps; here the split kernel is the same
-// template with another key-row functor (ContigRows / PagedRows): each
-// 16-byte load computes its key's pool row from bt[b, s / bs] and s % bs
-// (a cached __ldg of the table).  Splits, live range, row blocks and every
-// sum keep the contiguous kernel's order, so the paged kernel gives the
-// contiguous kernel's bits for the same logical content, for any bs >= 1
-// (a 32-key chunk may straddle physical blocks; a 16-byte load never
-// does, it stays inside one key's dh row).  Bound on the H100: bytes, as
-// the contiguous kernel — the live K/V rows of each batch row, read once:
-// the table lookup replaces the address arithmetic and adds no pass over
-// K/V.  Slots past the live range are never read, so the unallocated
-// logical blocks (all mapped to scratch block 0) cost nothing, and
-// results do not depend on nb beyond the live range.
+// * Tensor-core body (bf16 queries, bf16 or int8 K/V) — what the earlier
+//   CUDA-core kernel lost time to, and what this one does about it:
+//   1. Both products ran on CUDA cores in f32 with most threads idle, at a
+//      cost linear in the G*T rows.  Here one block per (b, kv head, split)
+//      holds all G*T rows of its KV head when G*T <= 128 (wider windows take
+//      ceil(G*T / 128) row blocks, each re-reading its split's K/V, mostly
+//      from L2); warp w owns the 16-row tile w and sweeps every key of the
+//      split, its m, l and f32 accumulator in registers.  s = q.k^T and p.V
+//      run on mma.sync.m16n8k16 bf16 -> f32, K fragments from ldmatrix on
+//      the key rows, V fragments from ldmatrix.trans (int8 K/V: every
+//      thread of the block, the copying warps too, widens the chunk's codes
+//      to bf16 in shared memory first — exact, |x| <= 127 — so both
+//      types share one fragment path).  P enters p.V as two bf16 terms,
+//      hi = bf16(p) and lo = bf16(p - hi), into the same accumulator: a
+//      single bf16 P loses ~2^-9 of each weight, hi + lo keeps ~16 bits.
+//      Row max and row sum are taken within the quad of lanes sharing an
+//      accumulator row (xor 1, 2) after each lane folds its own values in
+//      a fixed order; exp is ex2.approx on the scaled argument (relative
+//      error ~2^-22).
+//   2. No copy overlapped the math.  Here K/V are copied with 16-byte
+//      cp.async in their stored type (bf16 or int8, never to f32) into a
+//      ring of three 32-key chunks: two chunks are in flight while one is
+//      used.  Rows are padded by 16 bytes, so ldmatrix has no bank conflict.
+//      cp.async rather than TMA: each 16-byte piece's address comes from the
+//      key-row functor, which is what keeps the paged kernel bit-equal to
+//      the contiguous one for any block size.
+//   3. Wide windows read K/V once per row block of at most 64 rows (dh
+//      128: six at (4,4,4)'s 340 rows); here once per row block of at most
+//      128 rows (three), and once in all for G*T <= 128.
+//   A query row's bits depend on neither T nor B: every row's sums run in
+//   the same order whatever tile, warp or row block holds it (mma computes
+//   each output element from its own row and column alone), keys are never
+//   handed between warps, and chunks past the live range — the only thing
+//   T changes — add exact zeros.  Warps past the last tile only copy.
+// * f32 body (f32 queries; f32 or int8 K/V), the reduced config's path:
+//   CUDA cores in f32 throughout (TF32 would miss the 1e-5 agreement), one
+//   thread per (key, 8 rows) for the scores and per (4 dims, 8 rows) for
+//   p.V over 32-key chunks widened to f32 in shared memory, rows per block
+//   as many as keep two blocks on an SM.
+//
+// Paged variant (flash_decode_paged_launch): K/V (and the int8 scales) live
+// in physical pools (N, bs, Hkv, dh) shared by all rows, and a (B, nb)
+// int32 block table maps logical block s / bs of row b to its physical
+// block; the logical key position is s.  The TPU kernel walks logical
+// blocks through scalar-prefetched BlockSpec index maps; here both split
+// bodies take a key-row functor (ContigRows / PagedRows): each 16-byte copy
+// computes its key's pool row from bt[b, s / bs] and s % bs (a cached __ldg
+// of the table).  Splits, live range, row blocks and every sum keep the
+// contiguous kernel's order, so the paged kernel gives the contiguous
+// kernel's bits for any bs >= 1 (a chunk may straddle physical blocks; a
+// 16-byte copy never does).  Bound: bytes, as the contiguous kernel — the
+// table lookup adds no pass over K/V, and slots past the live range (the
+// unallocated logical blocks, all on scratch block 0) are never read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps: 2 blocks of them per SM (see rows_per_block)
-constexpr int CK = 32;  // keys per chunk: one per lane in the softmax update
-constexpr int RB = 8;   // query rows per register block
+constexpr int kMaxThreads = 256;  // 8 warps
+constexpr int CK = 32;          // keys per chunk: one online-softmax update (both bodies)
+constexpr int SPLIT = 128;      // keys per split (SPLIT_LEN in kernels/flash_decode.py)
+constexpr int RING = 3;         // tensor-core body: K/V chunks staged at once (cp.async ring)
+constexpr int RB = 8;           // f32 body: query rows per register block
 constexpr float MASK_VAL = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One 16-byte load of K/V elements, widened to f32 (4, 8 or 16 values).
+// f32 body: one 16-byte load of K/V elements, widened to f32 (4 or 16 values).
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   const int4 u = *reinterpret_cast<const int4*>(p);
@@ -124,8 +133,8 @@ __device__ __forceinline__ int live_end(const int* __restrict__ qpos, const int*
 }
 
 // Splits holding at least one live key.
-__device__ __forceinline__ int live_splits(int end, int split_len, int nsplit) {
-  return end <= 0 ? 0 : min(nsplit, (end - 1) / split_len + 1);
+__device__ __forceinline__ int live_splits(int end, int nsplit) {
+  return end <= 0 ? 0 : min(nsplit, (end - 1) / SPLIT + 1);
 }
 
 // Is slot s visible to a query row at position qp, window node t?  Inside
@@ -166,17 +175,20 @@ __device__ __forceinline__ void fma4(float& acc, const float4 a, const float4 b)
   acc = fmaf(a.w, b.w, acc);
 }
 
-template <typename QT, typename KVT, int DH, typename Rows>
-__global__ void __launch_bounds__(kThreads)
-flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
-                   const KVT* __restrict__ v, const float* __restrict__ ks,
-                   const float* __restrict__ vs, const Rows rows,
-                   const int* __restrict__ qpos,
-                   const int* __restrict__ tree_bits, const int* __restrict__ win_start,
-                   int tree_words, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc, int T,
-                   int Hq, int Hkv, int S, int split_len, int rows_per_block,
-                   float scale) {
+// The f32 body (f32 queries; f32 or int8 K/V): CUDA cores, f32 throughout,
+// so the reduced config's f32 path keeps its 1e-5 agreement (TF32 would
+// not).  One thread per (key, 8 query rows) for the scores and per (4 dims,
+// 8 query rows) for p.V, over 32-key chunks widened to f32 in shared memory.
+template <typename KVT, int DH, typename Rows>
+__global__ void __launch_bounds__(kMaxThreads)
+flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
+                       const KVT* __restrict__ v, const float* __restrict__ ks,
+                       const float* __restrict__ vs, const Rows rows,
+                       const int* __restrict__ qpos, const int* __restrict__ tree_bits,
+                       const int* __restrict__ win_start, int tree_words,
+                       float* __restrict__ part_m, float* __restrict__ part_l,
+                       float* __restrict__ part_acc, int T, int Hq, int Hkv, int S,
+                       int rows_per_block, float scale) {
   constexpr bool kInt8 = sizeof(KVT) == 1;
   constexpr int EPV = 16 / sizeof(KVT);  // K/V elements per 16-byte load
   constexpr int VPR = DH / EPV;          // 16-byte loads per key row
@@ -193,9 +205,9 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   // that starts past it writes nothing (the merge skips it), and the last
   // live split stops there
   const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, b, T, S);
-  const int s_begin = split * split_len;
+  const int s_begin = split * SPLIT;
   if (s_begin >= end) return;
-  const int s_end = min(s_begin + split_len, end);
+  const int s_end = min(s_begin + SPLIT, end);
   const int ws = tree_bits != nullptr ? win_start[b] : 0;
 
   extern __shared__ __align__(16) float smem[];
@@ -212,12 +224,12 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   int* qpos_s = reinterpret_cast<int*>(vsc_s + CK);  // [R]
 
   // local row r is query row row0 + r = g*T + t
-  for (int i = tid; i < R * DH; i += kThreads) {
+  for (int i = tid; i < R * DH; i += kMaxThreads) {
     const int r = row0 + i / DH, d = i % DH, g = r / T, t = r % T;
-    q_s[i] = to_f32(q[((static_cast<int64_t>(b) * T + t) * Hq + h * G + g) * DH + d]);
+    q_s[i] = q[((static_cast<int64_t>(b) * T + t) * Hq + h * G + g) * DH + d];
     acc_s[i] = 0.f;
   }
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < R; r += kMaxThreads) {
     m_s[r] = MASK_VAL;
     l_s[r] = 0.f;
     qpos_s[r] = qpos[b * T + (row0 + r) % T];
@@ -225,7 +237,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 
   for (int c0 = s_begin; c0 < s_end; c0 += CK) {
     __syncthreads();  // previous chunk fully consumed (and q/acc set up)
-    for (int i = tid; i < CK * VPR; i += kThreads) {
+    for (int i = tid; i < CK * VPR; i += kMaxThreads) {
       const int j = i / VPR, c = (i % VPR) * EPV, s = c0 + j;
       float kv[EPV], vv[EPV];
       if (s < s_end) {
@@ -245,7 +257,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
       }
     }
     if (kInt8) {
-      for (int j = tid; j < CK; j += kThreads) {
+      for (int j = tid; j < CK; j += kMaxThreads) {
         const int s = c0 + j;
         if (s < s_end) {
           const int64_t off = rows(b, s) * Hkv + h;
@@ -259,7 +271,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     __syncthreads();
 
     // scores: each thread owns one key and RB query rows, d ascending
-    for (int item = tid; item < nrb * CK; item += kThreads) {
+    for (int item = tid; item < nrb * CK; item += kMaxThreads) {
       const int rb = item / CK, j = item % CK;
       const float4* k4 = reinterpret_cast<const float4*>(k_s + j * KST);
       const float4* q4 = reinterpret_cast<const float4*>(q_s + rb * RB * DH);
@@ -287,7 +299,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     }
     __syncthreads();
 
-    for (int r = warp; r < R; r += kThreads / 32) {
+    for (int r = warp; r < R; r += kMaxThreads / 32) {
       const int s = c0 + lane;
       const bool valid = s < s_end && visible(s, qpos_s[r], (row0 + r) % T, tree_bits, ws,
                                               T, tree_words);
@@ -312,7 +324,7 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     __syncthreads();
 
     // p.V: each thread owns four output dims of RB query rows, keys ascending
-    for (int item = tid; item < nrb * D4; item += kThreads) {
+    for (int item = tid; item < nrb * D4; item += kMaxThreads) {
       const int rb = item / D4, d4 = item % D4;
       const float4* v4 = reinterpret_cast<const float4*>(v_s) + d4;
       const float* pr = p_s + rb * RB * CK;
@@ -350,38 +362,369 @@ flash_split_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   __syncthreads();
 
   const int64_t base = (static_cast<int64_t>(bh) * nsplit + split) * Rtot + row0;
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < R; r += kMaxThreads) {
     part_m[base + r] = m_s[r];
     part_l[base + r] = l_s[r];
   }
-  for (int i = tid; i < R * DH; i += kThreads) part_acc[base * DH + i] = acc_s[i];
+  for (int i = tid; i < R * DH; i += kMaxThreads) part_acc[base * DH + i] = acc_s[i];
 }
 
-// One block per (b, kv head, query row), one thread per output dim: every
-// thread reads the row's split maxima and sums (broadcast loads), then its
-// column of the partial accumulators (coalesced), over the live splits.
+// ---------------------------------------------------------------------------
+// Tensor-core body (bf16 queries; bf16 or int8 K/V)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// Async 16- and 4-byte copies to shared memory; pred false reads nothing
+// and zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+// d += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// e^x as 2^(x log2 e) on the special-function unit (relative error ~2^-22).
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+// Two values as a bf16x2 register, lo in the low half (exact for int8 codes).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pack_s8(int8_t lo, int8_t hi) {
+  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+}
+// Eight int8 codes (8-byte aligned) to eight bf16 (16-byte aligned), exact.
+__device__ __forceinline__ void widen8(unsigned char* dst, const unsigned char* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_s8(c[0], c[1]), pack_s8(c[2], c[3]),
+                                              pack_s8(c[4], c[5]), pack_s8(c[6], c[7]));
+}
+// p = hi + lo to ~16 bits: hi = bf16(p), lo = bf16(p - hi), for a pair.
+__device__ __forceinline__ void split_pair(float p0, float p1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
+  __nv_bfloat162 h;
+  h.x = h0;
+  h.y = h1;
+  hi = *reinterpret_cast<unsigned*>(&h);
+  lo = pack_bf16(p0 - __bfloat162float(h0), p1 - __bfloat162float(h1));
+}
+
+// One block per (b, kv head, split, row block), 32 * max(4, tiles) threads.
+// Warp w owns the 16-row tile w of the block's rows (tiles = ceil(R / 16))
+// and sweeps every key of the split; warps past the last tile only copy.
+// Fragment layouts of m16n8k16 (g = lane / 4, c = lane % 4): A rows g, g+8,
+// k pairs 2c, 2c+8; B k pairs 2c, 2c+8, column g; C rows g, g+8, columns
+// 2c, 2c+1.
+template <typename KVT, int DH, typename Rows>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k,
+                       const KVT* __restrict__ v, const float* __restrict__ ks,
+                       const float* __restrict__ vs, const Rows rows,
+                       const int* __restrict__ qpos, const int* __restrict__ tree_bits,
+                       const int* __restrict__ win_start, int tree_words,
+                       float* __restrict__ part_m, float* __restrict__ part_l,
+                       float* __restrict__ part_acc, int T, int Hq, int Hkv, int S,
+                       int rows_per_block, float scale) {
+  constexpr bool kInt8 = sizeof(KVT) == 1;
+  constexpr int EPV = 16 / sizeof(KVT);               // K/V elements per 16-byte copy
+  constexpr int VPR = DH / EPV;                       // copies per key row
+  constexpr int KROW = DH * sizeof(KVT) + 16;         // padded: ldmatrix conflict-free
+  constexpr int BROW = DH * 2 + 16;                   // a bf16 row, padded (Q, widened K/V)
+  constexpr int NKT = CK / 8;                         // key tiles of 8 per chunk
+  constexpr int NDT = DH / 8;                         // dim tiles of 8
+  constexpr int KST = DH / 16;                        // k steps of q.k
+  const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int G = Hq / Hkv, Rtot = G * T;
+  const int row0 = blockIdx.z * rows_per_block;
+  const int R = min(rows_per_block, Rtot - row0);
+  const int tiles = (R + 15) / 16;
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, b, T, S);
+  const int s_begin = split * SPLIT;
+  if (s_begin >= end) return;
+  const int s_end = min(s_begin + SPLIT, end);
+  const int nch = (s_end - s_begin + CK - 1) / CK;
+  const int ws = tree_bits != nullptr ? win_start[b] : 0;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw;                      // [tiles * 16][BROW]
+  unsigned char* k_s = q_s + tiles * 16 * BROW;       // [RING][CK][KROW]
+  unsigned char* v_s = k_s + RING * CK * KROW;        // [RING][CK][KROW]
+  float* ksc_s = reinterpret_cast<float*>(v_s + RING * CK * KROW);  // [RING][CK] int8 only
+  float* vsc_s = ksc_s + RING * CK;                   // [RING][CK]
+  unsigned char* kw_s = reinterpret_cast<unsigned char*>(vsc_s + RING * CK);  // [CK][BROW] int8
+  unsigned char* vw_s = kw_s + CK * BROW;             // [CK][BROW] int8 only
+
+  // the block's query rows (local row r = query row row0 + r = g*T + t),
+  // pad rows zero, go with chunk 0's copy group
+  for (int i = tid; i < tiles * 16 * (DH / 8); i += nthr) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8, qr = row0 + r;
+    const bool ok = r < R;
+    const __nv_bfloat16* src =
+        ok ? q + ((static_cast<int64_t>(b) * T + qr % T) * Hq + h * G + qr / T) * DH + c : q;
+    cp_async16(q_s + r * BROW + c * 2, src, ok);
+  }
+  // chunk c of the split into ring slot c % RING, as one copy group (empty
+  // past the live chunks, so every thread's group count stays the same)
+  auto load_chunk = [&](int c) {
+    if (c < nch) {
+      const int c0 = s_begin + c * CK, slot = (c % RING) * CK;
+      for (int i = tid; i < CK * VPR; i += nthr) {
+        const int j = i / VPR, e = (i % VPR) * EPV, s = c0 + j;
+        const bool ok = s < s_end;
+        const int64_t off = ok ? (rows(b, s) * Hkv + h) * DH + e : 0;
+        const int dst = (slot + j) * KROW + e * static_cast<int>(sizeof(KVT));
+        cp_async16(k_s + dst, k + off, ok);
+        cp_async16(v_s + dst, v + off, ok);
+      }
+      if (kInt8) {
+        for (int j = tid; j < CK; j += nthr) {
+          const int s = c0 + j;
+          const bool ok = s < s_end;
+          const int64_t off = ok ? rows(b, s) * Hkv + h : 0;
+          cp_async4(ksc_s + slot + j, ks + off, ok);
+          cp_async4(vsc_s + slot + j, vs + off, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int c = 0; c < RING - 1; ++c) load_chunk(c);
+
+  const bool active = warp < tiles;  // warp-uniform
+  const int g = lane >> 2, c4 = lane & 3, tr0 = warp * 16;
+  bool live[2];
+  int qp[2], tt[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = tr0 + g + 8 * i;
+    live[i] = r < R;
+    tt[i] = (row0 + r) % T;
+    qp[i] = live[i] ? qpos[b * T + tt[i]] : -1;
+    m[i] = MASK_VAL;
+    l[i] = 0.f;
+  }
+  float acc[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const unsigned char* q_lane = q_s + (tr0 + (lane & 15)) * BROW + (lane >> 4) * 16;
+
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<RING - 2>();  // chunk c has landed (later ones may be in flight) ...
+    __syncthreads();    // ... for every thread, and chunk c - 1's slot is free
+    load_chunk(c + RING - 1);
+    const int cb = (c % RING) * CK;  // chunk's first row in the ring
+    const int kb = s_begin + c * CK;  // and its first key
+    const unsigned char* kc = k_s + cb * KROW;  // the chunk's K and V rows as bf16,
+    const unsigned char* vc = v_s + cb * KROW;  // BROW bytes apart
+    if constexpr (kInt8) {
+      // every thread widens the chunk's int8 codes to bf16 (exact: |x| <= 127)
+      for (int i = tid; i < CK * (DH / 8); i += nthr) {
+        const int j = i / (DH / 8), d = (i % (DH / 8)) * 8;
+        widen8(kw_s + j * BROW + d * 2, k_s + (cb + j) * KROW + d);
+        widen8(vw_s + j * BROW + d * 2, v_s + (cb + j) * KROW + d);
+      }
+      __syncthreads();
+      kc = kw_s;
+      vc = vw_s;
+    }
+    if (!active) continue;
+
+    // scores: q.k over dh in ascending k steps, per 8-key tile
+    float sc[NKT][4];
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KST; ++kk) {
+      unsigned qf[4];
+      ldsm_x4(qf, q_lane + kk * 32);
+#pragma unroll
+      for (int n = 0; n < NKT; n += 2) {
+        unsigned bk[4];
+        const int key = 8 * n + (lane & 7) + ((lane >> 4) << 3);
+        ldsm_x4(bk, kc + key * BROW + (kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+        mma_bf16(sc[n], qf, bk[0], bk[1]);
+        mma_bf16(sc[n + 1], qf, bk[2], bk[3]);
+      }
+    }
+
+    // online softmax on the accumulator fragments: a row's values sit in
+    // the 4 lanes of a quad; each lane folds its own in a fixed order, then
+    // the quad combines them with xor 1, 2
+    unsigned okbits = 0;
+    float mx[2] = {MASK_VAL, MASK_VAL};
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, j = 8 * n + 2 * c4 + (e & 1), s = kb + j;
+        float x = sc[n][e] * scale;
+        if (kInt8) x = x * ksc_s[cb + j];
+        const bool ok = live[i] && s < s_end &&
+                        visible(s, qp[i], tt[i], tree_bits, ws, T, tree_words);
+        okbits |= static_cast<unsigned>(ok) << (4 * n + e);
+        sc[n][e] = ok ? x : MASK_VAL;
+        mx[i] = fmaxf(mx[i], sc[n][e]);
+      }
+    float alpha[2], mnew[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mnew[i] = fmaxf(m[i], mx[i]);
+      alpha[i] = fast_exp(m[i] - mnew[i]);
+    }
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = (okbits >> (4 * n + e)) & 1u ? fast_exp(sc[n][e] - mnew[i]) : 0.f;
+        sum[i] += p;
+        if (kInt8) p = p * vsc_s[cb + 8 * n + 2 * c4 + (e & 1)];
+        sc[n][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+      m[i] = mnew[i];
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // x * 1 == x
+#pragma unroll
+      for (int n = 0; n < NDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    }
+
+    // p.V: P as two bf16 terms (hi, lo) into the same f32 accumulators,
+    // 16 keys per k step in ascending order
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      unsigned ph[4], pl[4];
+      split_pair(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_pair(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_pair(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < NDT; n += 2) {
+        unsigned bv[4];
+        const int key = 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldsm_x4_t(bv, vc + key * BROW + (8 * n + ((lane >> 4) << 3)) * 2);
+        mma_bf16(acc[n], ph, bv[0], bv[1]);
+        mma_bf16(acc[n], pl, bv[0], bv[1]);
+        mma_bf16(acc[n + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[n + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (none is pending past nch)
+  if (!active) return;
+
+  const int64_t base = (static_cast<int64_t>(bh) * nsplit + split) * Rtot + row0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = tr0 + g + 8 * i;
+    if (!live[i]) continue;
+    if (c4 == 0) {
+      part_m[base + r] = m[i];
+      part_l[base + r] = l[i];
+    }
+    float* o = part_acc + (base + r) * DH + 2 * c4;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// One warp per (b, kv head, query row), 8 rows per block: lane j reads
+// split j's maximum and sum (all splits at once), the row's maximum M is
+// their warp max, and the splits are then folded in split order — each
+// split's weight exp(m_j - M) broadcast from its lane — into l and the
+// lane's DH/32 output dims (coalesced rows of the partial accumulators).
+// Only the live splits are read.
+constexpr int kMergeRows = 8;
+
 template <typename QT, int DH>
-__global__ void __launch_bounds__(DH)
+__global__ void __launch_bounds__(32 * kMergeRows)
 flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, const int* __restrict__ qpos,
                    const int* __restrict__ win_start, QT* __restrict__ out, int T,
-                   int Hq, int Hkv, int S, int split_len, int nsplit) {
+                   int Hq, int Hkv, int S, int nsplit) {
+  constexpr int DPL = DH / 32;  // output dims per lane
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
-  const int r = blockIdx.y, d = threadIdx.x;
-  const int G = Hq / Hkv, R = G * T, g = r / T, t = r % T;
+  const int G = Hq / Hkv, R = G * T, lane = threadIdx.x & 31;
+  const int r = blockIdx.y * kMergeRows + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int g = r / T, t = r % T;
   const int64_t base = static_cast<int64_t>(bh) * nsplit * R + r;
-  const int live = live_splits(live_end(qpos, win_start, b, T, S), split_len, nsplit);
+  const int live = live_splits(live_end(qpos, win_start, b, T, S), nsplit);
   float m = MASK_VAL;
-  for (int sp = 0; sp < live; ++sp) m = fmaxf(m, part_m[base + sp * R]);
-  float l = 0.f, o = 0.f;
-  for (int sp = 0; sp < live; ++sp) {
-    const int64_t row = base + sp * R;
-    const float w = expf(part_m[row] - m);
-    l += part_l[row] * w;
-    o += part_acc[row * DH + d] * w;
+  for (int j = lane; j < live; j += 32) m = fmaxf(m, part_m[base + j * R]);
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, x));
+  float l = 0.f, o[DPL];
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) o[e] = 0.f;
+  for (int j0 = 0; j0 < live; j0 += 32) {
+    const int j = j0 + lane, n = min(32, live - j0);
+    const float w_j = j < live ? expf(part_m[base + j * R] - m) : 0.f;
+    const float l_j = j < live ? part_l[base + j * R] : 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const float w = __shfl_sync(0xffffffffu, w_j, i);
+      l += __shfl_sync(0xffffffffu, l_j, i) * w;
+      const float* a = part_acc + (base + static_cast<int64_t>(j0 + i) * R) * DH + lane;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[e] += a[32 * e] * w;
+    }
   }
-  store(out + ((static_cast<int64_t>(b) * T + t) * Hq + h * G + g) * DH + d,
-        o / fmaxf(l, 1e-30f));
+  const float denom = fmaxf(l, 1e-30f);
+  QT* dst = out + ((static_cast<int64_t>(b) * T + t) * Hq + h * G + g) * DH + lane;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) store(dst + 32 * e, o[e] / denom);
 }
 
 // Everything a launch needs beyond the template arguments.
@@ -391,33 +734,51 @@ struct Args {
   const int *qpos, *tree_bits, *win_start;
   void* out;
   float *part_m, *part_l, *part_acc;
-  int B, T, Hq, Hkv, S, tree_words, split_len, nsplit, rows_per_block;
+  int B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads;
   size_t smem;
   float scale;
   cudaStream_t st;
 };
 
+// Raises the dynamic shared-memory limit of a kernel when the launch needs
+// more than the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The split pass — the tensor-core body for bf16 queries, the f32 body for
+// f32 queries — then the merge.
 template <typename QT, typename KVT, int DH, typename Rows>
 int launch(const Args& a, const Rows rows) {
-  auto split = flash_split_kernel<QT, KVT, DH, Rows>;
-  if (a.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(a.smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const int R = (a.Hq / a.Hkv) * a.T;
-  const int row_blocks = (R + a.rows_per_block - 1) / a.rows_per_block;
-  split<<<dim3(a.B * a.Hkv, a.nsplit, row_blocks), kThreads, a.smem, a.st>>>(
-      static_cast<const QT*>(a.q), static_cast<const KVT*>(a.k),
-      static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
-      a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
-      a.split_len, a.rows_per_block, a.scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_merge_kernel<QT, DH><<<dim3(a.B * a.Hkv, R), DH, 0, a.st>>>(
-      a.part_m, a.part_l, a.part_acc, a.qpos,
-      a.tree_bits != nullptr ? a.win_start : nullptr, static_cast<QT*>(a.out), a.T,
-      a.Hq, a.Hkv, a.S, a.split_len, a.nsplit);
+  const dim3 grid(a.B * a.Hkv, a.nsplit, (R + a.rows_per_block - 1) / a.rows_per_block);
+  cudaError_t e;
+  if constexpr (sizeof(QT) == 2) {
+    auto split = flash_split_mma_kernel<KVT, DH, Rows>;
+    if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
+    split<<<grid, a.threads, a.smem, a.st>>>(
+        static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
+        static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
+        a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
+        a.rows_per_block, a.scale);
+  } else {
+    auto split = flash_split_f32_kernel<KVT, DH, Rows>;  // strides by kMaxThreads
+    if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
+    split<<<grid, kMaxThreads, a.smem, a.st>>>(
+        static_cast<const float*>(a.q), static_cast<const KVT*>(a.k),
+        static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
+        a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
+        a.rows_per_block, a.scale);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  flash_merge_kernel<QT, DH>
+      <<<dim3(a.B * a.Hkv, (R + kMergeRows - 1) / kMergeRows), 32 * kMergeRows, 0, a.st>>>(
+          a.part_m, a.part_l, a.part_acc, a.qpos,
+          a.tree_bits != nullptr ? a.win_start : nullptr, static_cast<QT*>(a.out), a.T,
+          a.Hq, a.Hkv, a.S, a.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,30 +812,30 @@ int launch_types(int q_is_bf16, int kv_int8, int dh, const Args& a, const Rows r
 // passes tree_bits: (T, tree_words) int32 ancestor-or-self bit words and
 // win_start: (B,) int32; a chain passes null for both.  part_m, part_l:
 // (B*Hkv*nsplit*R) f32 and part_acc: (B*Hkv*nsplit*R*dh) f32 scratch,
-// R = (Hq/Hkv)*T, nsplit = ceil(S / split_len).  rows_per_block: query rows
-// per block (a multiple of 8, or R); smem: dynamic shared bytes of the split
-// kernel for that many rows.  All contiguous.  Returns a cudaError_t.
+// R = (Hq/Hkv)*T, nsplit = ceil(S / 128).  rows_per_block, threads, smem:
+// the launch plan of kernels/flash_decode.py:launch_plan (query rows per
+// block — R or a multiple of 16 —, threads per block and dynamic shared
+// bytes of the split pass).  All contiguous.  Returns a cudaError_t.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const float* ks, const float* vs,
                                    const int* qpos, const int* tree_bits,
                                    const int* win_start, int tree_words, void* out,
                                    float* part_m, float* part_l, float* part_acc,
                                    int B, int T, int Hq, int Hkv, int S, int dh,
-                                   int q_is_bf16, int kv_int8, int split_len,
-                                   int nsplit, int rows_per_block, long long smem,
+                                   int q_is_bf16, int kv_int8, int nsplit,
+                                   int rows_per_block, int threads, long long smem,
                                    float scale, void* stream) {
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, out, part_m, part_l,
-               part_acc, B, T, Hq, Hkv, S, tree_words, split_len, nsplit,
-               rows_per_block, static_cast<size_t>(smem), scale,
-               static_cast<cudaStream_t>(stream)};
+               part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads,
+               static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, ContigRows{S});
 }
 
 // As flash_decode_launch, over paged pools: k, v: (N, bs, Hkv, dh) and ks,
 // vs: (N, bs, Hkv) f32 (int8 KV) addressed through bt: (B, nb) int32
 // physical block ids in [0, N); the logical cache length is S = nb * bs,
-// and nsplit = ceil(S / split_len).  Returns a cudaError_t.
+// and nsplit = ceil(S / 128).  Returns a cudaError_t.
 extern "C" int flash_decode_paged_launch(const void* q, const void* k, const void* v,
                                          const float* ks, const float* vs, const int* bt,
                                          int nb, int bs, const int* qpos,
@@ -482,15 +843,14 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
                                          int tree_words, void* out, float* part_m,
                                          float* part_l, float* part_acc, int B, int T,
                                          int Hq, int Hkv, int dh, int q_is_bf16,
-                                         int kv_int8, int split_len, int nsplit,
-                                         int rows_per_block, long long smem, float scale,
+                                         int kv_int8, int nsplit, int rows_per_block,
+                                         int threads, long long smem, float scale,
                                          void* stream) {
   const int S = nb * bs;
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, out, part_m, part_l,
-               part_acc, B, T, Hq, Hkv, S, tree_words, split_len, nsplit,
-               rows_per_block, static_cast<size_t>(smem), scale,
-               static_cast<cudaStream_t>(stream)};
+               part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads,
+               static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, PagedRows{bt, nb, bs});
 }
 

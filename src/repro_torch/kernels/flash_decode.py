@@ -30,6 +30,7 @@ the same logical content.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,8 +39,10 @@ from repro_torch.kernels import ops
 
 MASK_VAL = -1e30
 SPLIT_LEN = 128            # keys per block on the card: depends on S alone
-CHUNK = 32                 # keys per shared-memory chunk in the kernel
-ROW_BLOCK = 8              # query rows per register block in the kernel
+CHUNK = 32                 # keys per online-softmax step (a copy group of the ring)
+RING = 3                   # K/V chunks staged at once in the tensor-core body
+TILE = 16                  # query rows per warp in the tensor-core body
+MMA_ROWS = 128             # most query rows per block in the tensor-core body
 HEAD_DIMS = (32, 64, 128)  # head sizes the kernel is instantiated for
 MAX_SMEM = 232448          # bytes of shared memory a block may use (H100)
 
@@ -161,29 +164,56 @@ def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
         raise ValueError("flash_decode: inputs are on different devices")
 
 
-def smem_bytes(rows: int, dh: int) -> int:
-    """Dynamic shared memory of the kernel's split pass for ``rows`` query
-    rows per block (layout in csrc/flash_decode.cu; rows pad to blocks of
-    8)."""
-    padded = -(-rows // ROW_BLOCK) * ROW_BLOCK
-    floats = (2 * padded * dh + CHUNK * (2 * dh + 4) + padded * CHUNK + 4 * rows
-              + 2 * CHUNK)
-    return 4 * floats
+class Plan(NamedTuple):
+    """How the split pass of ``csrc/flash_decode.cu`` is launched."""
+    rows_per_block: int    # query rows per block: all G·T, or a multiple of 16
+    smem: int              # dynamic shared bytes per block
+    stages: int            # K/V chunks in flight per block (cp.async groups)
+    nsplit: int            # 128-key splits of S: depends on S alone
+    threads: int           # threads per block
 
 
-def rows_per_block(rows: int, dh: int) -> int:
-    """Query rows per block for ``rows`` = G·T rows of a KV head: all of
-    them when two blocks still fit an SM's shared memory, else as few
-    blocks as keep two per SM, with rows spread evenly in multiples of 8.
-    (One block of a wide tree's rows per SM left 4 warps to hide the
-    latency of every load.)"""
-    budget = MAX_SMEM // 2
-    if smem_bytes(rows, dh) <= budget:
-        return rows
-    cap = max(r for r in range(ROW_BLOCK, rows + 1, ROW_BLOCK)
-              if smem_bytes(r, dh) <= budget)
+def _even_blocks(rows: int, cap: int) -> int:
+    """Rows per block when ``rows`` exceed ``cap``: as few blocks as the cap
+    allows, rows spread evenly in multiples of TILE."""
     blocks = -(-rows // cap)
-    return -(-(-(-rows // blocks)) // ROW_BLOCK) * ROW_BLOCK
+    return -(-(-(-rows // blocks)) // TILE) * TILE
+
+
+def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
+                kv_dtype: torch.dtype) -> Plan:
+    """The launch plan for ``rows`` = G·T query rows per KV head over S
+    cached keys.
+
+    bf16 queries take the tensor-core body: one block holds all rows up to
+    MMA_ROWS (one warp per 16-row tile, at least 4 warps to run the
+    copies) and stages K/V in their stored type in a ring of RING 32-key
+    chunks (the next two in flight while one is used); wider windows spread
+    over row blocks of at most MMA_ROWS rows.  f32 queries take the f32 body (8 warps, K/V
+    widened to f32 one 32-key chunk at a time), with as many rows per block
+    as keep two blocks on an SM."""
+    nsplit = -(-S // SPLIT_LEN)
+    if q_dtype == torch.bfloat16:
+        rpb = rows if rows <= MMA_ROWS else _even_blocks(rows, MMA_ROWS)
+        tiles = -(-rpb // TILE)
+        kv_bytes = 1 if kv_dtype == torch.int8 else 2
+        smem = tiles * TILE * (2 * dh + 16) + RING * 2 * CHUNK * (dh * kv_bytes + 16)
+        if kv_dtype == torch.int8:     # the ring's scales, one chunk widened to bf16
+            smem += RING * 2 * 4 * CHUNK + 2 * CHUNK * (2 * dh + 16)
+        return Plan(rpb, smem, RING, nsplit, 32 * max(4, tiles))
+
+    def f32_smem(r: int) -> int:       # layout of flash_split_f32_kernel
+        padded = -(-r // 8) * 8
+        return 4 * (2 * padded * dh + CHUNK * (2 * dh + 4) + padded * CHUNK + 4 * r
+                    + 2 * CHUNK)
+
+    budget = MAX_SMEM // 2
+    if f32_smem(rows) <= budget:
+        rpb = rows
+    else:
+        cap = max(r for r in range(TILE, rows + 1, TILE) if f32_smem(r) <= budget)
+        rpb = _even_blocks(rows, cap)
+    return Plan(rpb, f32_smem(rpb), 1, nsplit, 256)
 
 
 def _check_table(q, k, bt) -> None:
@@ -205,13 +235,12 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
     S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
     Hkv = k.shape[2]
     R = (Hq // Hkv) * T
-    rpb = rows_per_block(R, dh)
-    smem = smem_bytes(rpb, dh)
+    plan = launch_plan(R, S, dh, q.dtype, k.dtype)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: the kernel loads K/V in 16-byte vectors; "
                          "k and v must be 16-byte aligned")
     int8 = k.dtype == torch.int8
-    nsplit = -(-S // SPLIT_LEN)
+    nsplit = plan.nsplit
     out = torch.empty_like(q)
     part_m = torch.empty((B * Hkv * nsplit * R,), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
@@ -220,8 +249,8 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
     tree = tree_mask is not None
     if tree and tree_bits is None:
         tree_bits = tree_mask_bits(tree_mask)
-    tail = [int(q.dtype == torch.bfloat16), int(int8), SPLIT_LEN, nsplit, rpb, smem,
-            dh ** -0.5, ops.stream(q)]
+    tail = [int(q.dtype == torch.bfloat16), int(int8), nsplit, plan.rows_per_block,
+            plan.threads, plan.smem, dh ** -0.5, ops.stream(q)]
     tail_types = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
     if paged:
         fn = ops.c_function("flash_decode", "flash_decode_paged_launch",

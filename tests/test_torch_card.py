@@ -157,7 +157,9 @@ def _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed):
     (2, 6, 300, 2, 2, 64),     # several splits, the last one partial
     (1, 3, 128, 1, 9, 128),    # S exactly one split; G·T not a row-block multiple
     (4, 6, 1152, 8, 4, 128),   # the 7B verify window
-    (1, 1, 6, 3, 3, 64)])      # S shorter than the window's chunk
+    (1, 1, 6, 3, 3, 64),       # S shorter than the window's chunk
+    (2, 3, 300, 2, 9, 32),     # G·T = 27: not a multiple of the 16-row tile
+    (3, 5, 700, 2, 7, 64)])    # G·T = 35, three tiles, the last nearly empty
 def test_flash_decode_matches_plain_on_card(dev, b, t, s, hkv, g, dh, dtype, int8):
     q, k, v, qpos, kw = _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed=s + t + g)
     o = flash_decode(q, k, v, qpos, **kw)
@@ -188,6 +190,23 @@ def test_flash_decode_row_does_not_depend_on_window_length(dev, int8):
                                rtol=2 ** -7, atol=1e-5)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("start", [5, 120, 1040])
+def test_flash_decode_every_window_row_equals_its_row_alone(dev, start, int8):
+    """Every row t of a verify window (T = 6) gives the bits of the same
+    query alone (T = 1) at its position — the slots past it, which the
+    window holds and the lone query does not, add nothing.  Windows that
+    start in the first split, end across a split edge, and sit deep in the
+    cache."""
+    q, k, v, _, kw = _attn(dev, 2, 6, 1152, 8, 4, 128, torch.bfloat16, int8, seed=start)
+    qpos = (start + torch.arange(6, device=dev)).expand(2, 6).to(torch.int32).contiguous()
+    full = flash_decode(q, k, v, qpos, **kw)
+    for t in range(6):
+        alone = flash_decode(q[:, t:t + 1].contiguous(), k, v, qpos[:, t:t + 1].contiguous(),
+                             **kw)
+        assert torch.equal(alone, full[:, t:t + 1]), t
+
+
 def _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8, seed):
     tpl = TreeTemplate(branches)
     T = tpl.num_nodes
@@ -209,7 +228,8 @@ def _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8, seed):
     ((4, 4, 4), 2, 700, 8, 4, 128),       # 340 rows per KV head: three row blocks
     ((64,), 1, 200, 2, 4, 128),           # the widest template: 260 rows
     ((3, 1), 2, 40, 1, 9, 32),            # S under one split
-    ((1,) * 40, 1, 160, 1, 2, 64)])       # a 41-node chain: two mask words per node
+    ((1,) * 40, 1, 160, 1, 2, 64),        # a 41-node chain: two mask words per node
+    ((2, 1), 2, 500, 2, 7, 32)])          # G·T = 35 at dh 32
 def test_flash_decode_tree_matches_plain_on_card(dev, branches, b, s, hkv, g, dh, dtype,
                                                  int8):
     q, k, v, qpos, kw, tables = _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8,
@@ -243,6 +263,43 @@ def test_flash_decode_chain_template_tree_bit_equal_to_chain(dev, t, dtype, int8
     tree = flash_decode(q, k, v, qpos, tree_mask=tables.mask, win_start=qpos[:, 0].contiguous(),
                         tree_bits=tables.mask_bits, **kw)
     assert torch.equal(chain, tree)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("branches,g", [((3, 2, 1, 1), 1), ((3, 2, 1, 1), 4), ((3, 2, 1, 1), 9),
+                                        ((4, 4, 4), 1), ((4, 4, 4), 4), ((4, 4, 4), 9)])
+def test_flash_decode_tree_root_row_equals_vanilla_row(dev, branches, g, int8):
+    """The root row of a tree window sees the slots before the window by
+    position and itself by the mask — the keys a T = 1 chain query at
+    qpos = win_start sees — and gives that query's bits, wherever the root
+    rows fall among the 16-row tiles and row blocks (G·T from 22 to 765)."""
+    q, k, v, qpos, kw, tables = _tree_attn(dev, branches, 2, 1152, 2, g, 128,
+                                           torch.bfloat16, int8, seed=7 * g)
+    tree = flash_decode(q, k, v, qpos, tree_bits=tables.mask_bits, **kw)
+    scales = {n: kw[n] for n in ("k_scale", "v_scale") if n in kw}
+    root = flash_decode(q[:, :1].contiguous(), k, v, kw["win_start"][:, None].contiguous(),
+                        **scales)
+    assert torch.equal(tree[:, :1], root)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("tree", [False, True])
+def test_flash_decode_batch_row_does_not_depend_on_batch(dev, tree, int8):
+    """Each batch row run alone (B = 1) gives its row of the B = 4 call, bit
+    for bit, for the chain (T 6) and the (3,2,1,1) tree window."""
+    if tree:
+        q, k, v, qpos, kw, tables = _tree_attn(dev, (3, 2, 1, 1), 4, 1152, 8, 4, 128,
+                                               torch.bfloat16, int8, seed=11)
+        kw["tree_bits"] = tables.mask_bits
+    else:
+        q, k, v, qpos, kw = _attn(dev, 4, 6, 1152, 8, 4, 128, torch.bfloat16, int8, seed=11)
+    full = flash_decode(q, k, v, qpos, **kw)
+    for b in range(4):
+        one = {n: (x[b:b + 1].contiguous() if n in ("k_scale", "v_scale", "win_start") else x)
+               for n, x in kw.items()}
+        alone = flash_decode(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                             v[b:b + 1].contiguous(), qpos[b:b + 1].contiguous(), **one)
+        assert torch.equal(alone, full[b:b + 1])
 
 
 def _to_pages(dev, bs, seed, k, v, kw):
