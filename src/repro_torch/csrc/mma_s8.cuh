@@ -1,9 +1,9 @@
-// Parts shared by the int8 and int4 GEMMs (int8_matmul.cu, int4_matmul.cu):
-// the 64x64x64 tiling over 4 warps, the cp.async helpers, the s8
-// tensor-core product mma.sync.m16n8k32 with int32 accumulators, the
+// The int4 GEMM's tiling (int4_matmul.cu): 64x64x64 tiles over 4 warps,
+// the cp.async helpers, the s8 tensor-core product mma.sync.m16n8k32 with
+// int32 accumulators, and the split-K epilogue kernel over an int32
+// workspace; and, shared with the int8 GEMM (int8_matmul.cu), the
 // dequantization epilogue  Y[m,n] = (float(acc) * dx[m]) * dw[n]  (IEEE
-// rounding in that order, as the plain versions compute it), and the
-// split-K epilogue kernel that applies it to an int32 workspace.
+// rounding in that order, as the plain versions compute it).
 #pragma once
 
 #include <cuda_bf16.h>

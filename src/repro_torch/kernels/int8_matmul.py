@@ -11,14 +11,16 @@ epilogue is the same sequence of f32 roundings, so outputs are equal.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ops
 
-BM = BN = BK = 64          # the kernel's output and K tile sizes
+BM = BN = BK = 64          # the int4 GEMM's output and K tile sizes (split_k)
 NUM_SMS = 132              # H100 SXM
-K_ALIGN = 16               # the kernel loads rows in 16-byte chunks
+K_ALIGN = 16               # the kernels load rows in 16-byte units
 
 
 def int32_acc(x_int8: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
@@ -60,8 +62,9 @@ def _check(x, w, dx, dw, out_dtype) -> None:
 
 
 def split_k(M: int, N: int, K: int) -> tuple[int, int]:
-    """(k_chunk, splits): split K across blocks when the output has too few
-    64×64 tiles to keep four blocks on every SM (decode shapes)."""
+    """The int4 GEMM's plan (``csrc/int4_matmul.cu``): (k_chunk, splits),
+    split K across blocks when the output has too few 64×64 tiles to keep
+    four blocks on every SM (decode shapes)."""
     tiles = -(-M // BM) * -(-N // BN)
     ktiles = -(-K // BK)
     want = max(1, min(-(-4 * NUM_SMS // tiles), ktiles // 4))
@@ -69,23 +72,96 @@ def split_k(M: int, N: int, K: int) -> tuple[int, int]:
     return per * BK, -(-ktiles // per)
 
 
+# -- the card kernel's launch plan (csrc/int8_matmul.cu) ----------------------
+
+KT = 128                   # K bytes per pipeline stage (one 128-byte swizzled row)
+SMALL_M = 256              # M up to here: swapped operands, W read once
+S8_WIDTHS = (8, 16, 24, 32, *range(48, 257, 16))   # N of wgmma.m64nNk32 for s8
+# the widths the kernel is built for: the main path's windows (M 4, 24, 48,
+# 88, 176 → 8, 24, 48, 96, 192) and the swapped regime's end
+WIDTHS = (8, 24, 48, 96, 192, 256)
+MAX_CLUSTER = 8            # portable thread-block cluster size
+MAX_STAGES = 8
+SMEM_PER_SM = 233472       # 228 KB per SM; each resident block also holds 1 KB
+SMEM_PER_BLOCK = 232448    # 227 KB
+SMEM_RESERVE = 2048        # the kernel's alignment slack and mbarriers
+
+
+class Plan(NamedTuple):
+    regime: str     # "swap" (M <= 256, Y^T tiles) or "tiled" (128 x 256 Y tiles)
+    tile_n: int     # N extent of a block's output tile (W rows per block)
+    width: int      # wgmma N: M rounded up to a built width (swap), else 256
+    cluster: int    # blocks of a cluster splitting K (1, 2, 4 or 8)
+    stages: int     # depth of the TMA ring
+    smem: int       # dynamic shared memory bytes per block
+
+
+def _every_rank_has_k(ktiles: int, cluster: int) -> bool:
+    """A split of ``ktiles`` K steps over ``cluster`` blocks, ⌈ktiles/cluster⌉
+    each, leaves the last block at least one."""
+    return (cluster - 1) * -(-ktiles // cluster) < ktiles
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int) -> Plan:
+    """The card kernel's launch, chosen from the shapes alone.
+
+    M <= 256: one 64-row W tile per consumer warpgroup (two above width
+    48), all M rows of X as the wgmma N operand, so each weight byte is read
+    once; up to three blocks per SM; K split across a cluster (a split
+    costs two cluster barriers and a reduction) only while the W tiles
+    alone leave SMs idle, only as far as the card holds the grid at once,
+    and only while every block of the cluster keeps a K step.  M > 256: 128 x 256 output tiles, four stages."""
+    ktiles = -(-K // KT)
+    if M > SMALL_M:
+        stage = (128 + 256) * KT
+        return Plan("tiled", 256, 256, 1, 4, SMEM_RESERVE + 4 * stage)
+    width = next(w for w in WIDTHS if w >= M)
+    # one warpgroup per 64 W rows up to width 48: at gate/up M 30 it beat two
+    # per 128 (fewer tiles, so a K split) by 15% (PERF.md §6, PR 15)
+    tile_n = 64 if width <= 48 else 128
+    stage = (tile_n + width) * KT
+    for per_sm in (3, 2, 1):    # the most blocks per SM that leave four stages
+        room = min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - 1024) - SMEM_RESERVE
+        stages = min(MAX_STAGES, room // stage)
+        if stages >= 4 or per_sm == 1:
+            break
+    tiles = -(-N // tile_n)
+    cluster = 1
+    while (cluster * 2 <= MAX_CLUSTER and _every_rank_has_k(ktiles, cluster * 2)
+           and tiles * cluster < NUM_SMS and tiles * cluster * 2 <= NUM_SMS * per_sm):
+        cluster *= 2
+    # a split stores every consumer thread's width/2 int32 sums in the ring
+    partial = 4 * (tile_n * 2) * (width // 2) if cluster > 1 else 0
+    return Plan("swap", tile_n, width, cluster, stages,
+                SMEM_RESERVE + max(stages * stage, partial))
+
+
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _FN = ops.c_function("int8_matmul", "int8_matmul_launch",
+                             [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p])
+    return _FN
+
+
 def _launch(x, w, dx, dw, out_dtype):
     M, K = x.shape
     N = w.shape[0]
     if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("int8_matmul: the kernel loads rows in 16-byte chunks; "
-                         "x and w must be 16-byte aligned")
+        raise ValueError("int8_matmul: the kernel loads rows with TMA in 16-byte "
+                         "units; x and w must be 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    k_chunk, splits = split_k(M, N, K)
-    ws = (torch.zeros((M, N), dtype=torch.int32, device=x.device)
-          if splits > 1 else None)
-    fn = ops.c_function("int8_matmul", "int8_matmul_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    err = fn(ops.ptr(x), ops.ptr(w), ops.ptr(dx), ops.ptr(dw), ops.ptr(out),
-             int(out_dtype == torch.bfloat16), ops.ptr(ws), M, N, K, k_chunk,
-             splits, ops.stream(x))
+    plan = gemm_plan(M, N, K)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel_fn()(x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                       out.data_ptr(), out_dtype == torch.bfloat16, M, N, K,
+                       plan.regime == "swap", plan.width, plan.tile_n, plan.cluster,
+                       plan.stages, plan.smem, stream)
     ops.check("int8_matmul", err)
     ops.LAUNCHES["int8_matmul"] += 1
     return out

@@ -36,17 +36,52 @@ def powf(x, y) -> np.ndarray:
     return out.reshape(xb.shape)
 
 
+FOLD = 32    # widest last axis whose CUDA reduction layout ignores the row count
+
+
+def row_mean(x32: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, keepdim, with each row's sum taken in an
+    order that does not depend on how many rows there are.
+
+    On a card, torch's reduction picks its thread layout from the number of
+    rows (``setReduceConfig``: a 4096-wide row is summed by 128 threads at
+    4 rows and by 32 at 24), so a row's bits would depend on the batch and
+    window it came in, and greedy speculative decoding, whose verify window
+    has γ+1 times vanilla's rows, could leave vanilla's tokens.  Summing in
+    steps over a last axis of at most 32 (zero-padded; +0 is exact) gives
+    every step one layout for any row count (held by the card test
+    ``test_norm_row_does_not_depend_on_row_count``).
+
+    The CPU keeps torch's mean, whose rows are already row-invariant there
+    (``tests/test_torch_model.py::test_norm_row_does_not_depend_on_row_count_on_cpu``):
+    its order matches the reference's to the f32 rounding that the CPU tests
+    hold, and the fold's order does not (with the fold on the CPU,
+    ``tests/test_torch_model.py::test_forward_logits_match_jax[f32-True-0.0001]``
+    and ``test_prefill_verify_match_jax[False-int8]`` fail: a changed
+    rounding flips int8 codes downstream).  A fused norm kernel, one block
+    per row as ``smooth_quant`` is, would be row-invariant by construction
+    and replace this fold and its launches (ROADMAP §2)."""
+    if x32.device.type != "cuda":
+        return x32.mean(dim=-1, keepdim=True)
+    s, d = x32, x32.shape[-1]
+    while s.shape[-1] > FOLD:
+        if s.shape[-1] % FOLD:
+            s = F.pad(s, (0, -s.shape[-1] % FOLD))
+        s = s.view(*s.shape[:-1], -1, FOLD).sum(dim=-1)
+    return s.sum(dim=-1, keepdim=True) / d
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    var = row_mean(x32.square())
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    mu = row_mean(x32)
+    var = row_mean((x32 - mu).square())
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 

@@ -9,7 +9,8 @@ suite's JAX conftest out:
     python -m pytest -q --noconftest -m gpu tests/test_torch_card.py
 
 ``chip_smoke.py`` checks the kernels at the 7B main path's shapes; these
-tests cover the edges the main path does not reach: partial tiles, K and
+tests cover the edges the main path does not reach: the GEMM's regime and
+width edges and rows against M, partial tiles, K and
 S not multiples of the blocks, every instantiated head size, f32 inputs,
 paged block sizes that divide neither the 32-key chunk nor the 128-key
 split, idle rows on the scratch block, and the wrappers' card-only input
@@ -80,6 +81,25 @@ def test_smooth_quant_non_finite_rows_bit_equal_on_card(dev, dtype):
     assert torch.equal(dx.view(torch.int32), rdx.view(torch.int32))
 
 
+@pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (576, torch.float32)])
+def test_norm_row_does_not_depend_on_row_count(dev, d, dtype):
+    """A row's RMSNorm and LayerNorm bits are the same whether it comes
+    alone, in vanilla's 4-row step, a 24- or 88-row verify window or a
+    prefill: greedy spec tokens equal vanilla's only if every op of the
+    verify forward is row-invariant (torch's own row reduction is not)."""
+    from repro_torch.models.common import layer_norm, rms_norm
+
+    g = _gen(dev, d)
+    x = (torch.randn(4092, d, generator=g, device=dev) * 3).to(dtype)
+    scale = torch.rand(d, generator=g, device=dev) + 0.5
+    bias = torch.randn(d, generator=g, device=dev)
+    for norm in (lambda t: rms_norm(t, scale), lambda t: layer_norm(t, scale, bias)):
+        one = norm(x[:1])
+        for m in (4, 24, 88, 300, 4092):
+            assert torch.equal(norm(x[:m])[:1], one), m
+        assert torch.equal(norm(x[:24].view(4, 6, d))[:, 0], norm(x[:24:6])), "(B, T, D)"
+
+
 @pytest.mark.parametrize("m,k,n", [
     (1, 16, 1), (7, 48, 200), (65, 4096, 130), (130, 80, 64), (24, 12288, 72),
     (300, 256, 96)])
@@ -98,6 +118,68 @@ def test_int8_matmul_exact_on_card(dev, m, k, n, out_dtype):
     y = int8_matmul(x, w, dx, dw, out_dtype=out_dtype)
     assert y.dtype == out_dtype
     assert torch.equal(y, int8_matmul_ref(x, w, dx, dw, out_dtype))
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 24, 25, 49, 88, 96, 176, 193, 256, 257, 300, 4092])
+@pytest.mark.parametrize("k,n", [(16 * 37, 200), (4096 + 16, 1100)])
+def test_int8_matmul_regime_edges_on_card(dev, m, k, n):
+    """Every edge of the launch plan: the wgmma widths (8 | 9 → 24, 24 | 25
+    → 48, 49 → 96, 88 → 96, 96, 176 → 192, 193 → 256, 256), the swapped
+    regime's end (256 | 257), the tiled
+    regime; N not a multiple of the W tile; K a multiple of 16 but not of
+    the 128-byte K step, with and without a cluster split of K."""
+    g = _gen(dev, m * 7 + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    acc = int8_matmul(x, w, torch.ones(m, device=dev), torch.ones(n, device=dev),
+                      out_dtype=torch.float32)
+    want = x.cpu().to(torch.int64) @ w.cpu().to(torch.int64).T
+    assert torch.equal(acc.cpu().to(torch.int64), want)
+    dx = torch.rand(m, generator=g, device=dev) * 1e-2
+    dw = torch.rand(n, generator=g, device=dev) * 1e-3
+    assert torch.equal(int8_matmul(x, w, dx, dw), int8_matmul_ref(x, w, dx, dw))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 1100), (4096, 12288)])
+def test_int8_matmul_row_does_not_depend_on_m_on_card(dev, k, n):
+    """The rows of a 4-row call equal the same rows of 24-, 88-, 300- and
+    4092-row calls: both regimes and every cluster split give one int32
+    sum and one epilogue per element."""
+    g = _gen(dev, k + n)
+    x = torch.randint(-127, 128, (4092, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    dx = torch.rand(4092, generator=g, device=dev) * 1e-2
+    dw = torch.rand(n, generator=g, device=dev) * 1e-3
+    four = int8_matmul(x[:4], w, dx[:4], dw)
+    for m in (24, 88, 300, 4092):
+        assert torch.equal(int8_matmul(x[:m], w, dx[:m], dw)[:4], four), m
+
+
+@pytest.mark.parametrize("m,k,n", [(24, 4096, 12288), (24, 4096, 1024), (4092, 4096, 12288)])
+def test_int8_matmul_is_one_kernel_per_call_on_card(dev, m, k, n):
+    """One device kernel per call — no workspace memset, no epilogue
+    kernel — with a cluster split of K (k/v at M 24) or without."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=dev, dtype=torch.int8)
+    dx, dw = torch.rand(m, device=dev), torch.rand(n, device=dev)
+    int8_matmul(x, w, dx, dw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            int8_matmul(x, w, dx, dw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and all("int8_gemm_kernel" in nm for nm in names), names
+
+
+def test_int8_matmul_misaligned_weight_raises_on_card(dev):
+    x = torch.zeros(4, 32, dtype=torch.int8, device=dev)
+    buf = torch.zeros(8 * 32 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        int8_matmul(x, buf[1:].view(8, 32), torch.ones(4, device=dev),
+                    torch.ones(8, device=dev))
 
 
 @pytest.mark.parametrize("m,k,n", [

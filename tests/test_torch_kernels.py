@@ -104,9 +104,10 @@ def test_int8_matmul_exact(m, k, n):
     (300, 256, 96, False), (24, 12288, 72, True), (24, 4096, 4096, True),
     (24, 4096, 151936, False), (4092, 4096, 12288, False), (1, 16, 1, False)])
 def test_int8_matmul_split_k_covers_k(m, k, n, split):
-    """The card's kernel splits K across blocks only where the output has
-    too few 64x64 tiles to fill the card (decode shapes other than
-    lm_head), in whole 64-wide K tiles that cover K."""
+    """The int4 GEMM's plan (``split_k``, shared with the earlier int8
+    kernel) splits K across blocks only where the output has too few
+    64x64 tiles to fill the card (decode shapes other than lm_head), in
+    whole 64-wide K tiles that cover K."""
     chunk, splits = split_k(m, n, k)
     assert chunk % 64 == 0 and (splits - 1) * chunk < k <= splits * chunk
     assert (splits > 1) == split

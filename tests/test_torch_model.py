@@ -191,3 +191,21 @@ def test_model_rejects_unknown_attn_impl():
     Model(pcfg, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         Model(dataclasses.replace(pcfg, attn_impl="pallas"), device="cpu")
+
+
+@pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (576, torch.float32)])
+def test_norm_row_does_not_depend_on_row_count_on_cpu(d, dtype):
+    """On the CPU the norms keep torch's row mean (``models/common.row_mean``),
+    whose rows already do not depend on how many rows come with them, as the
+    card's folded mean's do not (``tests/test_torch_card.py``)."""
+    from repro_torch.models.common import layer_norm, rms_norm
+
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn(4092, d, generator=g) * 3).to(dtype)
+    scale = torch.rand(d, generator=g) + 0.5
+    bias = torch.randn(d, generator=g)
+    for norm in (lambda t: rms_norm(t, scale), lambda t: layer_norm(t, scale, bias)):
+        one = norm(x[:1])
+        for m in (4, 24, 88, 300, 4092):
+            assert torch.equal(norm(x[:m])[:1], one), m
+        assert torch.equal(norm(x[:24].view(4, 6, d))[:, 0], norm(x[:24:6])), "(B, T, D)"
