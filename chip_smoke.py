@@ -7,12 +7,17 @@
    ``nvcc`` per source, all started together).
 3. Kernel phase: calls each kernel's wrapper at the shapes the main path
    gives it, on seeded inputs, and holds it against its plain PyTorch
-   version (smooth_quant bit-equal, int8_matmul and int4_matmul exact,
-   flash_decode — chain and token-tree windows — within one bf16 rounding
-   step: rtol 2^-7, atol 1e-5 — both accumulate in f32 and round once to
-   bf16), the tree variant with the chain template bit-equal to the
+   version (smooth_quant and norm_smooth_quant bit-equal, int8_matmul and
+   int4_matmul exact, flash_decode — chain and token-tree windows — within
+   one bf16 rounding step: rtol 2^-7, atol 1e-5 — both accumulate in f32
+   and round once to bf16), the tree variant with the chain template bit-equal to the
    chain variant, and a tree window's root rows bit-equal to a T = 1 chain
    query at the window's start ((3,2,1,1) and (4,4,4), bf16 and int8 KV).
+   norm_smooth_quant (the RMSNorm fused with the quantization of each
+   linear that reads it) runs at attn_norm's shape, three readers, at the
+   vanilla, chain, paged chain, tree and paged tree windows' rows;
+   int4_matmul at every W4A8 linear of the chain window, gate/up and
+   lm_head at the tree window, and prefill.
    Times the kernel, the plain version and, where one
    PyTorch call computes the same function, that call (CUDA events, L2
    flushed before every launch, median of many), beside the least time the
@@ -25,15 +30,17 @@
    the ngram drafter; the (3,2,1,1) token tree with W8A8 (bf16 KV) and W4A8
    (int8 KV); and the pruned drafter (retention 0.75, γ 5) with W8A8.  Each
    run starts from zeroed launch counters; it fails unless every kernel of
-   its path launched and no row tripped the non-finite-logits flag; the
+   its path launched (norm_smooth_quant included: every run is quantized)
+   and no row tripped the non-finite-logits flag; the
    greedy tokens of the bf16-KV W8A8 spec, tree and pruned runs must equal
    the vanilla run's (every op of the verify forward is row-invariant).  A
    torch.profiler window over a few decode steps of the spec W8A8 (both KV
-   dtypes), spec W4A8 and tree W8A8 runs gives the device's busy and idle
-   share and device time by kernel.  Then the repo's own lossless gate on
-   the reduced config on the card: greedy tokens equal to vanilla's for
-   ngram, ngram-tree (3,2,1,1), pruned and ChainTreeAdapter(ngram), with
-   W8A8 and W4A8, KV bf16 and int8.
+   dtypes), spec W4A8 and tree W8A8 runs gives the device's busy ms per
+   step, its idle share under the profiler and of the unprofiled step,
+   device time by kernel and the kernel launches per step.  Then the repo's
+   own lossless gate on the reduced config on the card: greedy tokens equal
+   to vanilla's for ngram, ngram-tree (3,2,1,1), pruned and
+   ChainTreeAdapter(ngram), with W8A8 and W4A8, KV bf16 and int8.
 5. Paged phase (the continuous-batching scheduler over the paged,
    prefix-shared KV cache).  Kernel part: the four ``flash_decode_paged``
    variants (chain/tree × bf16/int8 KV) at the 7B chain and (3,2,1,1) tree
@@ -75,7 +82,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}   # f32: outside the tensor cores
 B, GAMMA, PROMPT, NEW = 4, 5, 1024, 64
 ARCH = "quasar-paper-7b"
 FLASH_TOL = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step
@@ -88,24 +95,30 @@ GAMMA_FLAGS = ["--gamma", str(GAMMA)]
 MAIN_PATH_RUNS = {                 # run name -> (serve flags, kernels it must launch)
     "spec_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
                            "--kv-cache", "bf16"],
-                          ("smooth_quant", "int8_matmul", "flash_decode")),
+                          ("norm_smooth_quant", "smooth_quant", "int8_matmul", "flash_decode")),
     "spec_w8a8_kv_int8": (["--verifier", "w8a8", "--drafter", "ngram", *GAMMA_FLAGS,
                            "--kv-cache", "int8"],
-                          ("smooth_quant", "int8_matmul", "flash_decode_int8")),
+                          ("norm_smooth_quant", "smooth_quant", "int8_matmul",
+                           "flash_decode_int8")),
     "vanilla_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "vanilla", *GAMMA_FLAGS,
                               "--kv-cache", "bf16"],
-                             ("smooth_quant", "int8_matmul", "flash_decode")),
+                             ("norm_smooth_quant", "smooth_quant", "int8_matmul",
+                              "flash_decode")),
     "spec_w4a8_kv_bf16": (["--verifier", "w4a8", "--drafter", "ngram", *GAMMA_FLAGS,
                            "--kv-cache", "bf16"],
-                          ("smooth_quant", "int4_matmul", "flash_decode")),
+                          ("norm_smooth_quant", "smooth_quant", "int4_matmul",
+                           "flash_decode")),
     "tree_w8a8_kv_bf16": (["--verifier", "w8a8", *TREE_FLAGS, "--kv-cache", "bf16"],
-                          ("smooth_quant", "int8_matmul", "flash_decode_tree")),
+                          ("norm_smooth_quant", "smooth_quant", "int8_matmul",
+                           "flash_decode_tree")),
     "tree_w4a8_kv_int8": (["--verifier", "w4a8", *TREE_FLAGS, "--kv-cache", "int8"],
-                          ("smooth_quant", "int4_matmul", "flash_decode_tree_int8")),
+                          ("norm_smooth_quant", "smooth_quant", "int4_matmul",
+                           "flash_decode_tree_int8")),
     "pruned_w8a8_kv_bf16": (["--verifier", "w8a8", "--drafter", "pruned",
                              "--pruned-retention", "0.75", *GAMMA_FLAGS,
                              "--kv-cache", "bf16"],
-                            ("smooth_quant", "int8_matmul", "flash_decode")),
+                            ("norm_smooth_quant", "smooth_quant", "int8_matmul",
+                             "flash_decode")),
 }
 PAGED_REQUESTS = 12                # (a)-(c): 12 requests through the default 8 slots
 PAGED_RUNS = {                     # paged run -> (serve flags, batch, paged kernel it must launch)
@@ -177,7 +190,8 @@ def kernel_phase(torch, dev, flush, cfg):
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
     from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
-    from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
+    from repro_torch.kernels.smooth_quant import (norm_smooth_quant, norm_smooth_quant_ref,
+                                                  smooth_quant, smooth_quant_ref)
     from repro_torch.models.attention import _quant_kv
 
     F = torch.nn.functional
@@ -185,6 +199,7 @@ def kernel_phase(torch, dev, flush, cfg):
     D, FF, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     M = B * (GAMMA + 1)
+    MT = B * TreeTemplate(TREE).num_nodes
     S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128      # transformer.init_cache
     results = {}
 
@@ -199,16 +214,42 @@ def kernel_phase(torch, dev, flush, cfg):
         if not (torch.equal(q, rq) and torch.equal(dx.view(torch.int32), rdx.view(torch.int32))):
             raise AssertionError(f"smooth_quant ({m},{k}) is not bit-equal to its plain version")
         nbytes, ops = m * k * 2 + k * 4 + m * k + m * 4, 3 * m * k
-        bms, by = bound_ms(nbytes, ops, "bf16")
+        bms, by = bound_ms(nbytes, ops, "f32")
         rows.append(dict(shape=[m, k], max_abs_err=0.0, bound_ms=bms, bound_by=by,
                          **timed(torch, lambda: smooth_quant(x, s),
                                  lambda: smooth_quant_ref(x, s), None, 50, flush)))
     results["smooth_quant"] = rows
 
+    # -- norm_smooth_quant: attn_norm with its three readers (q/k/v) at the
+    #    vanilla (4), chain (24), paged chain (48), tree (88) and paged tree
+    #    (176) windows' rows; bit-equal to the plain version (the kernel's sum
+    #    order in elementwise f32 adds); no PyTorch call computes it --
+    rows = []
+    for m in (B, M, 2 * M, MT, 2 * MT):
+        x = (torch.randn(m, D, generator=g, device=dev) * 3).to(torch.bfloat16)
+        scale = torch.rand(D, generator=g, device=dev) + 0.5
+        sm = [torch.rand(D, generator=g, device=dev) * 7.875 + 0.125 for _ in range(3)]
+        got = norm_smooth_quant(x, scale, cfg.norm_eps, sm)
+        want = norm_smooth_quant_ref(x, scale, cfg.norm_eps, sm)
+        torch.cuda.synchronize()
+        for (q, dx), (rq, rdx) in zip(got, want):
+            if not (torch.equal(q, rq) and torch.equal(dx.view(torch.int32),
+                                                       rdx.view(torch.int32))):
+                raise AssertionError(f"norm_smooth_quant ({m},{D}) x3 is not bit-equal to "
+                                     "its plain version")
+        # read x, scale and the smooth vectors once, write three codes and
+        # scales; ~4 f32 operations per element for the norm, 4 per reader
+        nbytes, ops = m * D * 2 + 4 * D * 4 + 3 * (m * D + 4 * m), m * D * (4 + 4 * 3)
+        bms, by = bound_ms(nbytes, ops, "f32")
+        rows.append(dict(shape=[m, D, 3], max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                         **timed(torch, lambda: norm_smooth_quant(x, scale, cfg.norm_eps, sm),
+                                 lambda: norm_smooth_quant_ref(x, scale, cfg.norm_eps, sm),
+                                 None, 50, flush)))
+    results["norm_smooth_quant"] = rows
+
     # -- int8_matmul: q/o, k/v, gate/up, down, lm_head at the chain window; a
     #    prefill GEMM; gate/up at the vanilla (M 4), paged chain (8 slots, 48),
     #    tree (88) and paged tree (176) windows; the tree's lm_head --
-    MT = B * TreeTemplate(TREE).num_nodes
     rows = []
     for m, k, n in ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V),
                     (B * (PROMPT - 1), D, FF), (B, D, FF), (2 * M, D, FF), (MT, D, FF),
@@ -504,6 +545,7 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
     from repro_torch.core import prng
     from repro_torch.core.config import SpecConfig
     from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
     from repro_torch.models import Model
     from repro_torch.serving.engine import SpecEngine
 
@@ -524,6 +566,7 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
             state = engine._step(params, state)
             state["length"].cpu()
         torch.cuda.synchronize()
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILE_STEPS):                   # as SpecEngine._run steps
@@ -531,9 +574,10 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
                 state["length"].cpu()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v / PROFILE_STEPS for k, v in ops.launch_counts().items()}
     busy_ms, top = device_time(torch, prof)
     info = dict(verifier=verifier, drafter=drafter, kv_cache=kv, tree_branches=branches,
-                steps=PROFILE_STEPS, wall_ms=wall_ms,
+                steps=PROFILE_STEPS, wall_ms=wall_ms, launches_per_step=launches,
                 step_ms=wall_ms / PROFILE_STEPS,
                 device_busy_ms=busy_ms or None,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
@@ -733,8 +777,10 @@ def paged_path_phase(torch, dev):
         info = scheduled_info(torch, dev, sr)
         info.update(run_s_incl_init=time.perf_counter() - t0, launches=ops.launch_counts())
         log(f"  {json.dumps(info)}")
-        if info["launches"].get(needed, 0) <= 0:
-            raise AssertionError(f"{name}: {needed} never launched on the path")
+        missing = [k for k in (needed, "norm_smooth_quant")
+                   if info["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
         check_scheduled(name, info, sr, batch)
         info["tokens"] = np.stack([r.tokens for r in sr.results])
         runs[name] = info
@@ -1003,7 +1049,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f}s for {sorted(reports) or 'cached libraries'}")
     for src, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning", "serialized")):
                 log(f"  {src}: {line.strip()}")
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
@@ -1017,12 +1063,14 @@ def main() -> int:
     prof = {run: profile_phase(torch, dev, *spec) for run, spec in PROFILES.items()}
     for run, p in prof.items():
         # the profiler slows the host; against the unprofiled run's step time
+        p["unprofiled_step_ms"] = step_ms = runs[run]["mean_step_ms"]
         if p["device_busy_ms"]:
-            step_ms = runs[run]["mean_step_ms"]
-            p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms"] / p["steps"] / step_ms
-            log(f"  {run}: device busy {p['device_busy_ms'] / p['steps']:.2f} ms/step; idle "
-                f"{p['device_idle_share']:.3f} under the profiler, "
-                f"{p['device_idle_share_unprofiled']:.3f} of the unprofiled step")
+            p["device_busy_ms_per_step"] = p["device_busy_ms"] / p["steps"]
+            p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms_per_step"] / step_ms
+            log(f"  {run}: device busy {p['device_busy_ms_per_step']:.2f} ms/step; "
+                f"unprofiled step {step_ms:.2f} ms; idle {p['device_idle_share']:.3f} under "
+                f"the profiler, {p['device_idle_share_unprofiled']:.3f} of the unprofiled "
+                f"step; launches per step {p['launches_per_step']}")
     log("lossless gate")
     lossless_gate(torch, dev)
     log("paged phase: kernels")
@@ -1049,6 +1097,8 @@ def main() -> int:
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
                          "src/repro/kernels/smooth_quant.py:24", "spec_w8a8_kv_bf16"),
+        "norm_smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
+                              "src/repro/kernels/smooth_quant.py:24", "spec_w8a8_kv_bf16"),
         "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                         "src/repro/kernels/int8_matmul.py:26", "spec_w8a8_kv_bf16"),
         "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -1067,7 +1117,7 @@ def main() -> int:
            for run, (_, _, name) in PAGED_RUNS.items()},
     }
     # the representative main-path shape of each kernel in the summary line
-    pick = {"smooth_quant": 0, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
+    pick = {"smooth_quant": 0, "norm_smooth_quant": 1, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
             "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
@@ -1080,8 +1130,8 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             host_ms=row["host_ms"],
-            **({"yardstick_contiguous_ms": row["yardstick_contiguous_ms"]}
-               if "yardstick_contiguous_ms" in row else {}),
+            **{k: row[k] for k in ("yardstick_contiguous_ms", "yardstick_int8_matmul_ms")
+               if k in row},
             launches_by_run={k: v["launches"].get(kname, 0) for k, v in runs.items()
                              if isinstance(v, dict)}))
     out = ROOT / "chiprun_out"

@@ -1,14 +1,19 @@
-// Hopper building blocks of the int8 GEMM (int8_matmul.cu): mbarrier waits,
-// TMA tile loads, the shared-memory matrix descriptor of a K-major tile
-// written by TMA with 128-byte swizzle, and the s8 warpgroup product
-// wgmma.mma_async.m64nNk32.s32.s8.s8 (int32 accumulators in registers), one
-// wrapper per width N that the launch plan uses (kernels/int8_matmul.py
-// WIDTHS; the PTX ISA allows 8, 16, 24, 32 and multiples of 16 up to 256 for
-// s8).
+// Hopper building blocks of the s8 GEMMs (int8_matmul.cu, int4_matmul.cu):
+// mbarrier waits, TMA tile loads, the shared-memory matrix descriptor of a
+// K-major tile written by TMA with 128-byte swizzle, and the s8 warpgroup
+// product wgmma.mma_async.m64nNk32.s32.s8.s8 (int32 accumulators in
+// registers), one wrapper per width N that the launch plans use
+// (kernels/int8_matmul.py WIDTHS; the PTX ISA allows 8, 16, 24, 32 and
+// multiples of 16 up to 256 for s8), with A from shared memory (mma) or from
+// registers (mma_rs).
 //
 // Accumulator layout of m64nN (each of the 128 threads of the warpgroup
 // holds N/2 values): thread t = 32*w + l holds, for every 8-column block j,
 // d[4j + v] = D[16w + l/4 + 8*(v/2)][8j + 2*(l%4) + v%2].
+//
+// Register A fragment of m64nNk32 for s8 (four registers of four K-consecutive
+// bytes): thread t = 32*w + l holds a[i] = A[16w + l/4 + 8*(i%2)][4*(l%4) +
+// 16*(i/2) .. +3], the layout of mma.sync.m16n8k32 per warp.
 #pragma once
 
 #include <cuda.h>
@@ -51,6 +56,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Orders this thread's ordinary (generic-proxy) writes to shared memory
+// before later async-proxy reads of the same bytes, such as a wgmma operand.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One TMA load of the box at (c0 = inner coordinate, c1 = row) of `map` into
@@ -96,9 +107,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 }
 
 // D (64 x N, int32) += A (64 x 32 s8, K-major) * B (N x 32 s8, K-major)^T,
-// both from shared memory through their descriptors.  Wgmma<N>::mma takes
-// the N/2 accumulators of a thread; one specialisation per width the plan
-// uses, each written by WGMMA_S8 from one list of operand names.
+// B from shared memory through its descriptor, A through its descriptor
+// (Wgmma<N>::mma) or from the four fragment registers above
+// (Wgmma<N>::mma_rs).  Both take the N/2 accumulators of a thread; one
+// specialisation per width the plans use, each written by WGMMA_S8 from one
+// list of operand names.
 template <int N>
 struct Wgmma;
 
@@ -129,26 +142,36 @@ struct Wgmma;
 #define WG_OPS_128 WG_OPS_96, WG_D12(8), WG_D12(9), WG_D4(30), WG_D4(31)
 
 // N: the width; R = N/2 accumulators; A, B, P: the operand numbers R, R+1
-// and R+2 of the two descriptors and the scale-d flag.
-#define WGMMA_S8(N, R, A, B, P)                                                     \
-  template <>                                                                       \
-  struct Wgmma<N> {                                                                 \
-    static __device__ __forceinline__ void mma(uint32_t (&d)[R], uint64_t a,        \
-                                               uint64_t b) {                        \
-      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" WG_REGS_##R \
-                   "}, %" #A ", %" #B ", p;\n}\n"                                    \
-                   : WG_OPS_##R                                                     \
-                   : "l"(a), "l"(b), "r"(1));                                       \
-    }                                                                               \
+// and R+2 of the two descriptors and the scale-d flag of mma; A0..A3, RB,
+// RP: the operand numbers R .. R+5 of mma_rs's four A registers, its B
+// descriptor and its flag.
+#define WGMMA_S8(N, R, A, B, P, A0, A1, A2, A3, RB, RP)                                 \
+  template <>                                                                         \
+  struct Wgmma<N> {                                                                   \
+    static __device__ __forceinline__ void mma(uint32_t (&d)[R], uint64_t a,          \
+                                               uint64_t b) {                          \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                    \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" WG_REGS_##R   \
+                   "}, %" #A ", %" #B ", p;\n}\n"                                      \
+                   : WG_OPS_##R                                                       \
+                   : "l"(a), "l"(b), "r"(1));                                         \
+    }                                                                                 \
+    static __device__ __forceinline__ void mma_rs(uint32_t (&d)[R],                   \
+                                                  const uint32_t (&a)[4], uint64_t b) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #RP ", 0;\n"                   \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" WG_REGS_##R   \
+                   "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #RB ", p;\n}\n"      \
+                   : WG_OPS_##R                                                       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));     \
+    }                                                                                 \
   };
 
-WGMMA_S8(8, 4, 4, 5, 6)
-WGMMA_S8(24, 12, 12, 13, 14)
-WGMMA_S8(48, 24, 24, 25, 26)
-WGMMA_S8(96, 48, 48, 49, 50)
-WGMMA_S8(192, 96, 96, 97, 98)
-WGMMA_S8(256, 128, 128, 129, 130)
+WGMMA_S8(8, 4, 4, 5, 6, 4, 5, 6, 7, 8, 9)
+WGMMA_S8(24, 12, 12, 13, 14, 12, 13, 14, 15, 16, 17)
+WGMMA_S8(48, 24, 24, 25, 26, 24, 25, 26, 27, 28, 29)
+WGMMA_S8(96, 48, 48, 49, 50, 48, 49, 50, 51, 52, 53)
+WGMMA_S8(192, 96, 96, 97, 98, 96, 97, 98, 99, 100, 101)
+WGMMA_S8(256, 128, 128, 129, 130, 128, 129, 130, 131, 132, 133)
 
 #undef WGMMA_S8
 #undef WG_OPS_128

@@ -9,18 +9,24 @@ sign-extended).  ``int4_matmul`` checks its inputs, then runs the plain
 version for CPU tensors and the CUDA kernel (``csrc/int4_matmul.cu``) for
 CUDA tensors.  The kernel unpacks the nibbles in registers and never
 writes an unpacked weight; both sum exactly in int32 and take the same f32
-epilogue, so their outputs are equal.
+epilogue, so their outputs are equal.  Its launch is planned here from the
+shapes and pointers alone (:func:`gemm_plan`), with the int8 GEMM's
+swapped-regime logic (``int8_matmul.swap_plan``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.int8_matmul import int8_matmul_ref, split_k
+from repro_torch.kernels.int8_matmul import (KT, MAX_STAGES, SMALL_M, SMEM_PER_BLOCK,
+                                             SMEM_RESERVE, Plan, int8_matmul_ref,
+                                             swap_plan)
 
-K_ALIGN = 32     # the kernel's fast path loads packed rows in 16-byte chunks
+K_ALIGN = 32     # TMA streams packed rows in 16-byte units: K/2 % 16 == 0
+KP = KT // 2     # packed W bytes per row and ring stage
 
 
 def unpack_nk(w_packed: torch.Tensor) -> torch.Tensor:
@@ -59,23 +65,47 @@ def _check(x, w, dx, dw, out_dtype) -> None:
         raise ValueError("int4_matmul: inputs are on different devices")
 
 
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int, aligned: bool = True) -> Plan:
+    """The card kernel's launch, chosen from the shapes and, through
+    ``aligned`` (both base pointers 16-byte aligned), the pointers alone.
+
+    The operands are always swapped (W rows are wgmma's A, from registers
+    after the unpack).  M <= 256: :func:`~repro_torch.kernels.int8_matmul.swap_plan`
+    with 64-byte packed W rows per stage, so each packed byte is read once.
+    M > 256: 128 W rows by 256 X rows per block, X tiled over a second grid
+    dimension, no K split, as many stages as fit.  The producer streams with
+    TMA when the rows are 16-byte multiples (K % 32 == 0) and aligned, else
+    it stages the same swizzled layout with byte loads."""
+    tma = aligned and K % K_ALIGN == 0
+    if M > SMALL_M:
+        stage = 128 * KP + 256 * KT
+        stages = min(MAX_STAGES, (SMEM_PER_BLOCK - SMEM_RESERVE) // stage)
+        return Plan("tiled", 128, 256, 1, stages, SMEM_RESERVE + stages * stage, tma)
+    return swap_plan(M, N, K, KP, tma)
+
+
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _FN = ops.c_function("int4_matmul", "int4_matmul_launch",
+                             [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p])
+    return _FN
+
+
 def _launch(x, w, dx, dw, out_dtype):
     M, K = x.shape
     N = w.shape[0]
-    # 16-byte loads where every row starts 16-byte aligned; byte loads else
-    aligned = K % K_ALIGN == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    k_chunk, splits = split_k(M, N, K)
-    ws = (torch.zeros((M, N), dtype=torch.int32, device=x.device)
-          if splits > 1 else None)
-    fn = ops.c_function("int4_matmul", "int4_matmul_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    err = fn(ops.ptr(x), ops.ptr(w), ops.ptr(dx), ops.ptr(dw), ops.ptr(out),
-             int(out_dtype == torch.bfloat16), ops.ptr(ws), M, N, K, k_chunk,
-             splits, int(aligned), ops.stream(x))
+    plan = gemm_plan(M, N, K, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel_fn()(x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                       out.data_ptr(), out_dtype == torch.bfloat16, M, N, K, plan.width,
+                       plan.tile_n, plan.cluster, plan.stages, plan.smem, plan.tma, stream)
     ops.check("int4_matmul", err)
     ops.LAUNCHES["int4_matmul"] += 1
     return out

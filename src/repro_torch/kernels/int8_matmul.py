@@ -18,7 +18,6 @@ import torch
 
 from repro_torch.kernels import ops
 
-BM = BN = BK = 64          # the int4 GEMM's output and K tile sizes (split_k)
 NUM_SMS = 132              # H100 SXM
 K_ALIGN = 16               # the kernels load rows in 16-byte units
 
@@ -61,17 +60,6 @@ def _check(x, w, dx, dw, out_dtype) -> None:
         raise ValueError("int8_matmul: inputs are on different devices")
 
 
-def split_k(M: int, N: int, K: int) -> tuple[int, int]:
-    """The int4 GEMM's plan (``csrc/int4_matmul.cu``): (k_chunk, splits),
-    split K across blocks when the output has too few 64×64 tiles to keep
-    four blocks on every SM (decode shapes)."""
-    tiles = -(-M // BM) * -(-N // BN)
-    ktiles = -(-K // BK)
-    want = max(1, min(-(-4 * NUM_SMS // tiles), ktiles // 4))
-    per = -(-ktiles // want)
-    return per * BK, -(-ktiles // per)
-
-
 # -- the card kernel's launch plan (csrc/int8_matmul.cu) ----------------------
 
 KT = 128                   # K bytes per pipeline stage (one 128-byte swizzled row)
@@ -88,12 +76,13 @@ SMEM_RESERVE = 2048        # the kernel's alignment slack and mbarriers
 
 
 class Plan(NamedTuple):
-    regime: str     # "swap" (M <= 256, Y^T tiles) or "tiled" (128 x 256 Y tiles)
+    regime: str     # "swap" (M <= 256, Y^T tiles) or "tiled" (M > 256)
     tile_n: int     # N extent of a block's output tile (W rows per block)
     width: int      # wgmma N: M rounded up to a built width (swap), else 256
     cluster: int    # blocks of a cluster splitting K (1, 2, 4 or 8)
     stages: int     # depth of the TMA ring
     smem: int       # dynamic shared memory bytes per block
+    tma: bool = True  # the producer streams with TMA (else ordinary loads)
 
 
 def _every_rank_has_k(ktiles: int, cluster: int) -> bool:
@@ -102,25 +91,23 @@ def _every_rank_has_k(ktiles: int, cluster: int) -> bool:
     return (cluster - 1) * -(-ktiles // cluster) < ktiles
 
 
-@functools.lru_cache(maxsize=1024)
-def gemm_plan(M: int, N: int, K: int) -> Plan:
-    """The card kernel's launch, chosen from the shapes alone.
+def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True) -> Plan:
+    """The swapped regime of both s8 GEMMs (``csrc/gemm_s8.cuh``), M <= 256:
+    W tiles are wgmma's A, all M rows of X its N, so each weight byte is
+    read once.  ``w_row_bytes``: bytes of one W row in a ring stage (128 for
+    int8, 64 for packed int4).
 
-    M <= 256: one 64-row W tile per consumer warpgroup (two above width
-    48), all M rows of X as the wgmma N operand, so each weight byte is read
-    once; up to three blocks per SM; K split across a cluster (a split
-    costs two cluster barriers and a reduction) only while the W tiles
-    alone leave SMs idle, only as far as the card holds the grid at once,
-    and only while every block of the cluster keeps a K step.  M > 256: 128 x 256 output tiles, four stages."""
+    One 64-row W tile per consumer warpgroup (two above width 48); up to
+    three blocks per SM; K split across a cluster (a split costs two
+    cluster barriers and a reduction) only while the W tiles alone leave
+    SMs idle, only as far as the card holds the grid at once, and only
+    while every block of the cluster keeps a K step."""
     ktiles = -(-K // KT)
-    if M > SMALL_M:
-        stage = (128 + 256) * KT
-        return Plan("tiled", 256, 256, 1, 4, SMEM_RESERVE + 4 * stage)
     width = next(w for w in WIDTHS if w >= M)
     # one warpgroup per 64 W rows up to width 48: at gate/up M 30 it beat two
     # per 128 (fewer tiles, so a K split) by 15% (PERF.md §6, PR 15)
     tile_n = 64 if width <= 48 else 128
-    stage = (tile_n + width) * KT
+    stage = tile_n * w_row_bytes + width * KT
     for per_sm in (3, 2, 1):    # the most blocks per SM that leave four stages
         room = min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - 1024) - SMEM_RESERVE
         stages = min(MAX_STAGES, room // stage)
@@ -134,7 +121,18 @@ def gemm_plan(M: int, N: int, K: int) -> Plan:
     # a split stores every consumer thread's width/2 int32 sums in the ring
     partial = 4 * (tile_n * 2) * (width // 2) if cluster > 1 else 0
     return Plan("swap", tile_n, width, cluster, stages,
-                SMEM_RESERVE + max(stages * stage, partial))
+                SMEM_RESERVE + max(stages * stage, partial), tma)
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int) -> Plan:
+    """The card kernel's launch, chosen from the shapes alone: M <= 256 the
+    swapped regime (:func:`swap_plan`); M > 256 128 x 256 output tiles, X
+    the A operand and W the B operand, four stages."""
+    if M > SMALL_M:
+        stage = (128 + 256) * KT
+        return Plan("tiled", 256, 256, 1, 4, SMEM_RESERVE + 4 * stage)
+    return swap_plan(M, N, K, KT)
 
 
 _FN = None

@@ -154,6 +154,31 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
 # Composite dispatch
 # ---------------------------------------------------------------------------
 
+def quantize_act(x: torch.Tensor, smooth: torch.Tensor):
+    """The quantize half of a quantized linear: x (..., K) → (x̂ int8
+    (M, K), Δx f32 (M,)) over its rows, by the ``smooth_quant`` kernel."""
+    from repro_torch.kernels.smooth_quant import smooth_quant
+
+    return smooth_quant(x.reshape(-1, x.shape[-1]).contiguous(), smooth)
+
+
+def w8a8_gemm(xq, dx, w_int8, w_scale, batch_shape, out_dtype) -> torch.Tensor:
+    """The GEMM half of the W8A8 linear: x̂ (M, K) int8 and Δx (M,) from
+    :func:`quantize_act` or ``norm_smooth_quant`` → (*batch_shape, N)."""
+    from repro_torch.kernels.int8_matmul import int8_matmul
+
+    y = int8_matmul(xq, w_int8, dx, w_scale, out_dtype=out_dtype)
+    return y.reshape(*batch_shape, w_int8.shape[0])
+
+
+def w4a8_gemm(xq, dx, w_int4, w_scale, batch_shape, out_dtype) -> torch.Tensor:
+    """The GEMM half of the W4A8 linear (packed (N, K/2) weight)."""
+    from repro_torch.kernels.int4_matmul import int4_matmul
+
+    y = int4_matmul(xq, w_int4, dx, w_scale, out_dtype=out_dtype)
+    return y.reshape(*batch_shape, w_int4.shape[0])
+
+
 def w8a8_matmul(
     x: torch.Tensor,         # (..., K) activations (bf16/f32)
     w_int8: torch.Tensor,    # (N, K) int8, K contiguous
@@ -162,14 +187,8 @@ def w8a8_matmul(
 ) -> torch.Tensor:
     """Quantized-verification linear (paper §3.3):
     smooth → quant → int8 GEMM → dequant, in ``x.dtype``."""
-    from repro_torch.kernels.int8_matmul import int8_matmul
-    from repro_torch.kernels.smooth_quant import smooth_quant
-
-    batch_shape = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    xq, dx = smooth_quant(x2, smooth)
-    y = int8_matmul(xq, w_int8, dx, w_scale, out_dtype=x.dtype)
-    return y.reshape(*batch_shape, w_int8.shape[0])
+    xq, dx = quantize_act(x, smooth)
+    return w8a8_gemm(xq, dx, w_int8, w_scale, x.shape[:-1], x.dtype)
 
 
 def w4a8_matmul(
@@ -180,11 +199,5 @@ def w4a8_matmul(
 ) -> torch.Tensor:
     """Ultra-low-bit verification linear: smooth → quant → W4A8 GEMM →
     dequant, in ``x.dtype``."""
-    from repro_torch.kernels.int4_matmul import int4_matmul
-    from repro_torch.kernels.smooth_quant import smooth_quant
-
-    batch_shape = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    xq, dx = smooth_quant(x2, smooth)
-    y = int4_matmul(xq, w_int4, dx, w_scale, out_dtype=x.dtype)
-    return y.reshape(*batch_shape, w_int4.shape[0])
+    xq, dx = quantize_act(x, smooth)
+    return w4a8_gemm(xq, dx, w_int4, w_scale, x.shape[:-1], x.dtype)

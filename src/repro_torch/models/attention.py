@@ -240,10 +240,15 @@ class Attention(nn.Module):
                    Linear.init(generator, D, cfg.kv_dim, b, dt, device),
                    Linear.init(generator, cfg.q_dim, D, cfg.ffn_bias, dt, device))
 
+    def readers(self) -> tuple:
+        """The linears that read the attention's input (its norm's readers)."""
+        return (self.q, self.k, self.v)
+
     def forward(self, x, qpos, *, cache: dict | None = None, read_cache: bool = True,
                 collect=None, path: str = "", tree: dict | None = None,
                 block_tables=None, plain_attn: bool = False):
-        """x (B,T,D), qpos (B,T) int32 → (out (B,T,D), cache or None).
+        """x (B,T,D) (or its norm's ``NormedCodes``), qpos (B,T) int32 →
+        (out (B,T,D), cache or None).
 
         ``tree`` (a token-tree verify window): ``slots`` (B,T) where the
         window's K/V go, ``mask`` (T,T) and its bit words ``bits``, and

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import smooth_quant as sq
+
 _LIBM = None
 
 
@@ -58,9 +60,11 @@ def row_mean(x32: torch.Tensor) -> torch.Tensor:
     hold, and the fold's order does not (with the fold on the CPU,
     ``tests/test_torch_model.py::test_forward_logits_match_jax[f32-True-0.0001]``
     and ``test_prefill_verify_match_jax[False-int8]`` fail: a changed
-    rounding flips int8 codes downstream).  A fused norm kernel, one block
-    per row as ``smooth_quant`` is, would be row-invariant by construction
-    and replace this fold and its launches (ROADMAP §2)."""
+    rounding flips int8 codes downstream).  On the card an RMSNorm read by
+    quantized linears runs as one ``norm_smooth_quant`` kernel instead, one
+    block per row and so row-invariant by construction (:class:`Norm`);
+    this fold serves the other norms there (LayerNorm, the bf16 verifier,
+    calibration, a tied ``lm_head``)."""
     if x32.device.type != "cuda":
         return x32.mean(dim=-1, keepdim=True)
     s, d = x32, x32.shape[-1]
@@ -86,8 +90,33 @@ def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+class NormedCodes:
+    """What a fused RMSNorm hands the quantized linears that read it: for
+    each, its int8 codes and Δx ``(x̂ (M, D), Δx (M,))``, made by one
+    ``norm_smooth_quant`` launch; the normed activations themselves are
+    never written.  ``shape``, ``dtype`` and ``device`` are those of the
+    norm's input."""
+
+    def __init__(self, x: torch.Tensor, codes: dict):
+        self.shape, self.dtype, self.device, self._codes = x.shape, x.dtype, x.device, codes
+
+    def apply(self, lin: nn.Module) -> torch.Tensor:
+        """``lin``'s output, from the codes made with its ``smooth``."""
+        xq, dx = self._codes[id(lin)]
+        return lin.forward_quantized(xq, dx, self.shape[:-1], self.dtype)
+
+
 class Norm(nn.Module):
-    """RMSNorm (``scale``) or LayerNorm (``scale`` + ``bias``), f32 params."""
+    """RMSNorm (``scale``) or LayerNorm (``scale`` + ``bias``), f32 params.
+
+    ``readers``: the linears that read this norm's output.  On the card, an
+    RMSNorm whose readers are all quantized (``forward_quantized``) returns
+    :class:`NormedCodes` from one ``norm_smooth_quant`` launch: the norm,
+    then each reader's smoothing and int8 quantization.  Every other case
+    (the CPU, LayerNorm, bf16 readers, calibration, which passes no
+    readers) computes the norm as the reference composes it and returns the
+    normed tensor.  The choice follows the device and the configuration,
+    never a failure."""
 
     def __init__(self, cfg, d: int, device=None):
         super().__init__()
@@ -98,7 +127,17 @@ class Norm(nn.Module):
         else:
             self.bias = None
 
-    def forward(self, x):
+    def fuses(self, x: torch.Tensor, readers) -> bool:
+        return (x.device.type == "cuda" and self.bias is None and len(readers) > 0
+                and all(hasattr(r, "forward_quantized") for r in readers)
+                and x.dtype in (torch.bfloat16, torch.float32)
+                and x.shape[-1] <= sq.max_width(x.dtype))
+
+    def forward(self, x, readers=()):
+        if self.fuses(x, readers):
+            outs = sq.norm_smooth_quant(x.reshape(-1, x.shape[-1]).contiguous(), self.scale,
+                                        self.eps, [r.smooth for r in readers])
+            return NormedCodes(x, {id(r): o for r, o in zip(readers, outs)})
         if self.bias is not None:
             return layer_norm(x, self.scale, self.bias, self.eps)
         return rms_norm(x, self.scale, self.eps)

@@ -4,13 +4,16 @@ from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models.common import activation
+from repro_torch.models.common import NormedCodes, activation
 from repro_torch.models.linear import Linear
 from repro_torch.quant.smoothquant import record_act_stats
 
 
 def apply_linear(lin: nn.Module, x, collect=None, path: str = ""):
-    """Apply a (bf16 or W8A8) linear, recording calibration stats first."""
+    """Apply a (bf16, W8A8 or W4A8) linear, recording calibration stats
+    first; ``x`` may be a fused norm's :class:`NormedCodes`."""
+    if isinstance(x, NormedCodes):
+        return x.apply(lin)
     if collect is not None:
         record_act_stats(collect, path, x)
     return lin(x)
@@ -30,6 +33,10 @@ class FFN(nn.Module):
         up = Linear.init(generator, D, F, bias, dt, device)
         down = Linear.init(generator, F, D, bias, dt, device)
         return cls(cfg, up, down, gate)
+
+    def readers(self) -> tuple:
+        """The linears that read the FFN's input (its norm's readers)."""
+        return (self.up,) if self.gate is None else (self.gate, self.up)
 
     def forward(self, x, collect=None, path: str = ""):
         up = apply_linear(self.up, x, collect, f"{path}/up")

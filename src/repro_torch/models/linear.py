@@ -16,6 +16,9 @@ port of ``repro/models/linear.py``.
 
 At run time the activations are smoothed and quantized per token (Eq. 9),
 the GEMM runs in int8 and the result is dequantized by Δw·Δx (Eq. 10).
+``forward`` does both; ``forward_quantized`` takes codes and scales that
+an RMSNorm already made for this linear (``models/common.Norm``, one
+``norm_smooth_quant`` launch for every linear reading the norm).
 """
 from __future__ import annotations
 
@@ -55,6 +58,11 @@ class W8A8Linear(nn.Module):
         y = ops.w8a8_matmul(x, self.w_int8, self.w_scale, self.smooth)
         return y + self.b.to(y.dtype) if self.b is not None else y
 
+    def forward_quantized(self, xq, dx, batch_shape, out_dtype) -> torch.Tensor:
+        """x̂ (M, K) int8 and Δx (M,) made with this linear's ``smooth`` →
+        (*batch_shape, dout) in ``out_dtype``."""
+        y = ops.w8a8_gemm(xq, dx, self.w_int8, self.w_scale, batch_shape, out_dtype)
+        return y + self.b.to(y.dtype) if self.b is not None else y
 
 
 class W4A8Linear(nn.Module):
@@ -68,4 +76,9 @@ class W4A8Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = ops.w4a8_matmul(x, self.w_int4, self.w_scale, self.smooth)
+        return y + self.b.to(y.dtype) if self.b is not None else y
+
+    def forward_quantized(self, xq, dx, batch_shape, out_dtype) -> torch.Tensor:
+        """As :meth:`W8A8Linear.forward_quantized`, through the W4A8 GEMM."""
+        y = ops.w4a8_gemm(xq, dx, self.w_int4, self.w_scale, batch_shape, out_dtype)
         return y + self.b.to(y.dtype) if self.b is not None else y

@@ -19,9 +19,8 @@ from torch import nn
 from repro_torch.core.paged_cache import physical_slots
 from repro_torch.models.attention import Attention, init_attn_cache
 from repro_torch.models.common import Norm, embed_init
-from repro_torch.models.ffn import FFN
+from repro_torch.models.ffn import FFN, apply_linear
 from repro_torch.models.linear import Linear
-from repro_torch.quant.smoothquant import record_act_stats
 
 
 def check_supported(cfg) -> None:
@@ -42,7 +41,10 @@ class Embed(nn.Module):
 
 
 class Block(nn.Module):
-    """Dense decoder block: x + attn(norm(x)), then + ffn(norm(x))."""
+    """Dense decoder block: x + attn(norm(x)), then + ffn(norm(x)).  Each
+    norm is told which linears read it, so on the card it can quantize for
+    them in the same launch (``models/common.Norm``); calibration
+    (``collect``) needs the normed tensor and tells it none."""
 
     def __init__(self, attn_norm: Norm, attn: Attention, ffn_norm: Norm, ffn: FFN):
         super().__init__()
@@ -55,11 +57,14 @@ class Block(nn.Module):
 
     def forward(self, x, qpos, cache=None, *, read_cache=True, collect=None, path="",
                 tree=None, block_tables=None, plain_attn=False):
-        h, cache = self.attn(self.attn_norm(x), qpos, cache=cache,
-                             read_cache=read_cache, collect=collect, path=f"{path}/attn",
-                             tree=tree, block_tables=block_tables, plain_attn=plain_attn)
+        calib = collect is not None
+        h, cache = self.attn(self.attn_norm(x, () if calib else self.attn.readers()), qpos,
+                             cache=cache, read_cache=read_cache, collect=collect,
+                             path=f"{path}/attn", tree=tree, block_tables=block_tables,
+                             plain_attn=plain_attn)
         x = x + h
-        x = x + self.ffn(self.ffn_norm(x), collect, f"{path}/ffn")
+        x = x + self.ffn(self.ffn_norm(x, () if calib else self.ffn.readers()), collect,
+                         f"{path}/ffn")
         return x, cache
 
 
@@ -130,13 +135,12 @@ class Transformer(nn.Module):
                             block_tables=block_tables, plain_attn=plain_attn)
         logits = None
         if need_logits:
-            x = self.final_norm(x)
             if cfg.tie_embeddings:
+                x = self.final_norm(x)
                 logits = x.float() @ self.embed.w.float().T
             else:
-                if collect is not None:
-                    record_act_stats(collect, f"{path}lm_head", x)
-                logits = self.lm_head(x).float()
+                x = self.final_norm(x, () if collect is not None else (self.lm_head,))
+                logits = apply_linear(self.lm_head, x, collect, f"{path}lm_head").float()
         return logits, cache
 
 

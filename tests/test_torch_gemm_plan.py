@@ -1,4 +1,5 @@
-"""The card GEMM's launch plan (``kernels/int8_matmul.gemm_plan``) on the CPU.
+"""The card GEMMs' launch plans (``kernels/int8_matmul.gemm_plan``,
+``kernels/int4_matmul.gemm_plan``) on the CPU.
 
 The plan is pure Python chosen from the shapes alone, so what the kernel
 will be asked to do is held here without a card: the regime from M alone,
@@ -11,6 +12,8 @@ tree (176) and prefill (4092) rows, and the reduced config's.
 import pytest
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.int4_matmul import K_ALIGN as INT4_K_ALIGN
+from repro_torch.kernels.int4_matmul import gemm_plan as int4_plan
 from repro_torch.kernels.int8_matmul import (KT, MAX_CLUSTER, S8_WIDTHS, SMALL_M,
                                              SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVE,
                                              gemm_plan)
@@ -94,3 +97,86 @@ def test_gemm_plan_splits_k_where_tiles_are_few():
     assert gemm_plan(24, 4096, 4096).cluster == 4           # q/o: 64 tiles
     assert gemm_plan(24, 12288, 4096).cluster == 1          # gate/up fills the card
     assert gemm_plan(24, 64, 16).cluster == 1               # one K step
+
+
+# -- the int4 GEMM's plan (``kernels/int4_matmul.gemm_plan``) -----------------
+
+def _check4(m, k, n, aligned=True):
+    p = int4_plan(m, n, k, aligned)
+    ktiles = -(-k // KT)
+    # operands always swapped: W rows are wgmma's A, X rows its N
+    assert p.regime == ("swap" if m <= SMALL_M else "tiled")
+    assert p.width in S8_WIDTHS
+    if p.regime == "swap":
+        assert m <= p.width                        # every packed W byte read once
+        assert p.tile_n == (64 if p.width <= 48 else 128)
+    else:
+        assert (p.tile_n, p.width, p.cluster) == (128, 256, 1)
+    # TMA only where the packed rows are 16-byte multiples and aligned
+    assert p.tma == (aligned and k % INT4_K_ALIGN == 0)
+    # the split covers K and gives every block of the cluster a K step
+    per = -(-ktiles // p.cluster)
+    assert p.cluster in (1, 2, 4, 8)
+    assert (p.cluster - 1) * per < ktiles <= p.cluster * per
+    # the ring (packed W rows of KT/2 bytes) and a split's partial sums fit
+    ring = p.stages * (p.tile_n * KT // 2 + p.width * KT)
+    assert p.stages >= 2
+    assert SMEM_RESERVE + ring <= p.smem <= SMEM_PER_BLOCK
+    if p.cluster > 1:
+        assert SMEM_RESERVE + 4 * 2 * p.tile_n * (p.width // 2) <= p.smem
+        per_sm = SMEM_PER_SM // (p.smem + 1024)
+        assert -(-n // p.tile_n) * p.cluster <= 132 * per_sm
+    return p
+
+
+@pytest.mark.parametrize("m", [4, 24, 48, 88, 176, 4092])
+@pytest.mark.parametrize("name,k,n", _linears(_7B))
+def test_int4_plan_7b(m, name, k, n):
+    p = _check4(m, k, n)
+    if name == "lm_head":
+        assert p.cluster == 1
+    assert p.tma
+
+
+@pytest.mark.parametrize("m", [1, 5, 24, 257])
+@pytest.mark.parametrize("name,k,n", _linears(_RED))
+def test_int4_plan_reduced_config(m, name, k, n):
+    _check4(m, k, n)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 24, 25, 48, 49, 96, 97, 192, 193, 256, 257, 300])
+def test_int4_plan_widths_and_regimes(m):
+    """Every width edge: the smallest built width that covers M, up to the
+    swapped regime's end; past it, 256-row X tiles over a second grid
+    dimension."""
+    p = _check4(m, 4096, 12288)
+    want = next(w for w in (8, 24, 48, 96, 192, 256) if w >= m) if m <= SMALL_M else 256
+    assert p.width == want
+
+
+@pytest.mark.parametrize("m,k,n,aligned", [
+    (1, 2, 1, True), (7, 48, 200, True), (5, 62, 33, True), (9, 128, 40, False),
+    (24, 4096, 1031, False), (300, 94, 97, True)])
+def test_int4_plan_picks_the_load_producer_from_shapes_and_pointers(m, k, n, aligned):
+    """K % 32 != 0 (packed rows not 16-byte multiples) or an unaligned base
+    pointer: the producer stages the ring with ordinary loads; the plan is
+    otherwise the same."""
+    p = _check4(m, k, n, aligned)
+    assert not p.tma
+    assert p._replace(tma=True) == int4_plan(m, n, k, True)._replace(tma=True)
+
+
+@pytest.mark.parametrize("m,k,n", [(24, 32 * 37, 200), (4, 32 * 37, 1100),
+                                   (88, 32 * 9, 64), (24, 32 * 57, 1024)])
+def test_int4_plan_gives_every_split_block_k(m, k, n):
+    _check4(m, k, n)
+
+
+def test_int4_plan_reads_packed_bytes_once_and_splits_where_tiles_are_few():
+    assert int4_plan(24, 1024, 4096).cluster == 8          # k/v: 16 W tiles
+    assert int4_plan(24, 4096, 4096).cluster == 4          # q/o: 64
+    assert int4_plan(24, 12288, 4096).cluster == 1         # gate/up fills the card
+    assert int4_plan(88, 12288, 4096).cluster == 2         # tree: 96 tiles of 128
+    # the packed stage is half the int8 one's W bytes: deeper rings
+    assert int4_plan(24, 12288, 4096).stages >= gemm_plan(24, 12288, 4096).stages
+    assert int4_plan(4092, 12288, 4096).stages == 5

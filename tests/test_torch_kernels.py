@@ -22,7 +22,7 @@ from repro.models.attention import attend as jattend
 from repro_torch.bridge import tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, int32_acc, split_k
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, int32_acc
 from repro_torch.kernels.ref import w8a8_matmul_ref
 from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
 from repro_torch.models.attention import _quant_kv
@@ -98,19 +98,6 @@ def test_int8_matmul_exact(m, k, n):
                    out_dtype=jdt, **kw)
         yp = int8_matmul(_t(x), w_nk, _t(dx), _t(dw), out_dtype=tdt)
         np.testing.assert_array_equal(yp.float().numpy(), np.asarray(yj).astype(np.float32))
-
-
-@pytest.mark.parametrize("m,k,n,split", [
-    (300, 256, 96, False), (24, 12288, 72, True), (24, 4096, 4096, True),
-    (24, 4096, 151936, False), (4092, 4096, 12288, False), (1, 16, 1, False)])
-def test_int8_matmul_split_k_covers_k(m, k, n, split):
-    """The int4 GEMM's plan (``split_k``, shared with the earlier int8
-    kernel) splits K across blocks only where the output has too few
-    64x64 tiles to fill the card (decode shapes other than lm_head), in
-    whole 64-wide K tiles that cover K."""
-    chunk, splits = split_k(m, n, k)
-    assert chunk % 64 == 0 and (splits - 1) * chunk < k <= splits * chunk
-    assert (splits > 1) == split
 
 
 def _attn_inputs(b, t, s, hkv, g, dh, seed, int8, dtype=np.float32):

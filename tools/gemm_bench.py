@@ -1,6 +1,8 @@
-"""Time the port's ``int8_matmul`` at the 7B main-path shapes.
+"""Time the port's ``int8_matmul`` and ``int4_matmul`` at the 7B main-path
+shapes.
 
     python3 tools/gemm_bench.py [--src DIR] [--label NAME] [--out FILE] [--profile]
+                                [--flush write|read]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so one chip call can time two trees in turns (parent, change, change,
@@ -10,16 +12,20 @@ before every launch, median of 50, 20 at ``lm_head`` and prefill): the 7B
 linears at the chain window (M 24: q/o, k/v, gate/up, down, lm_head),
 gate/up at vanilla (M 4), the paged chain (48), the tree (88) and the paged
 tree (176) windows, the tree's ``lm_head`` (88), a prefill GEMM (4092),
-and gate/up at M 12, 30, 60 and 110, which fall between the built widths.
-Each output is held bit-equal to the plain version before it is timed;
+and gate/up at M 12, 30, 60 and 110, which fall between the built widths;
+int8 then int4 (the packed weight random bytes, every nibble value).  Each
+output is held bit-equal to
+the plain version before it is timed; for ``int8_matmul``
 ``torch._int_mm`` with the same epilogue is timed beside it (it takes
-more than 16 rows only: none at M 4), and the host's enqueue time of a
-call (median, ms).  With
+more than 16 rows only: none at M 4; no PyTorch call takes packed int4),
+and the host's enqueue time of a call (median, ms).  With
 ``--profile``, the device kernels one call launches (torch.profiler, 5
 calls); with ``--flush read``, L2 is emptied by reading a buffer instead
-of zeroing one, so the kernel evicts clean lines only.  Prints one line per shape and, last, a JSON object {label, device,
-nvidia_smi, flush, ms: {shape: ms}, host_ms, int_mm_ms, kernels_per_call}; ``--out`` also
-writes it to a file.  Needs a CUDA card.
+of zeroing one, so the kernel evicts clean lines only.  Prints one line
+per kernel and shape and, last, a JSON object {label, device, nvidia_smi,
+flush, ms: {kernel: {shape: ms}}, host_ms, int_mm_ms, kernels_per_call}
+(host_ms and kernels_per_call also by kernel); ``--out`` also writes it
+to a file.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
     dev = torch.device("cuda", 0)
@@ -88,43 +95,49 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    ms, host_ms, int_mm, per_call = {}, {}, {}, {}
+    kernels = {"int8": (int8_matmul, int8_matmul_ref, 1),
+               "int4": (int4_matmul, int4_matmul_ref, 2)}
+    ms, host_ms, int_mm, per_call = ({name: {} for name in kernels} for _ in range(4))
     nodes = TreeTemplate(cs.TREE).num_nodes
-    for label, m, k, n in shapes(cfg, cs.B, cs.GAMMA, nodes, cs.PROMPT):
-        xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        dx = torch.rand(m, generator=g, device=dev) * 1e-2
-        dw = torch.rand(n, generator=g, device=dev) * 1e-3
-        y = int8_matmul(xq, w, dx, dw)
-        torch.cuda.synchronize()
-        if not torch.equal(y, int8_matmul_ref(xq, w, dx, dw)):
-            raise AssertionError(f"int8_matmul {label} differs from its plain version")
+    for name, (fn, ref, per_byte) in kernels.items():
+        for label, m, k, n in shapes(cfg, cs.B, cs.GAMMA, nodes, cs.PROMPT):
+            xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            lo = -127 if per_byte == 1 else -128       # int4: every nibble value
+            w = torch.randint(lo, 128, (n, k // per_byte), generator=g, device=dev,
+                              dtype=torch.int8)
+            dx = torch.rand(m, generator=g, device=dev) * 1e-2
+            dw = torch.rand(n, generator=g, device=dev) * 1e-3
+            y = fn(xq, w, dx, dw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ref(xq, w, dx, dw)):
+                raise AssertionError(f"{name}_matmul {label} differs from its plain version")
 
-        def library():
-            acc = torch._int_mm(xq, w.t())
-            return (acc.float() * dx[:, None] * dw[None, :]).to(torch.bfloat16)
+            def library():
+                acc = torch._int_mm(xq, w.t())
+                return (acc.float() * dx[:, None] * dw[None, :]).to(torch.bfloat16)
 
-        iters = 20 if n == cfg.vocab_size or m > 256 else 50
-        host = []
-        ms[label] = cs.time_ms(torch, lambda: int8_matmul(xq, w, dx, dw), iters, flush, host)
-        host_ms[label] = statistics.median(host)
-        # torch._int_mm takes more than 16 rows only
-        int_mm[label] = cs.time_ms(torch, library, iters, flush) if m > 16 else None
-        extra = ""
-        if args.profile:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    int8_matmul(xq, w, dx, dw)
-                torch.cuda.synchronize()
-            dev_events = [e.name for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA]
-            per_call[label] = len(dev_events) / 5
-            kinds = sorted({nm.split("(")[0].split("<")[0] for nm in dev_events})
-            extra = f"  kernels/call {per_call[label]:g} {kinds}"
-        lib = "none" if int_mm[label] is None else f"{int_mm[label]:.4f}"
-        print(f"  {label:16s} ({m},{k},{n}) {ms[label]:.4f} ms  _int_mm {lib}  host "
-              f"{host_ms[label]:.4f}" + extra, flush=True)
-        del xq, w, y
+            iters = 20 if n == cfg.vocab_size or m > 256 else 50
+            host = []
+            ms[name][label] = cs.time_ms(torch, lambda: fn(xq, w, dx, dw), iters, flush, host)
+            host_ms[name][label] = statistics.median(host)
+            # torch._int_mm takes more than 16 rows only, and no packed int4
+            int_mm[name][label] = (cs.time_ms(torch, library, iters, flush)
+                                   if m > 16 and name == "int8" else None)
+            extra = ""
+            if args.profile:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        fn(xq, w, dx, dw)
+                    torch.cuda.synchronize()
+                dev_events = [e.name for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA]
+                per_call[name][label] = len(dev_events) / 5
+                kinds = sorted({nm.split("(")[0].split("<")[0] for nm in dev_events})
+                extra = f"  kernels/call {per_call[name][label]:g} {kinds}"
+            lib = "none" if int_mm[name][label] is None else f"{int_mm[name][label]:.4f}"
+            print(f"  {name} {label:16s} ({m},{k},{n}) {ms[name][label]:.4f} ms  _int_mm {lib}"
+                  f"  host {host_ms[name][label]:.4f}" + extra, flush=True)
+            del xq, w, y
     out = dict(label=args.label, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                flush=args.flush, ms=ms, host_ms=host_ms, int_mm_ms=int_mm,
                kernels_per_call=per_call)

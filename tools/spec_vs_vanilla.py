@@ -1,9 +1,10 @@
 """Greedy tokens of speculative and vanilla decoding side by side on the card.
 
-    python3 tools/spec_vs_vanilla.py [--src DIR] [--prompt-len N] [--layers]
+    python3 tools/spec_vs_vanilla.py [--src DIR] [--prompt-len N] [--verifier V] [--layers]
 
 Runs the port's serve CLI twice on ``quasar-paper-7b`` (seeded random
-weights, batch 4, 64 new tokens, W8A8 verifier, bf16 KV cache, greedy):
+weights, batch 4, 64 new tokens, the W8A8 verifier or ``--verifier``
+w4a8 / bf16, bf16 KV cache, greedy):
 once with the ngram drafter (γ 5), once with the vanilla drafter.  Greedy
 speculative decoding is lossless, so the two should commit the same
 tokens; prints the share of tokens they have in common and, per row, the
@@ -24,7 +25,8 @@ once as the spec window does (T = γ+1, M = B·(γ+1) rows, the next vanilla
 tokens as drafts).  Window row 0 sees the same cache and token as the
 T = 1 row, so every op's output for it must be bit-equal.  Forward hooks on every module
 (norms, attention, FFN, each W8A8 linear, the decoder blocks) and wrappers
-around ``smooth_quant`` (codes and Δx), ``int8_matmul``, ``apply_rope`` and
+around ``smooth_quant`` and ``norm_smooth_quant`` (codes and Δx),
+``int8_matmul``, ``int4_matmul``, ``apply_rope`` and
 the attention read record row 0 of each op in call order, plus the K/V the
 window wrote at that slot and the logits; prints the first op whose bits
 differ at the earliest such position (or "none found"), and which op
@@ -56,6 +58,7 @@ def _rows(t, T):
 
 def _record(torch, model, params, cache, window, start):
     """Run one verify forward with every op's window-row-0 output recorded."""
+    import repro_torch.kernels.int4_matmul as i4
     import repro_torch.kernels.int8_matmul as i8
     import repro_torch.kernels.smooth_quant as sq
     import repro_torch.models.attention as attn
@@ -80,13 +83,17 @@ def _record(torch, model, params, cache, window, start):
 
         def inner(*a, **kw):
             out = fn(*a, **kw)
-            for i, o in enumerate(out if isinstance(out, tuple) else (out,)):
+            flat = out if isinstance(out, (tuple, list)) else (out,)
+            flat = [t for o in flat for t in (o if isinstance(o, tuple) else (o,))]
+            for i, o in enumerate(flat):
                 put(f"{label}[{i}]", o)
             return out
         setattr(owner, attr, inner)
 
     wrap(sq, "smooth_quant", "smooth_quant")
+    wrap(sq, "norm_smooth_quant", "norm_smooth_quant")
     wrap(i8, "int8_matmul", "int8_matmul")
+    wrap(i4, "int4_matmul", "int4_matmul")
     wrap(attn, "apply_rope", "apply_rope")
     wrap(attn, "attend", "attend")
     try:
@@ -160,7 +167,8 @@ def layers(torch, args, vanilla_new, first: int) -> None:
 
     model = Model(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(WEIGHT_SEED)
-    engine = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8"))
+    engine = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter="ngram",
+                                          verifier=args.verifier))
     params = engine.prepare_params(model.init_params(gen))
     prompts = torch.as_tensor(task_prompts(TASK, B, args.prompt_len, cfg.vocab_size),
                               device=dev, dtype=torch.int32)
@@ -208,6 +216,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--verifier", choices=("w8a8", "w4a8", "bf16"), default="w8a8")
     ap.add_argument("--layers", action="store_true",
                     help="compare the window's row 0 with the T = 1 row op by op")
     args = ap.parse_args(argv)
@@ -223,14 +232,15 @@ def main(argv=None) -> int:
     toks = {}
     for drafter in ("ngram", "vanilla"):
         r = serve.main(["--arch", ARCH, "--batch", str(B), "--prompt-len",
-                        str(args.prompt_len), "--new-tokens", str(NEW), "--verifier", "w8a8",
+                        str(args.prompt_len), "--new-tokens", str(NEW), "--verifier",
+                        args.verifier,
                         "--kv-cache", "bf16", "--drafter", drafter, "--gamma", str(GAMMA)])
         toks[drafter] = r.tokens[:, args.prompt_len:args.prompt_len + NEW].cpu()
         del r
     a, b = toks["ngram"], toks["vanilla"]
     first = [int((a[i] != b[i]).nonzero()[0]) if (a[i] != b[i]).any() else NEW
              for i in range(a.shape[0])]
-    print(f"{args.src} prompt {args.prompt_len}: shared {(a == b).float().mean().item():.4f}, "
+    print(f"{args.src} {args.verifier} prompt {args.prompt_len}: shared {(a == b).float().mean().item():.4f}, "
           f"first difference per row {first}")
     if args.layers:
         layers(torch, args, b, min(first) if min(first) < NEW else 0)
