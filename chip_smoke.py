@@ -33,15 +33,25 @@
    its path launched (norm_smooth_quant included: every run is quantized)
    and no row tripped the non-finite-logits flag; the
    greedy tokens of the bf16-KV W8A8 spec, tree and pruned runs must equal
-   the vanilla run's (every op of the verify forward is row-invariant).  A
-   torch.profiler window over a few decode steps of the spec W8A8 (both KV
-   dtypes), spec W4A8 and tree W8A8 runs gives the device's busy ms per
-   step, its idle share under the profiler and of the unprofiled step,
-   device time by kernel and the kernel launches per step.  Then the repo's
+   the vanilla run's (every op of the verify forward is row-invariant).
+   Every run's decode step goes through CUDA graphs (the engine's default).
+   A step window of the spec W8A8 (both KV dtypes), spec W4A8 and tree W8A8
+   runs (unprofiled steps, then a torch.profiler window) gives the
+   unprofiled step, the device's busy ms per step, its idle share, device
+   time by kernel and the kernel launches per step.
+5. Graph phase: one 7B model, eager (``graphs=False``) against graphs in
+   one process for spec W8A8, spec W4A8, tree (3,2,1,1) W8A8, pruned W8A8
+   (``generate``, batch 4, 64 new tokens) and paged (a) (12 requests, 8
+   slots): replay tokens must equal eager tokens bit for bit, with equal
+   launches over the run and one program captured; the step (tick) windows
+   of all but pruned give unprofiled step ms, device busy ms per step, idle
+   share, capture ms and launches per step, which must be equal in both
+   modes (65 norm_smooth_quant + 64 smooth_quant + 225 int8_matmul + 32
+   flash_decode on the W8A8 chain step).  Then the repo's
    own lossless gate on the reduced config on the card: greedy tokens equal
    to vanilla's for ngram, ngram-tree (3,2,1,1), pruned and
    ChainTreeAdapter(ngram), with W8A8 and W4A8, KV bf16 and int8.
-5. Paged phase (the continuous-batching scheduler over the paged,
+6. Paged phase (the continuous-batching scheduler over the paged,
    prefix-shared KV cache).  Kernel part: the four ``flash_decode_paged``
    variants (chain/tree × bf16/int8 KV) at the 7B chain and (3,2,1,1) tree
    windows with block size 128, 16 and 24 (one that divides neither the
@@ -58,12 +68,12 @@
    Each gated on its paged kernel's launches, no ``bad`` row and 64 tokens
    per request; (a)'s tokens must equal (c)'s.  A prefix-sharing run (8
    requests sharing a 1024-token prompt plus 128 own tokens, sharing on
-   and off), a torch.profiler window over paged ticks of (a), and the
+   and off), a tick window over (a)'s first wave, and the
    lossless gate on the reduced config: paged × {ngram, ngram-tree,
    pruned} × {W8A8, W4A8} × KV {bf16, int8} equal to the contiguous and
    solo tokens, plus one run whose pool is small enough that preemption
    and swap-in happen.
-6. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+7. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -139,6 +149,19 @@ PROFILES = {                       # profiled run -> (verifier, drafter, kv, tre
     "spec_w4a8_kv_bf16": ("w4a8", "ngram", "bf16", None),
     "tree_w8a8_kv_bf16": ("w8a8", "ngram-tree", "bf16", TREE),
 }
+BUDGET = 256                       # new tokens a step window's rows may take
+WINDOW_STEPS = 10                  # unprofiled steps of a step window
+GRAPH_RUNS = {                     # graph run -> (verifier, drafter, kv layout, tree branches)
+    "spec_w8a8_kv_bf16": ("w8a8", "ngram", "contiguous", None),
+    "spec_w4a8_kv_bf16": ("w4a8", "ngram", "contiguous", None),
+    "tree_w8a8_kv_bf16": ("w8a8", "ngram-tree", "contiguous", TREE),
+    "pruned_w8a8_kv_bf16": ("w8a8", "pruned", "contiguous", None),
+    "paged_w8a8_kv_bf16": ("w8a8", "ngram", "paged", None),
+}
+GRAPH_WINDOWS = ("spec_w8a8_kv_bf16", "spec_w4a8_kv_bf16", "tree_w8a8_kv_bf16",
+                 "paged_w8a8_kv_bf16")
+W8A8_CHAIN_LAUNCHES = {"norm_smooth_quant": 65, "smooth_quant": 64, "int8_matmul": 225,
+                       "flash_decode": 32}
 
 
 def log(msg: str) -> None:
@@ -532,20 +555,69 @@ def path_phase(torch, dev):
     return runs
 
 
-def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=None):
-    """Device busy share over a window of decode steps of a main-path run
-    (``verifier`` × ``drafter``, KV cache ``kv``), from a torch.profiler
-    trace: the sum of kernel times (one stream, so kernels do not overlap)
-    over the window's wall time, and device time by kernel."""
-    import dataclasses
-
+def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS) -> dict:
+    """Steps of one batch as ``SpecEngine._run`` takes them (each ends in the
+    host read of the lengths), the rows' budget (BUDGET new tokens)
+    outlasting the window: two warm-up steps (through graphs: the eager
+    first step, then the capture and its first replay), ``steps`` timed on
+    the host clock with no profiler (the unprofiled step, and beside it the
+    process's CPU time per step), then PROFILE_STEPS under torch.profiler
+    with the launch counters zeroed (device busy ms and launches per
+    step).  ``engine`` may be any tree's ``SpecEngine`` (tools/step_bench.py
+    passes another tree's)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.core import prng
+    from repro_torch.kernels import ops
+
+    dev = prompts.device
+    b, p = prompts.shape
+    full = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    with torch.inference_mode():
+        state = engine._init_state(params, prompts, full(p), full(p + BUDGET),
+                                   p + BUDGET + engine.drafter.gamma + 2,
+                                   prng.row_generators(range(b), dev))
+        for _ in range(2):
+            state = engine._step(params, state)
+            state["length"].cpu()
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(steps):
+            state = engine._step(params, state)
+            state["length"].cpu()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        cpu_ms = 1e3 * (time.process_time() - c0) / steps
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                state = engine._step(params, state)
+                state["length"].cpu()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v / PROFILE_STEPS for k, v in ops.launch_counts().items()}
+    return window_info(torch, prof, step_ms, cpu_ms, wall_ms, launches)
+
+
+def window_info(torch, prof, step_ms, cpu_ms, wall_ms, launches) -> dict:
+    busy_ms, top = device_time(torch, prof)
+    busy = busy_ms / PROFILE_STEPS if busy_ms else None
+    return dict(step_ms=step_ms, cpu_ms=cpu_ms, profiled_step_ms=wall_ms / PROFILE_STEPS,
+                device_busy_ms_per_step=busy,
+                device_idle_share=(1 - busy / step_ms) if busy else None,
+                device_idle_share_profiled=(1 - busy_ms / wall_ms) if busy_ms else None,
+                launches_per_step=launches, top_kernels_ms=top)
+
+
+def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=None):
+    """The step window (:func:`step_window`) of a main-path run
+    (``verifier`` × ``drafter``, KV cache ``kv``) at 7B."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.core.config import SpecConfig
     from repro_torch.data import task_prompts
-    from repro_torch.kernels import ops
     from repro_torch.models import Model
     from repro_torch.serving.engine import SpecEngine
 
@@ -557,33 +629,103 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
         model.init_params(torch.Generator(device=dev).manual_seed(0)))
     prompts = torch.as_tensor(task_prompts("gsm8k", B, PROMPT, cfg.vocab_size),
                               device=dev, dtype=torch.int32)
-    buf = PROMPT + NEW + engine.drafter.gamma + 2
-    full = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)  # noqa: E731
-    with torch.inference_mode():
-        state = engine._init_state(params, prompts, full(PROMPT), full(PROMPT + NEW), buf,
-                                   prng.row_generators(range(B), dev))
-        for _ in range(2):                                   # warm-up steps
-            state = engine._step(params, state)
-            state["length"].cpu()
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):                   # as SpecEngine._run steps
-                state = engine._step(params, state)
-                state["length"].cpu()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        launches = {k: v / PROFILE_STEPS for k, v in ops.launch_counts().items()}
-    busy_ms, top = device_time(torch, prof)
     info = dict(verifier=verifier, drafter=drafter, kv_cache=kv, tree_branches=branches,
-                steps=PROFILE_STEPS, wall_ms=wall_ms, launches_per_step=launches,
-                step_ms=wall_ms / PROFILE_STEPS,
-                device_busy_ms=busy_ms or None,
-                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-                top_kernels_ms=top)
+                **step_window(torch, engine, params, prompts))
     log(f"  {json.dumps(info)}")
     return info
+
+
+def graph_phase(torch, dev):
+    """The decode step through CUDA graphs (the default) against the eager
+    step (``graphs=False``) at 7B: one model (KV bf16) with the serve CLI's
+    seeded weights, prepared once per verifier.  For each GRAPH_RUNS entry,
+    eager then graph in one process: ``generate`` (B rows, NEW tokens; paged:
+    ``generate_requests`` over (a)'s 12 requests), whose tokens must be
+    equal bit for bit, with equal launches over the run and one program
+    captured; then, for GRAPH_WINDOWS, the step (tick) window, whose
+    launches per step must be equal in both modes (and W8A8_CHAIN_LAUNCHES on
+    the W8A8 chain step)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="bf16")
+    model = Model(cfg, device=dev)
+    raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+    prepared = {v: SpecEngine(model, SpecConfig(verifier=v)).prepare_params(raw)
+                for v in ("w8a8", "w4a8")}
+    del raw
+    prompts_np = task_prompts(serve.TASK, PAGED_REQUESTS, PROMPT, cfg.vocab_size)
+    prompts = torch.as_tensor(prompts_np[:B], device=dev, dtype=torch.int32)
+    reqs = [GenerationRequest(p, NEW, seed=i) for i, p in enumerate(prompts_np)]
+    out = {}
+    for name, (verifier, drafter, layout, branches) in GRAPH_RUNS.items():
+        scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
+                          tree_branches=branches, pruned_retention=0.75, kv_layout=layout)
+        params = prepared[verifier]
+        modes, toks = {}, {}
+        for graphs in (False, True):
+            eng = SpecEngine(model, scfg, graphs=graphs)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            if layout == "paged":
+                t0 = time.perf_counter()
+                res = eng.generate_requests(params, reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                toks[graphs] = np.stack([r.tokens for r in res])
+                info = dict(served_tok_s=sum(r.new_tokens for r in res) / wall, wall_s=wall,
+                            steps=eng.group_stats[0]["steps"],
+                            bad_rows=sum(int(r.bad) for r in res))
+            else:
+                r = eng.generate(params, prompts, NEW)
+                toks[graphs] = r.tokens[:, PROMPT:PROMPT + NEW].cpu().numpy()
+                info = dict(decode_tok_s=r.tokens_per_s, wall_s=r.wall_s, steps=r.steps,
+                            L=r.mean_accept_len, bad_rows=int(r.bad.sum()))
+            info.update(launches=ops.launch_counts(), capture_ms=1e3 * eng.capture_s,
+                        step_traces=eng.step_traces, captures=eng._programs.captures)
+            if name in GRAPH_WINDOWS:
+                info["window"] = (tick_window(torch, eng, params, window_requests(prompts_np))
+                                  if layout == "paged" else
+                                  step_window(torch, eng, params, prompts))
+                info["window"]["capture_ms"] = 1e3 * eng.capture_s - info["capture_ms"]
+            modes["graph" if graphs else "eager"] = info
+            log(f"  {name} {'graph' if graphs else 'eager'}: "
+                f"{json.dumps({k: v for k, v in info.items() if k != 'launches'})}")
+            del eng
+        eager, graph = modes["eager"], modes["graph"]
+        if not np.array_equal(toks[False], toks[True]):
+            raise AssertionError(f"graph {name}: replay tokens differ from eager tokens")
+        if eager["bad_rows"] or graph["bad_rows"]:
+            raise AssertionError(f"graph {name}: non-finite verifier logits")
+        if graph["launches"] != eager["launches"]:
+            raise AssertionError(f"graph {name}: launches {graph['launches']} through graphs, "
+                                 f"{eager['launches']} eager")
+        if (graph["step_traces"], graph["captures"], eager["captures"]) != (1, 1, 0):
+            raise AssertionError(f"graph {name}: {graph['step_traces']} programs, "
+                                 f"{graph['captures']} captures")
+        if "window" in graph:
+            per_step = graph["window"]["launches_per_step"]
+            if per_step != eager["window"]["launches_per_step"]:
+                raise AssertionError(f"graph {name}: launches per replayed step {per_step}, "
+                                     f"eager {eager['window']['launches_per_step']}")
+            if name == "spec_w8a8_kv_bf16" and per_step != W8A8_CHAIN_LAUNCHES:
+                raise AssertionError(f"W8A8 chain step launches {per_step}")
+        log(f"  {name}: replay tokens == eager tokens, bit for bit; launches equal")
+        out[name] = modes
+    del prepared
+    torch.cuda.empty_cache()
+    return out
 
 
 def lossless_gate(torch, dev):
@@ -873,41 +1015,56 @@ def scheduled_phase(torch, dev, paged_tokens):
         f"(x{sharing['peak_blocks_ratio_off_on']:.2f}); tokens equal: "
         f"{sharing['tokens_equal']} (first difference per request: {diff})")
     out["prefix_sharing"] = sharing
-    out["profile_paged_w8a8_kv_bf16"] = profile_paged(
-        torch, dev, SpecEngine(model, dataclasses.replace(spec, kv_layout="paged")), params,
-        reqs)
+    out["profile_paged_w8a8_kv_bf16"] = p = tick_window(
+        torch, SpecEngine(model, dataclasses.replace(spec, kv_layout="paged")), params,
+        window_requests(prompts))
+    log(f"  paged tick window: {json.dumps(p)}")
     return out
 
 
-def profile_paged(torch, dev, engine, params, reqs):
-    """Device busy share over PROFILE_STEPS scheduler ticks (block top-up,
-    COW sweep, decode step, the tick's host read) of the paged run (a),
-    after the first wave's admissions."""
+def window_requests(prompts):
+    """(a)'s first 8 prompts (one wave of the default slots) with budgets
+    that outlast a tick window."""
+    from repro_torch.serving.request import GenerationRequest
+
+    return [GenerationRequest(p, BUDGET, seed=i) for i, p in enumerate(prompts[:8])]
+
+
+def tick_window(torch, engine, params, reqs, steps: int = WINDOW_STEPS) -> dict:
+    """Scheduler ticks of a serving group over ``reqs`` (block top-up, COW
+    sweep, decode step, the tick's host read): two ticks for the first
+    wave's admissions and the capture, ``steps`` unprofiled ticks, then
+    PROFILE_STEPS under torch.profiler (as :func:`step_window`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
     from repro_torch.serving.scheduler import Scheduler
 
     group = engine.serving_group(params, reqs)
     sched = Scheduler(reqs, group.stats["slots"])
     state = group.state
     with torch.inference_mode():
-        for _ in range(2):                                   # admissions + warm-up
+        for _ in range(2):
             state, _ = sched.tick(state, **group.hooks)
         torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(steps):
+            state, _ = sched.tick(state, **group.hooks)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        cpu_ms = 1e3 * (time.process_time() - c0) / steps
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILE_STEPS):
                 state, _ = sched.tick(state, **group.hooks)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms, by_name = device_time(torch, prof)
-    info = dict(run="paged_w8a8_kv_bf16", slots=group.stats["slots"], steps=PROFILE_STEPS,
-                wall_ms=wall_ms, step_ms=wall_ms / PROFILE_STEPS,
-                device_busy_ms=busy_ms or None,
-                device_busy_ms_per_step=busy_ms / PROFILE_STEPS if busy_ms else None,
-                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-                top_kernels_ms=by_name)
-    log(f"  paged profile: {json.dumps(info)}")
+        launches = {k: v / PROFILE_STEPS for k, v in ops.launch_counts().items()}
+    if sched.results:
+        raise AssertionError("a request finished inside the tick window")
+    info = dict(slots=group.stats["slots"],
+                **window_info(torch, prof, step_ms, cpu_ms, wall_ms, launches))
     return info
 
 
@@ -1062,15 +1219,16 @@ def main() -> int:
     log("profile phase")
     prof = {run: profile_phase(torch, dev, *spec) for run, spec in PROFILES.items()}
     for run, p in prof.items():
-        # the profiler slows the host; against the unprofiled run's step time
-        p["unprofiled_step_ms"] = step_ms = runs[run]["mean_step_ms"]
-        if p["device_busy_ms"]:
-            p["device_busy_ms_per_step"] = p["device_busy_ms"] / p["steps"]
-            p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms_per_step"] / step_ms
+        # the profiler slows the host; the idle share is against the window's
+        # unprofiled step
+        if p["device_busy_ms_per_step"]:
             log(f"  {run}: device busy {p['device_busy_ms_per_step']:.2f} ms/step; "
-                f"unprofiled step {step_ms:.2f} ms; idle {p['device_idle_share']:.3f} under "
-                f"the profiler, {p['device_idle_share_unprofiled']:.3f} of the unprofiled "
-                f"step; launches per step {p['launches_per_step']}")
+                f"unprofiled step {p['step_ms']:.2f} ms; idle "
+                f"{p['device_idle_share_profiled']:.3f} under the profiler, "
+                f"{p['device_idle_share']:.3f} of the unprofiled step; launches per step "
+                f"{p['launches_per_step']}")
+    log("graph phase")
+    graph = graph_phase(torch, dev)
     log("lossless gate")
     lossless_gate(torch, dev)
     log("paged phase: kernels")
@@ -1084,13 +1242,6 @@ def main() -> int:
         del run["tokens"]
     runs.update(paged_runs)
     runs["contiguous_w8a8_kv_bf16"] = sched.pop("contiguous_w8a8_kv_bf16")
-    p = sched["profile_paged_w8a8_kv_bf16"]
-    if p["device_busy_ms"]:
-        p["device_idle_share_unprofiled"] = 1 - p["device_busy_ms_per_step"] / \
-            runs["paged_w8a8_kv_bf16"]["mean_step_ms"]
-        log(f"  paged_w8a8_kv_bf16: device busy {p['device_busy_ms_per_step']:.2f} ms/step; "
-            f"idle {p['device_idle_share']:.3f} under the profiler, "
-            f"{p['device_idle_share_unprofiled']:.3f} of the unprofiled step")
     log("paged phase: lossless gate")
     preempt = paged_lossless_gate(torch, dev)
 
@@ -1139,7 +1290,8 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
-             profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt),
+             profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
+             graph=graph),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,14 @@ REQUEST_STREAM_SALT = 0x5EED
 
 def request_generator(seed: int, device) -> torch.Generator:
     """The per-request generator on ``device``: a pure function of ``seed``."""
-    g = torch.Generator(device=device)
+    return reseed(torch.Generator(device=device), seed)
+
+
+def reseed(g: torch.Generator, seed: int) -> torch.Generator:
+    """Put ``g`` in :func:`request_generator`'s state for ``seed``, in place:
+    a slot keeps its generator object across admissions, because a captured
+    decode step (``serving/graphs.py``) draws from the generators it was
+    captured with."""
     g.manual_seed((REQUEST_STREAM_SALT << 32) ^ (int(seed) & 0xFFFFFFFF))
     return g
 

@@ -24,9 +24,13 @@
                                     per-row flag that the verifier produced
                                     non-finite logits for an active row
 
-The KV cache is updated in place (``models/attention.write_cache`` /
-``write_cache_paged``); the step returns new ``tokens``, ``length`` and
-``stats`` tensors.  A scheduler group starts with every slot idle
+The step updates the state **in place** and returns the same dict: the
+KV cache through ``models/attention.write_cache`` / ``write_cache_paged``,
+the drafter's state through the drafter, and ``tokens``, ``length`` and
+``stats`` by writes into their own tensors at the end of the step.  So the
+state keeps its buffers from the first step to the last, and a step
+captured as a CUDA graph (``serving/graphs.py``) replays into them.  A
+scheduler group starts with every slot idle
 (``length == target == 0``): an idle row still steps, with ``start = 0``,
 and writes its discarded window into its own contiguous row or, paged,
 into the scratch block.
@@ -65,8 +69,9 @@ def init_state(model, batch: int, buf_len: int, generators: Sequence[torch.Gener
 
 
 def _commit_tokens(tokens, length, drafts, next_token, n_accept, n_write=None):
-    """Write [drafts[:n_accept], next_token] at per-row offsets; ``n_write``
-    (default ``n_accept + 1``) caps how many are written (frozen rows)."""
+    """Write [drafts[:n_accept], next_token] at per-row offsets into
+    ``tokens``, in place; ``n_write`` (default ``n_accept + 1``) caps how
+    many are written (frozen rows)."""
     B, S = tokens.shape
     gamma = drafts.shape[1]
     if n_write is None:
@@ -78,7 +83,7 @@ def _commit_tokens(tokens, length, drafts, next_token, n_accept, n_write=None):
     keep = i < n_write[:, None]
     cur = torch.gather(tokens, 1, pos)
     vals = torch.where(keep, vals, cur).to(tokens.dtype)
-    return tokens.scatter(1, pos, vals)
+    return tokens.scatter_(1, pos, vals)
 
 
 def make_decode_step(model, drafter, verifier, scfg):
@@ -104,6 +109,7 @@ def make_decode_step(model, drafter, verifier, scfg):
                 "(ring) caches cannot hold sibling nodes at one position")
 
     def decode_step(params, state):
+        """One verify step over every row, in place; returns ``state``."""
         tokens, length = state["tokens"], state["length"]
         gens = state["generators"]
         proposal, dstate = drafter.propose(model, params, tokens, length,
@@ -130,33 +136,23 @@ def make_decode_step(model, drafter, verifier, scfg):
         row_bad = ~torch.isfinite(logits).flatten(1).all(dim=1) & active_mask
 
         if template is None:
-            cache = model.commit(cand, res.n_accept)
+            state["cache"] = model.commit(cand, res.n_accept)
             drafts = proposal.tokens
         else:
-            cache = model.commit_tree(cand, start, res.path_nodes, res.n_accept)
+            state["cache"] = model.commit_tree(cand, start, res.path_nodes, res.n_accept)
             drafts = res.path_tokens           # the accepted path, in chain order
-        dstate = drafter.advance(model, dstate, proposal, res.n_accept)
+        state["drafter_state"] = drafter.advance(model, dstate, proposal, res.n_accept)
         n_commit = res.n_commit
         if "target" in state:
             n_commit = torch.minimum(n_commit.clamp(min=0), state["target"] - length)
-        tokens = _commit_tokens(tokens, length, drafts, res.next_token,
-                                res.n_accept, n_write=n_commit)
+        _commit_tokens(tokens, length, drafts, res.next_token, res.n_accept,
+                       n_write=n_commit)
         stats = state["stats"]
-        out = {
-            "tokens": tokens,
-            "length": length + n_commit,
-            "cache": cache,
-            "drafter_state": dstate,
-            "generators": gens,
-            "stats": {
-                "commits": stats["commits"] + n_commit,
-                "steps": stats["steps"] + 1,
-                "row_steps": stats["row_steps"] + active_mask.to(torch.int32),
-                "bad": stats["bad"] | row_bad,
-            },
-        }
-        if "target" in state:
-            out["target"] = state["target"]
-        return out
+        stats["commits"].add_(n_commit)
+        stats["steps"].add_(1)
+        stats["row_steps"].add_(active_mask.to(torch.int32))
+        stats["bad"].logical_or_(row_bad)
+        length.add_(n_commit)                  # last: everything above reads it
+        return state
 
     return decode_step

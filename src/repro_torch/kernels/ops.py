@@ -13,11 +13,15 @@ edited source is rebuilt — and loaded with ``ctypes``.
 
 ``LAUNCHES`` counts kernel launches by name; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels.  A CUDA graph capture runs the wrappers without
+launching anything: :func:`launches_apart` keeps what they count out of
+``LAUNCHES``, and each replay of the graph adds it back once
+(:func:`add_launches`, ``serving/graphs.py``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,6 +50,25 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Yield a Counter that holds, when the block ends, the launches the
+    wrappers counted inside it; ``LAUNCHES`` is left as it was before."""
+    before = LAUNCHES.copy()
+    counted: collections.Counter = collections.Counter()
+    try:
+        yield counted
+    finally:
+        counted.update(LAUNCHES - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+def add_launches(counts) -> None:
+    """Add a replayed graph's launches (recorded by :func:`launches_apart`)."""
+    LAUNCHES.update(counts)
 
 
 def dispatch(x: torch.Tensor, plain: Callable[[], T],

@@ -8,7 +8,9 @@ batch through the continuous-batching scheduler as per-request
 generations (``SpecEngine.generate_requests``) over the paged,
 prefix-shared KV cache, as the reference does.  Runs on the CUDA card
 unless ``--device cpu`` is given; with no card it exits with an error
-rather than falling back.
+rather than falling back.  On the card the decode step is a CUDA graph
+(``serving/graphs.py``): the last line reports the programs built
+(``step_traces``) and the time their captures took, inside the run's time.
 
   python -m repro_torch.launch.serve --arch quasar-paper-7b \
       --verifier w8a8 --drafter ngram --gamma 5 --batch 4 \
@@ -51,6 +53,7 @@ class ScheduledResult:
     wall_s: float                        # generate_requests, admissions included
     group_stats: List[dict] = field(default_factory=list)
     step_s: float = 0.0                  # mean decode step (telemetry)
+    capture_s: float = 0.0               # CUDA graph capture, inside wall_s
 
     @property
     def new_tokens(self) -> int:
@@ -166,19 +169,22 @@ def main(argv=None) -> GenResult | ScheduledResult:
             torch.cuda.synchronize(dev)
         tkey = f"{engine.drafter.name}:{engine.verifier.name}"
         sr = ScheduledResult(out, time.perf_counter() - t0, engine.group_stats,
-                             engine.telemetry.summary()[tkey]["step_s"]["mean"])
+                             engine.telemetry.summary()[tkey]["step_s"]["mean"],
+                             engine.capture_s)
         g = sr.group_stats[0]
         print(f"served {len(reqs)} requests through {g['slots']} slots "
               f"({g['pool_blocks']} blocks of {g['block_size']}, peak {g['peak_blocks']}, "
               f"shared {g['shared_blocks']}): {sr.new_tokens} tokens in {sr.wall_s:.3f}s "
               f"({sr.tokens_per_s:.1f} tok/s, {where})")
-        print(f"verify steps={sr.steps}  mean acceptance length L={sr.mean_accept_len:.3f}")
+        print(f"verify steps={sr.steps}  mean acceptance length L={sr.mean_accept_len:.3f}  "
+              f"step_traces={engine.step_traces}  capture_ms={1e3 * sr.capture_s:.1f}")
         return sr
     r = engine.generate(params, prompts, args.new_tokens)
     print(f"prefill {args.batch}x{args.prompt_len - 1} tokens in {r.prefill_s:.3f}s; "
           f"generated {r.new_tokens} tokens in {r.wall_s:.3f}s "
           f"({r.tokens_per_s:.1f} tok/s, {where})")
-    print(f"verify steps={r.steps}  mean acceptance length L={r.mean_accept_len:.3f}")
+    print(f"verify steps={r.steps}  mean acceptance length L={r.mean_accept_len:.3f}  "
+          f"step_traces={engine.step_traces}  capture_ms={1e3 * r.capture_s:.1f}")
     return r
 
 

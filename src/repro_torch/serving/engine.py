@@ -24,10 +24,19 @@ the engine quantizes the params (SmoothQuant + INT8) on first use.
 
 Unlike the reference's functional state, the port **updates the engine
 state in place**: admission, release, preemption and resume write the
-rows of the state's tensors (and the paged pools and block table), and
-the decode step writes the KV cache in place.  So admission allocates no
-new state tensor, and any code that keeps a row across a step copies it
-(the preemption snapshot does).
+rows of the state's tensors (and the paged pools and block table) and
+reseed a row's generator, and the decode step writes every result into
+the state's own tensors.  So admission allocates no new state tensor, and
+any code that keeps a row across a step copies it (the preemption
+snapshot does).
+
+The reference jits the decode step and counts its traces
+(``step_traces``).  The port's counterpart (``serving/graphs.py``) runs a
+program's first step eagerly, captures the second as a CUDA graph and
+replays it at every later step; ``step_traces`` counts the programs built,
+keyed by the step, the prepared params' identity and the state's buffers.
+``SpecEngine(..., graphs=False)`` runs every step eagerly, for checks; on
+the CPU the step always runs eagerly.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from repro_torch.core.paged_cache import (
 from repro_torch.core.protocols import get_drafter, get_verifier
 from repro_torch.core.spec_engine import init_state, make_decode_step
 from repro_torch.serving.faults import NULL_FAULTS, InjectedFault, RequestFault
+from repro_torch.serving.graphs import StepPrograms
 from repro_torch.serving.metrics import AcceptanceStats
 from repro_torch.serving.request import GenerationRequest, RequestResult, pad_prompt
 from repro_torch.serving.scheduler import Scheduler
@@ -75,6 +85,7 @@ class GenResult:
     new_tokens: int
     bad: torch.Tensor            # (B,) bool — non-finite verifier logits seen
     prefill_s: float = 0.0       # cache allocation + prompt prefill
+    capture_s: float = 0.0       # CUDA graph capture, inside wall_s
 
     @property
     def tokens_per_s(self) -> float:
@@ -124,7 +135,7 @@ class SpecEngine:
     """Drafter × Verifier serving engine."""
 
     def __init__(self, model, scfg: SpecConfig = SpecConfig(), *,
-                 drafter=None, verifier=None):
+                 drafter=None, verifier=None, graphs: bool = True):
         if scfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {scfg.kv_layout!r}; "
                              "expected 'contiguous' or 'paged'")
@@ -133,7 +144,11 @@ class SpecEngine:
         self.drafter = get_drafter(drafter if drafter is not None else scfg.drafter, scfg)
         self.verifier = get_verifier(
             verifier if verifier is not None else scfg.verifier, scfg)
-        self._step = make_decode_step(model, self.drafter, self.verifier, scfg)
+        # decode-step programs across all temperature variants; graphs=False
+        # runs every step eagerly (the counterpart of jax.disable_jit)
+        self._programs = StepPrograms(graphs=graphs)
+        self._step = self._counted(
+            make_decode_step(model, self.drafter, self.verifier, scfg))
         self._steps_by_temp = {}                   # temperature overrides
         self._prepared = None                      # (params ref, prepared)
         # per-group sizing of the last generate_requests call
@@ -141,6 +156,23 @@ class SpecEngine:
         # per drafter×verifier acceptance / step-time telemetry, across
         # generate and generate_requests calls
         self.telemetry = AcceptanceStats()
+
+    def _counted(self, step_fn):
+        """The decode step as one program per key, counted in
+        ``step_traces`` (the reference's ``_jit_counted``)."""
+        return self._programs.counted(step_fn)
+
+    @property
+    def step_traces(self) -> int:
+        """Decode-step programs built across every temperature (on the card
+        each is captured as a CUDA graph at its second step); admission,
+        preemption and swap-in build none."""
+        return self._programs.step_traces
+
+    @property
+    def capture_s(self) -> float:
+        """Host seconds spent capturing step programs, all calls."""
+        return self._programs.capture_s
 
     def prepare_params(self, params, act_stats=None):
         """Offline weight preparation for this engine's verifier.  Idempotent."""
@@ -165,7 +197,8 @@ class SpecEngine:
                 self._steps_by_temp.pop(next(iter(self._steps_by_temp)))
             scfg_t = dataclasses.replace(self.scfg, temperature=t)
             drafter = self.drafter.with_temperature(t)
-            step = make_decode_step(self.model, drafter, self.verifier, scfg_t)
+            step = self._counted(make_decode_step(self.model, drafter, self.verifier,
+                                                  scfg_t))
             self._steps_by_temp[t] = (step, drafter)
         return self._steps_by_temp[t]
 
@@ -189,7 +222,8 @@ class SpecEngine:
     def _run(self, params, state, max_steps: int):
         """Step until every row reaches its target (one host read of the
         lengths per step, which also feeds the acceptance telemetry).
-        Returns (state, wall seconds)."""
+        Returns (state, wall seconds); a capture's time is part of them, as
+        a compilation is in the reference's."""
         dev = self.model.device
         tkey = f"{self.drafter.name}:{self.verifier.name}"
         targets = state["target"].cpu().numpy()
@@ -238,6 +272,7 @@ class SpecEngine:
                                  draft_params)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
+        capture_s = self.capture_s
         state, wall = self._run(params, state, max_new * 2 + 8)
 
         stats = state["stats"]
@@ -246,7 +281,7 @@ class SpecEngine:
         return GenResult(tokens=state["tokens"], lengths=state["length"],
                          mean_accept_len=L, steps=int(stats["steps"]),
                          wall_s=wall, new_tokens=new_tokens, bad=stats["bad"],
-                         prefill_s=prefill_s)
+                         prefill_s=prefill_s, capture_s=self.capture_s - capture_s)
 
     # ------------------------------------------------------------------
     # Continuous batching
@@ -259,8 +294,8 @@ class SpecEngine:
         place** (returns the same dict).
 
         Resets every per-row slice the decode step reads: token buffer,
-        committed length, target, the row's generator
-        (``prng.request_generator(request.seed)``), acceptance stats and the
+        committed length, target, the row's generator (reseeded in place to
+        ``prng.request_generator(request.seed)``'s state), acceptance stats and the
         ``bad`` flag, the KV cache row (zeroed, then prefilled, so nothing
         leaks from the slot's previous occupant) and the drafter-state row
         (``Drafter.prefill_row``).  No state tensor is reallocated.
@@ -290,7 +325,7 @@ class SpecEngine:
         state["tokens"][row, :pmax] = prompt[0]
         state["length"][row] = P
         state["target"][row] = P + request.max_new_tokens
-        state["generators"][row] = prng.request_generator(request.seed, dev)
+        prng.reseed(state["generators"][row], request.seed)
         for name in ("commits", "row_steps", "bad"):
             state["stats"][name][row] = 0
 
@@ -745,9 +780,7 @@ class PagedGroup:
             state["tokens"][slot] = snap["tokens"].to(dev)
             state["length"][slot] = snap["length"]
             state["target"][slot] = snap["target"]
-            gen = torch.Generator(device=dev)
-            gen.set_state(snap["generator"])
-            state["generators"][slot] = gen
+            state["generators"][slot].set_state(snap["generator"])
             state["stats"]["commits"][slot] = snap["commits"]
             state["stats"]["row_steps"][slot] = snap["row_steps"]
             state["stats"]["bad"][slot] = False

@@ -13,10 +13,10 @@ shared with ``test_torch_paged.py``.
   ``.reduced()`` (f32, bridged weights) for each drafter and verifier.
 * Inside the port, scheduled ≡ solo at T = 0 and T > 0 (per-row
   generators), streamed deltas concatenate to the results, and admission
-  allocates no new state tensor — the eager counterpart of the
-  reference's ``step_traces == 1`` (no retrace on admission) invariant,
-  which has none: the port has no compile step, so the test checks that
-  the state keeps its tensors (storage pointers) across admissions.
+  allocates no new state tensor: the state keeps its tensors (storage
+  pointers) across admissions, which the port's compiled step (a CUDA
+  graph replaying into those buffers) needs.  ``step_traces`` itself is
+  held against the reference's in ``test_torch_graphs.py``.
 """
 import functools
 import os
@@ -302,10 +302,11 @@ def _state_pointers(state):
 @pytest.mark.parametrize("layout,drafter", [("contiguous", "pruned"), ("paged", "pruned"),
                                             ("paged", "ngram")])
 def test_admission_allocates_no_new_state_tensors(layout, drafter):
-    """The eager counterpart of the reference's ``step_traces == 1``:
-    admitting requests (slot recycling included, prefix hits on the paged
-    layout) writes the state's tensors in place — every state tensor keeps
-    its storage and shape across admissions."""
+    """Admitting requests (slot recycling included, prefix hits on the
+    paged layout) writes the state's tensors in place — every state tensor
+    keeps its storage and shape across admissions, as a replayed step
+    needs (``test_torch_graphs.py`` holds ``step_traces`` to the
+    reference's ``== 1``)."""
     model, params = port_setup()
     eng = SpecEngine(model, SpecConfig(**JSCFG, kv_layout=layout, kv_block_size=8),
                      drafter=drafter, verifier="bf16")

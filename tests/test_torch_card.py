@@ -847,3 +847,218 @@ def test_tree_verify_step_on_card_matches_cpu(dev, verifier):
     tol = 1e-2 if verifier == "w4a8" else 1e-4
     torch.testing.assert_close(out[1], out[0], rtol=tol, atol=tol)
     torch.testing.assert_close(caches[1], caches[0], rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The decode step as CUDA graphs (serving/graphs.py): replay ≡ eager
+# ---------------------------------------------------------------------------
+
+GRAPH_DRAFTERS = {
+    "ngram": dict(drafter="ngram", gamma=3),
+    "vanilla": dict(drafter="vanilla"),
+    "pruned": dict(drafter="pruned", gamma=3, pruned_retention=0.5),
+    "tree": dict(drafter="ngram-tree", tree_branches=(3, 2, 1, 1)),
+}
+
+
+def _graph_setup(dev, kv="bf16"):
+    """The reduced config with the 7B's 151936-wide vocabulary, seeded
+    weights, and four prompts a prompt lookup finds drafts in."""
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), vocab_size=151936,
+                              kv_cache_dtype=kv)
+    model = Model(cfg, device=dev)
+    raw = model.init_params(_gen(dev, 3))
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, cfg.vocab_size, (4, 7))
+    prompts = torch.from_numpy(np.concatenate([np.tile(pat, 5), pat[:, :2]], axis=1)
+                               .astype(np.int32)).to(dev)
+    return model, raw, prompts
+
+
+def _eager_and_graph(model, scfg, run):
+    """``run(engine)`` with graphs=False, then with the default (graphs);
+    returns {graphs: (result, launch counts, engine)}."""
+    from repro_torch.serving.engine import SpecEngine
+
+    out = {}
+    for graphs in (False, True):
+        eng = SpecEngine(model, scfg, graphs=graphs)
+        ops.reset_launch_counts()
+        res = run(eng)
+        torch.cuda.synchronize()
+        out[graphs] = (res, ops.launch_counts(), eng)
+    return out
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("drafter", list(GRAPH_DRAFTERS))
+def test_graph_replay_equals_eager_on_card(dev, drafter, verifier, kv):
+    """``generate`` through a captured step gives the eager step's tokens,
+    bit for bit, with the same kernel launches over the run: one program,
+    captured once, replayed at every step after the second."""
+    from repro_torch.core.config import SpecConfig
+
+    model, raw, prompts = _graph_setup(dev, kv)
+    scfg = SpecConfig(temperature=0.0, verifier=verifier, **GRAPH_DRAFTERS[drafter])
+    out = _eager_and_graph(model, scfg, lambda eng: eng.generate(raw, prompts, 16))
+    (eager, n_eager, e_eng), (graph, n_graph, g_eng) = out[False], out[True]
+    assert graph.steps == eager.steps >= 3
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert not graph.bad.any()
+    assert n_graph == n_eager
+    assert g_eng.step_traces == e_eng.step_traces == 1
+    assert (g_eng._programs.captures, e_eng._programs.captures) == (1, 0)
+    assert graph.capture_s > 0 and eager.capture_s == 0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
+def test_graph_replay_equals_eager_paged_with_preemption_on_card(dev, verifier, kv):
+    """Paged serving through a captured step, with a pool small enough that
+    a better-keyed arrival preempts a running request to host memory and it
+    resumes: the eager run's tokens per request, and one program (swap-in
+    writes the state in place and builds none)."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.core.paged_cache import blocks_for_tokens, request_demand_tokens
+    from repro_torch.serving.request import GenerationRequest
+    from repro_torch.serving.scheduler import Scheduler
+
+    model, raw, _ = _graph_setup(dev, kv)
+    rng = np.random.default_rng(17)
+    pat = rng.integers(0, model.cfg.vocab_size, 6)
+    reqs = [GenerationRequest(rng.integers(0, model.cfg.vocab_size, 40), 24, seed=1,
+                              priority=2),
+            GenerationRequest(np.tile(pat, 4), 12, seed=2),
+            GenerationRequest(np.concatenate([np.tile(pat, 4), pat[:3]]), 12, seed=3)]
+    demand = blocks_for_tokens(request_demand_tokens(40, 24, 3), 8)
+    scfg = SpecConfig(temperature=0.0, gamma=3, verifier=verifier, kv_layout="paged",
+                      kv_block_size=8, kv_pool_blocks=1 + demand + 1)
+
+    def run(eng):
+        group = eng.serving_group(eng.prepare_params(raw), reqs, batch_slots=2)
+        sched, state = Scheduler([], 2), group.state
+        sched.submit(reqs[0])
+        for _ in range(2):
+            state, _ = sched.tick(state, **group.hooks)
+        sched.submit(reqs[1])
+        sched.submit(reqs[2])
+        while sched.busy:
+            state, _ = sched.tick(state, **group.hooks)
+        assert sched.preemptions >= 1 and group.ctx.snapshot()["swap_in_blocks"] > 0
+        return [sched.results[i].tokens for i in range(len(reqs))]
+
+    out = _eager_and_graph(model, scfg, run)
+    for a, b in zip(out[False][0], out[True][0]):
+        np.testing.assert_array_equal(a, b)
+    assert out[True][1] == out[False][1]
+    assert out[True][2].step_traces == 1 and out[True][2]._programs.captures == 1
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "pruned"])
+def test_graph_sampling_equals_eager_on_card(dev, drafter):
+    """T = 1 through a captured step draws the eager step's numbers: each
+    row's generator is registered with the graph, and admission reseeds it
+    in place.  Five requests through two slots (slots recycled, generators
+    reseeded between replays) and a homogeneous batch."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.request import GenerationRequest
+
+    model, raw, prompts = _graph_setup(dev)
+    rng = np.random.default_rng(4)
+    pat = rng.integers(0, model.cfg.vocab_size, 6)
+    reqs = [GenerationRequest(np.tile(pat, k), max_new_tokens=n, seed=k)
+            for k, n in ((5, 9), (4, 12), (3, 7), (6, 5), (4, 10))]
+    scfg = SpecConfig(temperature=1.0, gamma=3, drafter=drafter, verifier="w8a8",
+                      pruned_retention=0.5)
+
+    def run(eng):
+        params = eng.prepare_params(raw)
+        scheduled = [r.tokens for r in eng.generate_requests(params, reqs, batch_slots=2)]
+        return scheduled, eng.generate(params, prompts, 16, seed=7).tokens
+
+    out = _eager_and_graph(model, scfg, run)
+    for a, b in zip(out[False][0][0], out[True][0][0]):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(out[False][0][1], out[True][0][1])
+    assert out[True][2]._programs.captures == 2
+
+
+def test_replayed_step_launches_equal_eager_step_on_card(dev):
+    """A replay adds the kernel launches its capture counted: the third
+    step of a captured program counts what one eager step launches."""
+    from repro_torch.core import prng
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, prompts = _graph_setup(dev)
+    per_step = {}
+    for graphs in (False, True):
+        eng = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier="w8a8"),
+                         graphs=graphs)
+        params = eng.prepare_params(raw)
+        B, P = prompts.shape
+        full = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)  # noqa: E731
+        with torch.inference_mode():
+            state = eng._init_state(params, prompts, full(P), full(P + 64), P + 72,
+                                    prng.row_generators(range(B), dev))
+            for _ in range(2):
+                state = eng._step(params, state)
+            ops.reset_launch_counts()
+            eng._step(params, state)
+            torch.cuda.synchronize()
+        per_step[graphs] = ops.launch_counts()
+    assert per_step[True] == per_step[False]
+    assert per_step[True]["int8_matmul"] > 0 and per_step[True]["flash_decode"] == 2
+
+
+def test_step_traces_count_temperature_groups_on_card(dev):
+    """A scheduled run of two temperature groups builds and captures two
+    programs, as the reference compiles two."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    model, raw, _ = _graph_setup(dev)
+    rng = np.random.default_rng(4)
+    pat = rng.integers(0, model.cfg.vocab_size, 6)
+    reqs = [GenerationRequest(np.tile(pat, k), max_new_tokens=n, seed=k,
+                              temperature=0.0 if k % 2 else 0.9)
+            for k, n in ((5, 9), (4, 12), (3, 7), (6, 5), (4, 10))]
+    for layout in ("contiguous", "paged"):
+        eng = SpecEngine(model, SpecConfig(gamma=3, verifier="w8a8", kv_layout=layout,
+                                           kv_block_size=16))
+        assert eng.step_traces == 0
+        eng.generate_requests(raw, reqs, batch_slots=2)
+        assert eng.step_traces == len(eng.group_stats) == 2
+        assert eng._programs.captures == 2
+
+
+def test_re_prepared_params_are_captured_anew_on_card(dev):
+    """A graph reads the weights where they were at capture: stepping one
+    state with re-prepared params builds and captures a new program, and
+    its tokens are the eager step's with the new params, not a stale
+    replay of the old ones."""
+    from repro_torch.core import prng
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, prompts = _graph_setup(dev)
+    other = model.init_params(_gen(dev, 4))
+    B, P = prompts.shape
+    full = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)  # noqa: E731
+    out = {}
+    for graphs in (False, True):
+        eng = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier="w8a8"),
+                         graphs=graphs)
+        first, second = eng.prepare_params(raw), eng.prepare_params(other)
+        with torch.inference_mode():
+            state = eng._init_state(first, prompts, full(P), full(P + 64), P + 72,
+                                    prng.row_generators(range(B), dev))
+            for params in (first, first, first, second, second, second):
+                state = eng._step(params, state)
+            torch.cuda.synchronize()
+        out[graphs] = (state["tokens"].clone(), state["length"].clone(), eng)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    assert out[True][2].step_traces == 2 and out[True][2]._programs.captures == 2
