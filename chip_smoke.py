@@ -73,7 +73,26 @@
    pruned} × {W8A8, W4A8} × KV {bf16, int8} equal to the contiguous and
    solo tokens, plus one run whose pool is small enough that preemption
    and swap-in happen.
-7. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+7. Server phase (the serving front-end, ``serving/server.py``):
+   ``quasar-paper-7b`` at full width and depth, seeded random bf16 weights
+   kept raw beside the prepared W8A8 ones (the bf16 fallback lane reads
+   them), paged KV (bf16, block 128, prefix sharing on), 8 slots,
+   gsm8k-preset 1024-token prompts, 64 new tokens, greedy.  (s1) A virtual-
+   clock ``ServingLoop`` with the ngram-tree (3,2,1,1) primary and
+   ``degrade_on_overload`` (both the tree and the chain lane run), 16
+   requests with deadlines, three of them hopeless behind a lower priority
+   (shed): streamed tokens == ``result().tokens`` == the same requests
+   through ``generate_requests``; conservation, every block back, every
+   kernel of the path launched (counts zeroed just before), every
+   robustness counter 0, one program per lane.  (s2) A ``StreamingServer``
+   on its thread: 16 requests on a Poisson stream at 8 requests/s (seed 0)
+   consumed token by token on this thread; the same equalities; TTFT
+   p50/p99, ITL p50, served tokens/s and the tick's step ms against
+   ``generate_requests``' tick.  (s3) Chaos: a seeded ``FaultPlan`` over the
+   step, nan_verify, quant_corrupt, alloc and submit seams: conservation,
+   every block back, untouched requests == (s1)'s tokens, NaN trips and
+   bf16-rescued rows > 0.  Also the guardrail snapshot's cost per step.
+8. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -162,6 +181,13 @@ GRAPH_WINDOWS = ("spec_w8a8_kv_bf16", "spec_w4a8_kv_bf16", "tree_w8a8_kv_bf16",
                  "paged_w8a8_kv_bf16")
 W8A8_CHAIN_LAUNCHES = {"norm_smooth_quant": 65, "smooth_quant": 64, "int8_matmul": 225,
                        "flash_decode": 32}
+SERVER_REQUESTS, SERVER_SLOTS = 16, 8
+HOPELESS = (5, 9, 11)              # (s1): priority 1, a deadline no slot frees in time
+SERVER_STEP_S = 0.02               # (s1), (s3): virtual seconds per decode step
+SERVER_RATE = 8.0                  # (s2): Poisson arrivals per second
+CHAOS = "step@40,nan_verify@7,quant_corrupt@20,alloc@12,submit@3"   # (s3), seed 0
+SERVER_KERNELS = ("norm_smooth_quant", "smooth_quant", "int8_matmul", "flash_decode_paged",
+                  "flash_decode_paged_tree")
 
 
 def log(msg: str) -> None:
@@ -1177,6 +1203,242 @@ def paged_lossless_gate(torch, dev):
     return snap
 
 
+def server_phase(torch, dev):
+    """(s1)-(s3) of the module docstring; returns their records."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.request import GenerationRequest
+    from repro_torch.serving.server import ServerConfig, ServingLoop, StreamingServer
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="bf16")
+    model = Model(cfg, device=dev)
+    raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+    scfg = SpecConfig(temperature=0.0, drafter="ngram-tree", verifier="w8a8",
+                      tree_branches=TREE, kv_layout="paged", kv_block_size=128,
+                      kv_prefix_sharing=True)
+    prompts = task_prompts(serve.TASK, SERVER_REQUESTS, PROMPT, cfg.vocab_size)
+    server_cfg = dict(batch_slots=SERVER_SLOTS, max_prompt_len=PROMPT, max_new_tokens=NEW,
+                      admission="edf", degrade_on_overload=True, overload_factor=1.5)
+
+    def requests(deadlines: bool):
+        return [GenerationRequest(p, NEW, seed=i,
+                                  priority=1 if deadlines and i in HOPELESS else 0,
+                                  deadline_s=(None if not deadlines else
+                                              0.05 if i in HOPELESS else 60.0))
+                for i, p in enumerate(prompts)]
+
+    def drain(loop, clock, handles, max_polls=4000):
+        polls = 0
+        while loop.busy:
+            before = loop.total_steps
+            loop.poll()
+            clock[0] += (loop.total_steps - before) * SERVER_STEP_S
+            polls += 1
+            if polls > max_polls:
+                raise AssertionError("server loop did not drain")
+        torch.cuda.synchronize()
+        return handles
+
+    def contained(name, loop):
+        loop.metrics.check_conservation()
+        for lane in loop._lanes.values():
+            lane.sched.check_conservation()
+            lane.ctx.pool.check_invariants()
+            if lane.ctx.pool.unique_allocated:
+                raise AssertionError(f"{name}: {lane.ctx.pool.unique_allocated} blocks "
+                                     "never returned")
+
+    def streamed(name, handles):
+        for h in handles:
+            if h.status == "done" and not np.array_equal(h.collected(), h.result(0.0).tokens):
+                raise AssertionError(f"{name}: request {h.rid}'s stream != its result")
+
+    def record_ticks(sink):
+        """Keep every tick's step time (the scheduler's, up to its host read)
+        that ``sink.on_decode_step`` gets, by drafter:verifier key."""
+        ticks, hook = {}, sink.on_decode_step
+
+        def on_decode_step(key, accepted, step_s):
+            ticks.setdefault(key, []).append(step_s)
+            hook(key, accepted, step_s)
+        sink.on_decode_step = on_decode_step
+        return ticks
+
+    def steady(ticks):
+        """Per lane: ms of the ticks after its first two (eager, capture)."""
+        return {k: dict(ticks=len(v), ms_median=1e3 * statistics.median(v[2:]),
+                        ms_mean=1e3 * statistics.fmean(v[2:]), first_two_ms=[1e3 * x
+                                                                  for x in v[:2]])
+                for k, v in ticks.items() if len(v) > 2}
+
+    out = {}
+    # one engine for all runs: it prepares the raw weights once and keeps both
+    # (the server's lanes read the prepared ones, its bf16 fallback the raw)
+    eng = SpecEngine(model, scfg)
+    # -- reference tokens and tick: the same requests through generate_requests
+    ref_ticks = record_ticks(eng.telemetry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = eng.generate_requests(raw, requests(False), batch_slots=SERVER_SLOTS)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    del eng.telemetry.on_decode_step          # the lanes below feed it too
+    ref_tokens = [r.tokens for r in ref]
+    out["generate_requests"] = dict(wall_s=ref_wall, ticks=steady(ref_ticks),
+                                    served_tok_s=sum(r.new_tokens for r in ref) / ref_wall,
+                                    steps=eng.group_stats[0]["steps"],
+                                    capture_ms=1e3 * eng.capture_s)
+    log(f"  generate_requests (reference for s1-s3): {json.dumps(out['generate_requests'])}")
+
+    # -- (s1) virtual clock: tree + chain lanes, deadlines, shedding
+    traces0, captures0 = eng.step_traces, eng._programs.captures
+    clock = [0.0]
+    loop = ServingLoop(eng, raw, ServerConfig(**server_cfg), clock=lambda: clock[0])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = drain(loop, clock, [loop.submit(r) for r in requests(True)])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    summary = loop.metrics.summary()
+    contained("s1", loop)
+    streamed("s1", handles)
+    status = [h.status for h in handles]
+    if [i for i, st in enumerate(status) if st == "shed"] != list(HOPELESS) or \
+            status.count("done") != SERVER_REQUESTS - len(HOPELESS):
+        raise AssertionError(f"s1: statuses {status}")
+    for h, want in zip(handles, ref_tokens):
+        if h.status == "done" and not np.array_equal(h.result(0.0).tokens, want):
+            raise AssertionError(f"s1: request {h.rid} != generate_requests")
+    missing = [k for k in SERVER_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"s1: kernels never launched on the server path: {missing}")
+    if any(summary["robustness"].values()):
+        raise AssertionError(f"s1: robustness events in a fault-free run: "
+                             f"{summary['robustness']}")
+    lanes = {lane.key: lane for lane in loop._lanes.values()}
+    if sorted(lanes) != ["ngram-tree:w8a8", "ngram:w8a8"] or summary["counters"]["degraded"] < 1:
+        raise AssertionError(f"s1: lanes {sorted(lanes)}, degraded "
+                             f"{summary['counters']['degraded']}")
+    traces = eng.step_traces - traces0 + loop._degraded_engine.step_traces
+    captures = (eng._programs.captures - captures0
+                + loop._degraded_engine._programs.captures)
+    if (traces, captures) != (2, 2):
+        raise AssertionError(f"s1: {traces} programs, {captures} captures (one per lane)")
+    # the guardrail's pre-step snapshot: host and device time of one take
+    # (time_ms: the host enqueues each take while the card sleeps, so the
+    # events hold its copies' device time only)
+    snap, state = lanes["ngram-tree:w8a8"].pre, lanes["ngram-tree:w8a8"].state
+    host = []
+    with torch.inference_mode():
+        device_ms = time_ms(torch, lambda: snap.take(state), 50,
+                            torch.empty(1 << 20, dtype=torch.int8, device=dev), host)
+    snapshot = dict(host_us=1e3 * statistics.median(host), device_us=1e3 * device_ms,
+                    bytes=snap.nbytes)
+    out["s1"] = dict(wall_s=wall, ticks=loop.total_steps, launches=launches,
+                     statuses=status, counters=summary["counters"],
+                     latency_virtual_s=summary["latency"], program_traces=traces,
+                     kv_cache=summary["kv_cache"], snapshot=snapshot,
+                     acceptance={k: dict(steps=v["steps"], mean=v["accept_len"].get("mean"))
+                                 for k, v in summary["acceptance"].items()})
+    log(f"  s1: {json.dumps({k: v for k, v in out['s1'].items() if k != 'latency_virtual_s'})}")
+    log(f"  s1: streamed == result == generate_requests for the {status.count('done')} served; "
+        f"{len(HOPELESS)} shed; conservation; every block back; no robustness event")
+    s1_tokens = {h.rid: h.result(0.0).tokens for h in handles if h.status == "done"}
+    for lane in loop._lanes.values():
+        lane.engine.forget_state(lane.state)
+    del loop, handles, lanes, snap, state
+    torch.cuda.empty_cache()
+
+    # -- (s2) real clock: the threaded server, Poisson arrivals, caller-thread consumption
+    capture0 = eng.capture_s
+    gaps = np.random.default_rng(0).exponential(1.0 / SERVER_RATE, size=SERVER_REQUESTS)
+    reqs = requests(False)
+    srv = StreamingServer(eng, raw, ServerConfig(**server_cfg))
+    srv_ticks = record_ticks(srv.metrics)
+    t0 = time.perf_counter()
+    with srv:
+        handles = []
+        for gap, r in zip(gaps, reqs):
+            time.sleep(gap)
+            handles.append(srv.submit(r))
+        chunks = [list(h.tokens()) for h in handles]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    contained("s2", srv.loop)
+    streamed("s2", handles)
+    for h, c, want in zip(handles, chunks, ref_tokens):
+        if h.status != "done" or not np.array_equal(np.concatenate(c), want):
+            raise AssertionError(f"s2: request {h.rid} ({h.status}) != generate_requests")
+    summary = srv.metrics.summary()
+    if any(summary["robustness"].values()):
+        raise AssertionError(f"s2: robustness events: {summary['robustness']}")
+    lat = summary["latency"]
+    ticks = steady(srv_ticks)
+    out["s2"] = dict(wall_s=wall, served_tok_s=summary["counters"]["stream_tokens"] / wall,
+                     ttft_ms_p50=1e3 * lat["ttft_s"]["p50"], ttft_ms_p99=1e3 * lat["ttft_s"]["p99"],
+                     itl_ms_p50=1e3 * lat["itl_s"]["p50"], itl_ms_p99=1e3 * lat["itl_s"]["p99"],
+                     queue_ms_p50=1e3 * lat["queue_s"]["p50"], ticks=ticks,
+                     counters=summary["counters"],
+                     capture_ms=1e3 * (eng.capture_s - capture0
+                                       + srv.loop._degraded_engine.capture_s))
+    log(f"  s2: {json.dumps(out['s2'])}")
+    lane_ticks = ", ".join(f"{k} {v['ms_median']:.2f}" for k, v in ticks.items())
+    ref_median = out["generate_requests"]["ticks"]["ngram-tree:w8a8"]["ms_median"]
+    log(f"  s2: TTFT p50 {out['s2']['ttft_ms_p50']:.1f} ms, p99 {out['s2']['ttft_ms_p99']:.1f} ms; "
+        f"ITL p50 {out['s2']['itl_ms_p50']:.2f} ms; served {out['s2']['served_tok_s']:.1f} tok/s; "
+        f"tick ms (median after the capture) {lane_ticks} against generate_requests' "
+        f"{ref_median:.2f}")
+    for lane in srv.loop._lanes.values():
+        lane.engine.forget_state(lane.state)
+    del srv, handles
+    torch.cuda.empty_cache()
+
+    # -- (s3) chaos: seeded faults over every seam the loop owns
+    traces0 = eng.step_traces
+    plan = FaultPlan.parse(CHAOS, seed=0)
+    clock = [0.0]
+    loop = ServingLoop(eng, raw, ServerConfig(**server_cfg), clock=lambda: clock[0],
+                       faults=plan)
+    t0 = time.perf_counter()
+    handles = drain(loop, clock, [loop.submit(r) for r in requests(True)])
+    wall = time.perf_counter() - t0
+    contained("s3", loop)
+    streamed("s3", handles)
+    summary = loop.metrics.summary()
+    rb = summary["robustness"]
+    untouched = [h.rid for h in handles if h.status == "done" and h.rid not in loop.affected]
+    for rid in untouched:
+        # (s1) served all but the shed, each equal to generate_requests
+        twin = s1_tokens.get(rid, ref_tokens[rid])
+        if not np.array_equal(handles[rid].result(0.0).tokens, twin):
+            raise AssertionError(f"s3: untouched request {rid} != its fault-free twin")
+    if not (rb["verify_nan_trips"] > 0 and rb["bf16_rescued_rows"] > 0):
+        raise AssertionError(f"s3: the guardrail did not run: {rb}")
+    out["s3"] = dict(wall_s=wall, plan=CHAOS, fired=plan.summary(), robustness=rb,
+                     statuses=[h.status for h in handles], affected=sorted(loop.affected),
+                     untouched_equal_to_s1=len(untouched), counters=summary["counters"],
+                     program_traces=eng.step_traces - traces0
+                     + loop._degraded_engine.step_traces)
+    log(f"  s3: {json.dumps(out['s3'])}")
+    log(f"  s3: conservation; every block back; {len(untouched)} untouched requests == s1; "
+        f"{rb['verify_nan_trips']} NaN trips, {rb['bf16_rescued_rows']} bf16-rescued rows")
+    del loop, handles, eng, raw
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1244,6 +1506,9 @@ def main() -> int:
     runs["contiguous_w8a8_kv_bf16"] = sched.pop("contiguous_w8a8_kv_bf16")
     log("paged phase: lossless gate")
     preempt = paged_lossless_gate(torch, dev)
+    log("server phase")
+    server = server_phase(torch, dev)
+    runs["server_s1"] = server["s1"]
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -1291,7 +1556,7 @@ def main() -> int:
         dict(device=name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph),
+             graph=graph, server=server),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,19 @@
-"""Serving launcher — port of the batch and paged paths of
-``repro/launch/serve.py``.
+"""Serving launcher — port of ``repro/launch/serve.py``.
 
-Serves one batch of synthetic prompts with seeded random weights and
-prints throughput and acceptance length.  ``--kv-layout contiguous`` (the
-default) runs ``SpecEngine.generate``; ``--kv-layout paged`` routes the
-batch through the continuous-batching scheduler as per-request
-generations (``SpecEngine.generate_requests``) over the paged,
-prefix-shared KV cache, as the reference does.  Runs on the CUDA card
-unless ``--device cpu`` is given; with no card it exits with an error
-rather than falling back.  On the card the decode step is a CUDA graph
+Serves synthetic prompts with seeded random weights and prints throughput
+and acceptance length.  ``--kv-layout contiguous`` (the default) runs
+``SpecEngine.generate``; ``--kv-layout paged`` routes the batch through
+the continuous-batching scheduler as per-request generations
+(``SpecEngine.generate_requests``) over the paged, prefix-shared KV cache,
+as the reference does.  ``--serve`` runs the async front-end instead: a
+``StreamingServer`` on the wall clock takes a Poisson stream of
+``--requests`` requests, streams each one's tokens, and prints the
+``ServerMetrics`` summary (TTFT, ITL, deadlines, the robustness counters);
+``--fault-plan`` injects seeded faults, ``--trace-out`` writes a
+Chrome/Perfetto trace, ``--metrics-out`` the summary as JSON and
+``--prom-out`` its Prometheus exposition.  Runs on the CUDA card unless
+``--device cpu`` is given; with no card it exits with an error rather than
+falling back.  On the card the decode step is a CUDA graph
 (``serving/graphs.py``): the last line reports the programs built
 (``step_traces``) and the time their captures took, inside the run's time.
 
@@ -21,15 +26,20 @@ rather than falling back.  On the card the decode step is a CUDA graph
       --drafter pruned --pruned-retention 0.5
   python -m repro_torch.launch.serve --arch quasar-paper-7b --kv-layout paged \
       --batch 12 --prompt-len 1024 --new-tokens 64
+  python -m repro_torch.launch.serve --arch smollm-135m --reduced --device cpu \
+      --serve --requests 8 --arrival-rate 4 --fault-plan nan_verify@2 \
+      --trace-out trace.json --metrics-out metrics.json --prom-out metrics.prom
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -39,7 +49,10 @@ from repro_torch.data import task_prompts
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.serving.engine import GenResult, SpecEngine
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.request import GenerationRequest, RequestResult
+from repro_torch.serving.server import ServerConfig, StreamingServer
+from repro_torch.serving.trace import Tracer
 
 WEIGHT_SEED = 0
 TASK = "gsm8k"
@@ -70,6 +83,20 @@ class ScheduledResult:
     @property
     def steps(self) -> int:
         return max(r.steps for r in self.results)
+
+
+@dataclass
+class ServedResult:
+    """What ``--serve`` serves: the handles in submission order, the metrics
+    summary and the wall time of the whole stream."""
+
+    handles: list
+    summary: dict
+    wall_s: float
+    metrics: object = None               # the ServerMetrics the summary came from
+    step_traces: int = 0
+    capture_s: float = 0.0
+    fault_log: List[dict] = field(default_factory=list)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -105,6 +132,50 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "swap pool; denied admissions wait for capacity instead")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the card is required) or cpu")
+    ap.add_argument("--serve", action="store_true",
+                    help="async front-end: run a StreamingServer on the wall clock, "
+                         "submit a Poisson arrival stream, stream tokens per request, "
+                         "print the metrics summary (repro_torch.serving.server)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="number of requests in the --serve arrival stream")
+    ap.add_argument("--arrival-rate", type=float, default=4.0,
+                    help="--serve Poisson arrival rate (requests/s)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="--serve per-request SLO deadline in seconds "
+                         "(default: no deadline)")
+    ap.add_argument("--admission", default="edf", choices=["fifo", "edf"],
+                    help="--serve admission policy within priority class")
+    ap.add_argument("--no-shed", action="store_true",
+                    help="--serve: keep past-deadline queued work instead of "
+                         "shedding it")
+    ap.add_argument("--request-timeout", type=float, default=None, metavar="S",
+                    help="--serve: fail any request older end-to-end than S "
+                         "seconds (RequestTimeout)")
+    ap.add_argument("--collapse-window", type=int, default=0, metavar="N",
+                    help="--serve: acceptance-collapse detector window (N decode "
+                         "steps; 0 = off); a quantized-verifier lane whose mean "
+                         "acceptance sits below --collapse-threshold for a full "
+                         "window is re-prepared (re-quantized)")
+    ap.add_argument("--collapse-threshold", type=float, default=0.05, metavar="T",
+                    help="--serve: mean accepted tokens per row-step below which "
+                         "the collapse detector trips")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="--serve: inject faults from a seeded FaultPlan spec "
+                         "(seam@i / seam~p, comma-separated, e.g. "
+                         "'step@3,alloc~0.05'; repro_torch.serving.faults)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for --fault-plan")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event / Perfetto JSON of the run "
+                         "(request lifecycle, scheduler ticks, decode/prefill/swap "
+                         "spans)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics summary as JSON (--serve: the "
+                         "ServerMetrics summary; otherwise the engine's "
+                         "acceptance telemetry)")
+    ap.add_argument("--prom-out", default=None, metavar="PATH",
+                    help="--serve: write the metrics in Prometheus text "
+                         "exposition format (ServerMetrics.expose_text)")
     args = ap.parse_args(argv)
     # --tree-branches implies the tree drafter; reject combinations that
     # would silently ignore the template
@@ -121,6 +192,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                      f"drafter {args.drafter!r} would silently ignore it")
     if args.gamma is None:
         args.gamma = 5
+    if args.fault_plan is not None and not args.serve:
+        ap.error("--fault-plan needs --serve")
+    if args.prom_out is not None and not args.serve:
+        ap.error("--prom-out needs --serve (ServerMetrics)")
     try:
         args.device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
@@ -128,7 +203,77 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> GenResult | ScheduledResult:
+def serve_stream(engine: SpecEngine, params, prompts: np.ndarray, args,
+                 tracer: Optional[Tracer]) -> ServedResult:
+    """``--serve``: a Poisson stream of ``args.requests`` requests through a
+    ``StreamingServer``, each consumed token by token on this thread."""
+    cfg_srv = ServerConfig(
+        batch_slots=args.batch, max_prompt_len=args.prompt_len,
+        max_new_tokens=args.new_tokens, admission=args.admission,
+        shed_late=not args.no_shed, request_timeout_s=args.request_timeout,
+        collapse_window=args.collapse_window,
+        collapse_threshold=args.collapse_threshold)
+    faults = (FaultPlan.parse(args.fault_plan, seed=args.fault_seed)
+              if args.fault_plan else None)
+    gaps = np.random.default_rng(0).exponential(1.0 / max(args.arrival_rate, 1e-9),
+                                                size=args.requests)
+    t0 = time.perf_counter()
+    srv = StreamingServer(engine, params, cfg_srv, tracer=tracer, faults=faults)
+    with srv:
+        handles = []
+        for i in range(args.requests):
+            time.sleep(gaps[i])
+            handles.append(srv.submit(GenerationRequest(
+                prompts[i % len(prompts)], args.new_tokens, seed=i,
+                deadline_s=args.deadline)))
+        for h in handles:
+            chunks = list(h.tokens())         # blocking per-token stream
+            try:
+                res = h.result(timeout=600.0)
+            except Exception as exc:  # noqa: BLE001 — a failed request is contained
+                print(f"req {h.rid}: failed ({type(exc).__name__}: {exc})")
+            else:
+                print(f"req {h.rid}: {h.status}, {len(chunks)} chunks, "
+                      f"{res.new_tokens if res else 0} tokens")
+    wall = time.perf_counter() - t0
+    srv.metrics.check_conservation()
+    summary = srv.metrics.summary()
+    c, lat = summary["counters"], summary["latency"]
+    print(f"served {c['completed']}/{c['submitted']} (shed {c['shed']}, failed "
+          f"{c['failed']}) in {wall:.2f}s wall")
+    rb = {k: v for k, v in summary["robustness"].items() if v}
+    if rb:
+        print("robustness: " + ", ".join(f"{k}={v}" for k, v in sorted(rb.items())))
+    ttft, itl = lat["ttft_s"], lat["itl_s"]
+    if ttft.get("n"):
+        print(f"ttft p50={ttft['p50']:.3f}s p99={ttft['p99']:.3f}s  "
+              f"itl p50={itl.get('p50', float('nan')):.4f}s")
+    if summary["deadlines"]["with_deadline"]:
+        print(f"deadline hit-rate: {summary['deadlines']['hit_rate']:.3f}")
+    print(f"step_traces={engine.step_traces}  capture_ms={1e3 * engine.capture_s:.1f}")
+    return ServedResult(handles, summary, wall, srv.metrics, engine.step_traces,
+                        engine.capture_s, list(faults.log) if faults is not None else [])
+
+
+def dump_observability(args, engine: SpecEngine, tracer: Optional[Tracer],
+                       metrics=None) -> None:
+    """Write the ``--trace-out`` / ``--metrics-out`` / ``--prom-out`` files."""
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"trace: {args.trace_out} ({len(tracer.events)} events)")
+    if args.metrics_out:
+        payload = (metrics.summary() if metrics is not None
+                   else {"acceptance": engine.telemetry.summary()})
+        with open(args.metrics_out, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+        print(f"metrics: {args.metrics_out}")
+    if args.prom_out:
+        with open(args.prom_out, "w") as f:
+            f.write(metrics.expose_text())
+        print(f"prometheus: {args.prom_out}")
+
+
+def main(argv=None) -> GenResult | ScheduledResult | ServedResult:
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -149,13 +294,20 @@ def main(argv=None) -> GenResult | ScheduledResult:
                       kv_prefix_sharing=not args.no_prefix_sharing,
                       kv_preempt=not args.no_preempt)
     engine = SpecEngine(model, scfg)
-    params = engine.prepare_params(params)     # the original is dropped here
+    if not args.serve:
+        # the server keeps the raw params for its bf16 fallback lane
+        params = engine.prepare_params(params)     # the original is dropped here
     prompts = torch.as_tensor(task_prompts(TASK, args.batch, args.prompt_len,
                                            cfg.vocab_size), device=dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
     print(f"arch={cfg.name} verifier={engine.verifier.name} "
           f"drafter={engine.drafter.name} kv_cache={cfg.kv_cache_dtype} "
           f"kv_layout={args.kv_layout} device={where}")
+    tracer = Tracer() if args.trace_out else None
+    if args.serve:
+        served = serve_stream(engine, params, prompts.cpu().numpy(), args, tracer)
+        dump_observability(args, engine, tracer, served.metrics)
+        return served
     if args.kv_layout == "paged":
         # paged is a serving-path layout: the batch goes through the
         # continuous-batching scheduler as per-request generations
@@ -164,7 +316,7 @@ def main(argv=None) -> GenResult | ScheduledResult:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        out = engine.generate_requests(params, reqs)
+        out = engine.generate_requests(params, reqs, tracer=tracer)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         tkey = f"{engine.drafter.name}:{engine.verifier.name}"
@@ -178,6 +330,7 @@ def main(argv=None) -> GenResult | ScheduledResult:
               f"({sr.tokens_per_s:.1f} tok/s, {where})")
         print(f"verify steps={sr.steps}  mean acceptance length L={sr.mean_accept_len:.3f}  "
               f"step_traces={engine.step_traces}  capture_ms={1e3 * sr.capture_s:.1f}")
+        dump_observability(args, engine, tracer)
         return sr
     r = engine.generate(params, prompts, args.new_tokens)
     print(f"prefill {args.batch}x{args.prompt_len - 1} tokens in {r.prefill_s:.3f}s; "
@@ -185,6 +338,7 @@ def main(argv=None) -> GenResult | ScheduledResult:
           f"({r.tokens_per_s:.1f} tok/s, {where})")
     print(f"verify steps={r.steps}  mean acceptance length L={r.mean_accept_len:.3f}  "
           f"step_traces={engine.step_traces}  capture_ms={1e3 * r.capture_s:.1f}")
+    dump_observability(args, engine, tracer)
     return r
 
 

@@ -30,6 +30,15 @@ the state's own tensors.  So admission allocates no new state tensor, and
 any code that keeps a row across a step copies it (the preemption
 snapshot does).
 
+The serving front-end's NaN guardrail (``serving/server.py``) reruns a
+tripped step.  The reference keeps the pure step's input; the port's step
+overwrites it, so the guard keeps :class:`StepSnapshot` — copies of the
+small per-row registers a step writes, taken before every step — and
+restores them in place (the KV writes of a step land only in its window,
+at positions no committed token owns, so a rerun rewrites the same
+places).  :meth:`SpecEngine.fallback_step_for` is the bf16 twin of a step,
+:func:`merge_state_rows` the reference's row-sparse state merge, in place.
+
 The reference jits the decode step and counts its traces
 (``step_traces``).  The port's counterpart (``serving/graphs.py``) runs a
 program's first step eagerly, captures the second as a CUDA graph and
@@ -56,6 +65,7 @@ from repro_torch.core.paged_cache import (
     PrefixIndex,
     clone_block,
     init_paged_cache,
+    physical_slots,
     plan_group,
     request_demand_tokens,
     scatter_prefill_rows,
@@ -150,6 +160,7 @@ class SpecEngine:
         self._step = self._counted(
             make_decode_step(model, self.drafter, self.verifier, scfg))
         self._steps_by_temp = {}                   # temperature overrides
+        self._fallback_steps = {}                  # temperature -> bf16 twin
         self._prepared = None                      # (params ref, prepared)
         # per-group sizing of the last generate_requests call
         self.group_stats: List[dict] = []
@@ -201,6 +212,30 @@ class SpecEngine:
                                                   scfg_t))
             self._steps_by_temp[t] = (step, drafter)
         return self._steps_by_temp[t]
+
+    def fallback_step_for(self, t: float):
+        """Full-precision twin of the decode step at temperature ``t``: the
+        same model and drafter, the bf16 (passthrough) verifier.
+
+        The serving lane's NaN guardrail reruns a tripped step through it
+        with the *raw* (unprepared) params.  Built on first trip and cached
+        per temperature; its programs count in ``step_traces`` as the
+        reference counts its trace, only ever after a fault."""
+        t = float(t)
+        if t not in self._fallback_steps:
+            if len(self._fallback_steps) >= _MAX_TEMP_STEPS:
+                self._fallback_steps.pop(next(iter(self._fallback_steps)))
+            drafter = (self.drafter if t == self.scfg.temperature
+                       else self.drafter.with_temperature(t))
+            scfg_t = dataclasses.replace(self.scfg, temperature=t, verifier="bf16")
+            self._fallback_steps[t] = self._counted(
+                make_decode_step(self.model, drafter, "bf16", scfg_t))
+        return self._fallback_steps[t]
+
+    def forget_state(self, state: dict) -> None:
+        """Drop the step programs built on ``state`` (a torn-down lane's),
+        so their graphs and generators are freed with it."""
+        self._programs.forget(state)
 
     def _init_state(self, params, prompts, lengths, targets, buf, generators,
                     draft_params=None):
@@ -557,6 +592,149 @@ class SpecEngine:
             for j, i in enumerate(idxs):
                 results[i] = group_results[j]
         return results
+
+
+def _merge_rows(dst: torch.Tensor, src: torch.Tensor, idx: torch.Tensor, B: int) -> None:
+    if dst is not src and dst.dim() >= 1 and dst.shape[0] == B:
+        dst[idx] = src[idx]
+
+
+def merge_state_rows(dst: dict, src: dict, rows: Sequence[int]) -> dict:
+    """Graft ``rows`` of engine state ``src`` onto ``dst``, **in place**
+    (returns ``dst``; ``src`` is left as it is) — the reference's
+    row-sparse merge, the NaN guardrail's rescue primitive.
+
+    Batch-leading tensors (tokens, length, target, per-row stats, drafter
+    state) merge row-wise, and the rows' generators take ``src``'s states;
+    scalar stats (``steps``) stay ``dst``'s.  For a paged cache the block
+    table is the same in both (the step never writes it), so the merge
+    copies the physical blocks the merged rows' table entries name — rows
+    own disjoint blocks, so every other row's cache stays bit for bit."""
+    rows = [int(r) for r in rows]
+    if not rows:
+        return dst
+    B = dst["length"].shape[0]
+    idx = torch.as_tensor(rows, dtype=torch.long, device=dst["length"].device)
+
+    def rowmerge(d, s):
+        _merge_rows(d, s, idx, B)
+
+    for k in ("tokens", "length", "target"):
+        if k in dst:
+            rowmerge(dst[k], src[k])
+    for k, d in dst["stats"].items():
+        rowmerge(d, src["stats"][k])
+    _tree_zip(rowmerge, dst["drafter_state"], src["drafter_state"])
+    for r in rows:
+        if dst["generators"][r] is not src["generators"][r]:
+            dst["generators"][r].set_state(src["generators"][r].get_state())
+    if "bt" in dst["cache"]:
+        bt_rows = dst["cache"]["bt"][idx].cpu().numpy()
+        ids = np.unique(bt_rows[bt_rows != SCRATCH_BLOCK])
+        if ids.size:
+            bidx = torch.as_tensor(ids, dtype=torch.long, device=idx.device)
+
+            def blockmerge(d, s):
+                d[bidx] = s[bidx]
+
+            _tree_zip(blockmerge, dst["cache"]["layers"], src["cache"]["layers"])
+    else:
+        _tree_zip(rowmerge, dst["cache"], src["cache"])
+    return dst
+
+
+class StepSnapshot:
+    """What one decode step overwrites in a state, kept in preallocated
+    buffers so a step can be rerun in place (the NaN guardrail's ``pre``).
+
+    :meth:`take` copies the small per-row registers a step writes —
+    ``tokens``, ``length``, ``stats`` — into buffers allocated once, and
+    the rows' generator states; :meth:`restore` writes them back (all rows,
+    or some).  The KV a step writes is positional: the window's rows
+    ``[length - 1, length - 1 + window)`` of the verifier cache (contiguous
+    or through the block table) and of a drafter cache (``"layers"``),
+    which no committed token owns, so a rerun from restored registers
+    rewrites the same places.  :meth:`take_window` keeps those rows too,
+    until the next one (only on the guardrail's fallback path, where the
+    retry's KV must survive the fallback step for the rows it does not
+    rescue)."""
+
+    def __init__(self, state: dict, window: int):
+        self.window = int(window)
+        self._regs = self._registers(state)
+        self._bufs = [t.clone() for t in self._regs]
+        self._gen = [None] * len(state["generators"])
+        self._start = None
+        self._kv = None
+
+    @staticmethod
+    def _registers(state: dict) -> list:
+        return [state["tokens"], state["length"], *state["stats"].values()]
+
+    def take(self, state: dict) -> None:
+        for buf, t in zip(self._bufs, self._registers(state)):
+            buf.copy_(t)
+        self._gen = [g.get_state() for g in state["generators"]]
+
+    def restore(self, state: dict, rows: Optional[Sequence[int]] = None) -> None:
+        """Registers (and, after :meth:`take_window`, the window's KV) back
+        into ``state``, in place: every row, or ``rows``."""
+        B = state["length"].shape[0]
+        rows = list(range(B)) if rows is None else [int(r) for r in rows]
+        if not rows:
+            return
+        idx = torch.as_tensor(rows, dtype=torch.long, device=state["length"].device)
+        for buf, t in zip(self._bufs, self._registers(state)):
+            if t.dim() >= 1 and t.shape[0] == B:
+                t[idx] = buf[idx]
+            else:
+                t.copy_(buf)               # scalar stats: one value for the batch
+        for r in rows:
+            state["generators"][r].set_state(self._gen[r])
+        if self._kv is not None:
+            for (t, ix), saved in zip(self._window_slots(state), self._kv):
+                t[tuple(i[idx] for i in ix)] = saved[idx]
+
+    def _window_slots(self, state: dict) -> list:
+        """``(buffer, index)`` for every cache buffer the step's window
+        writes: ``buffer[index]`` is (B, window, ...), and ``index`` is a
+        tuple of (B, window) tensors (row and position, or the flat row of
+        a paged pool viewed as ``(num_blocks * block_size, ...)``)."""
+        start = self._start
+        B = start.shape[0]
+        slots = start[:, None] + torch.arange(self.window, device=start.device)[None]
+        caches = [state["cache"]]
+        if isinstance(state["drafter_state"], dict) and "layers" in state["drafter_state"]:
+            caches.append(state["drafter_state"])
+        out = []
+        for cache in caches:
+            bt = cache.get("bt")
+            for layer in cache["layers"]:
+                for t in layer.values():
+                    if bt is not None:
+                        flat = t.view((-1,) + tuple(t.shape[2:]))
+                        out.append((flat, (physical_slots(bt, slots, t.shape[1]),)))
+                    else:
+                        pos = slots.clamp(max=t.shape[1] - 1)
+                        rows = torch.arange(B, device=pos.device)[:, None].expand_as(pos)
+                        out.append((t, (rows, pos)))
+        return out
+
+    def take_window(self, state: dict, length: torch.Tensor) -> None:
+        """Keep the window's KV of every row, for windows starting at
+        ``length - 1`` (the lengths before the step)."""
+        self._start = (length.long() - 1).clamp(min=0)
+        self._kv = [t[ix].clone() for t, ix in self._window_slots(state)]
+
+    @property
+    def length(self) -> torch.Tensor:
+        """``length`` as taken (before the step)."""
+        return self._bufs[1]
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes one :meth:`take` copies."""
+        return sum(b.numel() * b.element_size() for b in self._bufs)
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """Deterministic fault injection for the serving stack — port of
-``repro/serving/faults.py`` (host-only: the exception types, ``FaultPlan``
-and ``NULL_FAULTS``; ``poison_params`` waits for the slice that ports the
-serving front-end's NaN guardrail).
+``repro/serving/faults.py``: the exception types, ``FaultPlan`` and
+``NULL_FAULTS`` (host-only, copied) and :func:`poison_params`, which the
+serving front-end's ``nan_verify`` and ``quant_corrupt`` seams use.
 
 A seeded :class:`FaultPlan` decides, at named *seams*, whether an
 injected failure fires.  The seams cover every class of runtime fault
@@ -35,10 +35,13 @@ installed".
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 #: Every seam a plan may target, in a fixed order (the order seeds the
 #: per-seam RNG streams — do not reorder, append only).
@@ -220,3 +223,50 @@ class FaultPlan:
                     f"bad fault term {part!r}: expected seam@i[+j...] "
                     "or seam~p")
         return cls(rules, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# Injection helpers
+# ---------------------------------------------------------------------------
+
+def _leaves(mod: nn.Module, path: str = ""):
+    """``(path, owner module, buffer name, tensor)`` of every buffer of a
+    parameter tree in the reference pytree's flatten order: keys sorted at
+    each level, layer lists by index."""
+    items = {name: t for name, t in mod.named_buffers(recurse=False)}
+    items.update(mod.named_children())
+    if isinstance(mod, nn.ModuleList):
+        keys = sorted(items, key=int)
+    else:
+        keys = sorted(items)
+    for k in keys:
+        v = items[k]
+        if isinstance(v, nn.Module):
+            yield from _leaves(v, f"{path}{k}/")
+        else:
+            yield f"{path}{k}", mod, k, v
+
+
+def poison_params(params: nn.Module) -> nn.Module:
+    """Copy of ``params`` with its largest floating-point buffer (the
+    first of the largest, in the reference's pytree order) overwritten
+    with NaN; every other tensor is shared with ``params``.
+
+    The NaN surfaces where a real corrupted weight would: in the
+    verifier's logits, caught by the per-row ``stats["bad"]`` flag.  The
+    copy is a new params object, so the port's compiled step
+    (``serving/graphs.py``, keyed by the params' identity) builds a program
+    for it where the reference's ``jit`` reuses its trace.
+    """
+    best, best_size = None, -1
+    for path, _, _, t in _leaves(params):
+        if t.is_floating_point() and t.numel() > best_size:
+            best, best_size = path, t.numel()
+    if best is None:
+        raise ValueError("params tree has no floating-point leaf to poison")
+    memo = {id(t): t for t in params.buffers()}     # share, never copy, tensors
+    out = copy.deepcopy(params, memo)
+    for path, owner, name, t in _leaves(out):
+        if path == best:
+            setattr(owner, name, torch.full_like(t, float("nan")))
+    return out

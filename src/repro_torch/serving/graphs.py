@@ -33,6 +33,17 @@ each is followed by a capture at its next step; on the CPU, or with
 the step runs eagerly every time and the same keys are counted.  There is
 no silent eager path on the card: a capture or replay that fails raises.
 
+A serving front-end (``serving/server.py``) keeps up to eight lanes, each
+with its own state and so its own program, plus each lane's bf16 fallback
+twin after a non-finite-logits trip: :data:`MAX_PROGRAMS` holds them all,
+and a program whose params object died (a poisoned view of the fault
+seams, a lane's params before a repair) is dropped before any live one is
+evicted.  A torn-down lane's programs go with :meth:`StepPrograms.forget`.
+The serving loop captures on its own thread while callers submit and
+consume from theirs, so a capture runs in ``"thread_local"`` error mode:
+what another thread does on the card cannot break it (the callers' side of
+the server is numpy and makes no card call).
+
 Kernel launches are counted in the wrappers (``kernels/ops.LAUNCHES``),
 which a replay does not run: a capture records what the wrappers counted
 (``ops.launches_apart``) and each replay adds it once.  Host work of the
@@ -51,7 +62,9 @@ import torch
 
 from repro_torch.kernels import ops
 
-MAX_PROGRAMS = 8        # an engine's live programs (as _MAX_TEMP_STEPS bounds steps)
+# an engine's live programs: a server's 8 lanes × (step, bf16 fallback twin),
+# plus a lane's params before a repair and after it
+MAX_PROGRAMS = 20
 
 
 def _buffers(tree, out: list) -> list:
@@ -128,16 +141,24 @@ class StepPrograms:
         return state
 
     def _build(self, key, step_fn, params, state) -> dict:
-        if len(self._programs) >= MAX_PROGRAMS:
-            self._programs.popitem(last=False)
-        self._programs[key] = Program(weakref.ref(params),
-                                      (step_fn, tuple(state["generators"])))
         self.step_traces += 1
         step_fn(params, state)          # the program's first step runs eagerly
         if self._key(step_fn, params, state) != key:
             raise RuntimeError("the decode step replaced a state tensor or generator; "
                                "it must write the state in place")
+        for k in [k for k, p in self._programs.items() if p.params() is None]:
+            del self._programs[k]       # their params died: never run again
+        if len(self._programs) >= MAX_PROGRAMS:
+            self._programs.popitem(last=False)
+        self._programs[key] = Program(weakref.ref(params),
+                                      (step_fn, tuple(state["generators"])))
         return state
+
+    def forget(self, state) -> None:
+        """Drop every program built on ``state`` (a torn-down lane's)."""
+        gens = tuple(map(id, state["generators"]))
+        for k in [k for k in self._programs if k[-1] == gens]:
+            del self._programs[k]
 
     def _capture(self, prog: Program, step_fn, params, state) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -147,7 +168,8 @@ class StepPrograms:
             self._pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         with ops.launches_apart() as launches:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 step_fn(params, state)
         self.capture_s += time.perf_counter() - t0
         self.captures += 1

@@ -53,9 +53,8 @@ class GenerationRequest:
     which the full generation should complete.  Under ``admission="edf"``
     pending requests are ordered earliest-deadline-first within their
     priority class, and the serving front-end
-    (the reference's ``serving/server.py``, not ported yet) may shed a
-    request whose deadline passed
-    while it was still queued.  Like ``priority`` it only reorders
+    (``repro_torch.serving.server``) may shed a request whose deadline
+    passed while it was still queued.  Like ``priority`` it only reorders
     admission — never the generated tokens.
     """
 

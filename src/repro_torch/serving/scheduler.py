@@ -337,6 +337,7 @@ class Scheduler:
         on_fail: Optional[
             Callable[[dict, Optional[int], int, BaseException], dict]] = None,
         clock: Callable[[], float] = time.perf_counter,
+        guard: Optional[Callable[[dict, dict], tuple]] = None,
     ) -> tuple:
         """One admission wave + one batch step + harvest.
 
@@ -357,6 +358,12 @@ class Scheduler:
         * ``clock`` — timestamp source for queue/service accounting
           (injectable so load-replay benchmarks can run on a virtual
           clock).
+        * ``guard(state, host) -> (state, host)`` — runs after the step
+          on the tick's one host read (:func:`host_view`), inside the
+          step's containment: the serving lane's NaN guardrail reads
+          ``host["bad"]`` there instead of syncing again, and may rerun
+          the step (returning a fresh host view) or raise
+          :class:`~repro_torch.serving.faults.RequestFault`.
 
         **Failure containment**: an exception escaping the ``admit``
         hook fails only the request being admitted; an exception
@@ -375,7 +382,7 @@ class Scheduler:
             return self._tick_inner(
                 state, admit=admit, step=step, can_admit=can_admit,
                 release=release, preempt=preempt, on_tokens=on_tokens,
-                on_fail=on_fail, clock=clock)
+                on_fail=on_fail, clock=clock, guard=guard)
 
     def _tick_inner(
         self,
@@ -390,6 +397,7 @@ class Scheduler:
         on_fail: Optional[
             Callable[[dict, Optional[int], int, BaseException], dict]] = None,
         clock: Callable[[], float] = time.perf_counter,
+        guard: Optional[Callable[[dict, dict], tuple]] = None,
     ) -> tuple:
         while self._pending:
             free_slot = next((s for s in range(self.batch_slots)
@@ -499,6 +507,11 @@ class Scheduler:
             with self._tr.span("decode", tid=self.trace_tid, step=self.steps,
                                rows=len(occupied)):
                 state = step(state)
+                # the one host read of the tick; it waits for the card, so
+                # the step time covers the device's work too
+                host = host_view(state)
+                if guard is not None:
+                    state, host = guard(state, host)
         except RequestFault as rf:
             # attributable step failure: adopt the coherent state the
             # raiser carries (when it has one) and fail only the named
@@ -526,9 +539,6 @@ class Scheduler:
                                               release=release,
                                               on_fail=on_fail)
             return state, []
-        # the one host read of the tick; it waits for the card, so the
-        # step time covers the device's work too
-        host = host_view(state)
         step_s = clock() - t_step
         self.steps += 1
         lengths, targets = host["length"], host["target"]

@@ -1062,3 +1062,172 @@ def test_re_prepared_params_are_captured_anew_on_card(dev):
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][1])
     assert out[True][2].step_traces == 2 and out[True][2]._programs.captures == 2
+
+
+# ---------------------------------------------------------------------------
+# The serving front-end on the card (serving/server.py): the NaN guardrail
+# under CUDA graphs, interleaved lanes, the threaded server
+# ---------------------------------------------------------------------------
+
+def _server_requests(model, n=5, temperature=None, seed=4):
+    from repro_torch.serving.request import GenerationRequest
+
+    rng = np.random.default_rng(seed)
+    pat = rng.integers(0, model.cfg.vocab_size, 6)
+    spec = ((5, 10, 11), (4, 12, 22), (3, 9, 33), (6, 8, 44), (4, 11, 55), (5, 7, 66))
+    return [GenerationRequest(np.tile(pat, k), max_new_tokens=m, seed=s,
+                              temperature=temperature) for k, m, s in spec[:n]]
+
+
+def _serve(model, raw, reqs, *, faults=None, verifier="w8a8", layout="paged", **server):
+    """A virtual-clock ServingLoop drained over ``reqs`` on the card;
+    returns (loop, handles, engine)."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.server import ServerConfig, ServingLoop
+
+    eng = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier=verifier,
+                                       kv_layout=layout, kv_block_size=16))
+    clock = [0.0]
+    loop = ServingLoop(eng, raw, ServerConfig(**{"batch_slots": 2, "max_prompt_len": 40,
+                                                 "max_new_tokens": 16, **server}),
+                       clock=lambda: clock[0], faults=faults)
+    handles = [loop.submit(r) for r in reqs]
+    polls = 0
+    while loop.busy:
+        before = loop.total_steps
+        loop.poll()
+        clock[0] += (loop.total_steps - before) * 0.25
+        polls += 1
+        assert polls < 500
+    torch.cuda.synchronize()
+    loop.metrics.check_conservation()
+    for lane in loop._lanes.values():
+        lane.sched.check_conservation()
+        if lane.ctx is not None:
+            assert lane.ctx.pool.unique_allocated == 0
+    return loop, handles, eng
+
+
+@pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_server_fault_free_has_no_robustness_events_on_card(dev, verifier, layout):
+    """A fault-free run through the server on the card: every robustness
+    counter is 0 (a kernel emitting NaN would hide behind the bf16
+    rescue), the step is captured once and replayed, and the tokens are
+    ``generate_requests``'."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, _ = _graph_setup(dev)
+    reqs = _server_requests(model)
+    loop, handles, eng = _serve(model, raw, reqs, verifier=verifier, layout=layout)
+    assert all(v == 0 for v in loop.metrics.robustness.values()), loop.metrics.robustness
+    assert eng.step_traces == 1 and eng._programs.captures == 1
+    want = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier=verifier,
+                                        kv_layout=layout, kv_block_size=16)
+                      ).generate_requests(raw, reqs, batch_slots=2)
+    for h, w in zip(handles, want):
+        np.testing.assert_array_equal(h.result(0.0).tokens, w.tokens)
+        np.testing.assert_array_equal(h.collected(), w.tokens)
+
+
+def test_server_transient_nan_retry_replays_on_card(dev):
+    """A transient ``nan_verify`` after the capture: the poisoned view runs
+    eagerly (its own program), the guard restores the registers in place
+    and the retry replays the lane's graph — bit-equal to the untripped
+    run, every state tensor where it was."""
+    from repro_torch.serving.faults import FaultPlan
+
+    model, raw, _ = _graph_setup(dev)
+    reqs = _server_requests(model)
+    _, clean, _ = _serve(model, raw, reqs)
+    loop, handles, eng = _serve(model, raw, reqs, faults=FaultPlan.parse("nan_verify@3+6"))
+    rb = loop.metrics.robustness
+    assert rb["verify_nan_trips"] == 2 and rb["retry_rescued_rows"] >= 2
+    assert rb["bf16_rescued_rows"] == 0 and not loop.affected
+    for h, c in zip(handles, clean):
+        np.testing.assert_array_equal(h.result(0.0).tokens, c.result(0.0).tokens)
+    # the lane's program (captured at step 1) plus one per poisoned view
+    assert eng.step_traces == 3 and eng._programs.captures == 1
+
+
+def test_server_sticky_quant_corrupt_rescue_then_repair_on_card(dev):
+    """A sticky ``quant_corrupt`` at the second step: the retry trips again,
+    the bf16 twin rescues every row (its program built, then captured),
+    three rescued steps re-prepare the lane, and the repaired params'
+    program is captured and replayed: the fast path again.  The first two
+    requests' 16-token budgets outlast the poisoned steps, so no admission
+    prefills with the poisoned params.  Untouched requests keep their
+    tokens."""
+    from repro_torch.serving.faults import FaultPlan
+
+    model, raw, _ = _graph_setup(dev)
+    reqs = _server_requests(model, n=6)
+    for r in reqs[:2]:
+        r.max_new_tokens = 16
+    _, clean, _ = _serve(model, raw, reqs)
+    loop, handles, eng = _serve(model, raw, reqs, faults=FaultPlan.parse("quant_corrupt@1"))
+    rb = loop.metrics.robustness
+    assert rb["verify_nan_trips"] == 3 and rb["bf16_rescued_rows"] >= 3
+    assert rb["reprepares"] == 1 and rb["unrescued_rows"] == 0
+    assert all(h.status == "done" for h in handles)
+    for h, c in zip(handles, clean):
+        if h.rid not in loop.affected:
+            np.testing.assert_array_equal(h.result(0.0).tokens, c.result(0.0).tokens)
+    lane = next(iter(loop._lanes.values()))
+    progs = [p for p in eng._programs._programs.values() if p.params() is lane.params]
+    assert len(progs) == 1 and progs[0].graph is not None   # the repaired params replay
+    # lane (poisoned before its second step), poisoned view, bf16 twin and
+    # repaired params: the last three captured at their second step
+    assert eng.step_traces == 4 and eng._programs.captures == 3
+
+
+def test_server_interleaved_temperature_lanes_equal_each_alone_on_card(dev):
+    """Two lanes (T = 0 and T = 0.8) interleave replays of graphs that share
+    one memory pool: each lane's tokens equal the same requests served
+    alone (sound while no graph output lives in the pool)."""
+    model, raw, _ = _graph_setup(dev)
+    cold = _server_requests(model, n=3, temperature=0.0)
+    hot = _server_requests(model, n=3, temperature=0.8, seed=9)
+    mixed = [r for pair in zip(cold, hot) for r in pair]
+    loop, handles, eng = _serve(model, raw, mixed, layout="contiguous")
+    assert len(loop._lanes) == 2 and eng._programs.captures == 2
+    for first, group in enumerate((cold, hot)):       # mixed[first::2] is group
+        _, alone, _ = _serve(model, raw, group, layout="contiguous")
+        for h, a in zip(handles[first::2], alone):
+            np.testing.assert_array_equal(h.result(0.0).tokens, a.result(0.0).tokens)
+
+
+def test_streaming_server_captures_on_its_thread_on_card(dev):
+    """The serving thread builds and captures the step while this thread
+    submits and consumes token by token; the tokens are the virtual-clock
+    loop's, and the capture ran on the serving thread."""
+    import threading
+
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.server import ServerConfig, StreamingServer
+
+    model, raw, _ = _graph_setup(dev)
+    reqs = _server_requests(model, n=6)
+    _, want, _ = _serve(model, raw, reqs)
+    eng = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier="w8a8",
+                                       kv_layout="paged", kv_block_size=16))
+    threads = []
+    capture = eng._programs._capture
+
+    def spy(*a, **k):
+        threads.append(threading.current_thread().name)
+        return capture(*a, **k)
+
+    eng._programs._capture = spy
+    with StreamingServer(eng, raw, ServerConfig(batch_slots=2, max_prompt_len=40,
+                                                max_new_tokens=16)) as srv:
+        handles = [srv.submit(r) for r in reqs]
+        for h, w in zip(handles, want):
+            streamed = np.concatenate(list(h.tokens()))
+            np.testing.assert_array_equal(streamed, w.result(0.0).tokens)
+    srv.metrics.check_conservation()
+    assert all(v == 0 for v in srv.metrics.robustness.values())
+    assert threads and all(t == "repro-torch-serving-loop" for t in threads)

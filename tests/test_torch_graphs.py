@@ -202,7 +202,7 @@ def test_replay_adds_the_launches_its_capture_counted(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", new_graph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
-    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: _NoCapture())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None, **kw: _NoCapture())
     monkeypatch.setattr(graphs.StepPrograms, "_on_card", staticmethod(lambda state: True))
 
     def step(params, state):             # counts as a step of two kernels would
