@@ -92,7 +92,36 @@
    step, nan_verify, quant_corrupt, alloc and submit seams: conservation,
    every block back, untouched requests == (s1)'s tokens, NaN trips and
    bf16-rescued rows > 0.  Also the guardrail snapshot's cost per step.
-8. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+8. MoE phase (``models/moe.py``): ``moonshot-v1-16b-a3b`` at full width,
+   40 of its 48 layers (its raw bf16 and prepared weights fill ~70 GB),
+   seeded random bf16 weights from the serve CLI's seed, s = 1, the card
+   near empty at its start.  Kernels, each against its plain version at
+   the rows the MoE runs give it (vanilla, chain, paged chain, tree, a
+   paged admission's prefill, the batch prefill; the paged tree too for the
+   batched kernel): ``int8_matmul_batched`` (the W8A8 expert product,
+   every expert in one launch) bit-equal at each C (1 to 480) for up/gate
+   and down, timed beside a bf16 ``torch.bmm``; ``smooth_quant`` on o's
+   rows and the dispatched (E·C, 2048) and (E·C, 1408) rows,
+   ``norm_smooth_quant`` at d 2048 (3 readers and 1), ``int8_matmul`` at
+   q/k/v/o and ``lm_head``, ``int4_matmul`` at the W4A8 run's, all exact;
+   ``flash_decode`` chain and tree and ``flash_decode_paged`` chain (block
+   128) at G = 1.  At the config's capacity factor 1.25, through graphs,
+   gsm8k-preset 1024-token prompts, 64 new tokens, greedy: ``generate`` at
+   batch 4 with spec W8A8 (ngram γ 5, KV bf16), vanilla W8A8, tree
+   (3,2,1,1) W8A8 and spec W4A8 (the experts stay int8), and paged W8A8
+   ``generate_requests`` (12 requests through 8 slots, block 128): each
+   gated on finite logits and on launching ``int8_matmul_batched`` and its
+   attention kernel, with a step (tick) window each, the dropped share of
+   expert slots and, for spec and tree, the greedy tokens shared with
+   vanilla (drops make a row depend on its batch, so they need not be
+   equal); the W8A8 chain step's launches must be
+   ``moe_launches_per_chain_step``'s.  Each run again eagerly, with forward
+   hooks that count the dropped slots (the graphs carry no counting):
+   replay tokens == eager tokens, bit for bit.  The lossless gate on a dropless copy of the
+   config (the same weights, capacity factor = 64 experts), W8A8, 256-token
+   prompts: spec, tree and pruned == vanilla (batch 2), paged == contiguous
+   (4 requests through 2 slots).
+9. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -100,6 +129,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -188,6 +218,9 @@ SERVER_RATE = 8.0                  # (s2): Poisson arrivals per second
 CHAOS = "step@40,nan_verify@7,quant_corrupt@20,alloc@12,submit@3"   # (s3), seed 0
 SERVER_KERNELS = ("norm_smooth_quant", "smooth_quant", "int8_matmul", "flash_decode_paged",
                   "flash_decode_paged_tree")
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 40                    # of 48: the weights' reckoning in PERF.md §4
+MOE_GATE_PROMPT, MOE_GATE_NEW = 256, 32   # the dropless gate (batch 2)
 
 
 def log(msg: str) -> None:
@@ -234,27 +267,13 @@ def timed(torch, kernel, plain, library, iters: int, flush) -> dict:
     return out
 
 
-def kernel_phase(torch, dev, flush, cfg):
-    from repro_torch.core.tree import TreeTemplate
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
-    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
-    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
-    from repro_torch.kernels.smooth_quant import (norm_smooth_quant, norm_smooth_quant_ref,
-                                                  smooth_quant, smooth_quant_ref)
-    from repro_torch.models.attention import _quant_kv
+def smooth_quant_rows(torch, dev, g, flush, shapes, **tag) -> list:
+    """``smooth_quant`` at each (M, K) of ``shapes``: bit-equal to its plain
+    version (codes and scales), timed beside it."""
+    from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
 
-    F = torch.nn.functional
-    g = torch.Generator(device=dev).manual_seed(0)
-    D, FF, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    M = B * (GAMMA + 1)
-    MT = B * TreeTemplate(TREE).num_nodes
-    S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128      # transformer.init_cache
-    results = {}
-
-    # -- smooth_quant: decode (M, K) for K = d_model and d_ff; prefill rows --
     rows = []
-    for m, k in ((M, D), (M, FF), (B * (PROMPT - 1), D)):
+    for m, k in shapes:
         x = (torch.randn(m, k, generator=g, device=dev) * 3).to(torch.bfloat16)
         s = torch.rand(k, generator=g, device=dev) * 7.875 + 0.125
         q, dx = smooth_quant(x, s)
@@ -264,45 +283,53 @@ def kernel_phase(torch, dev, flush, cfg):
             raise AssertionError(f"smooth_quant ({m},{k}) is not bit-equal to its plain version")
         nbytes, ops = m * k * 2 + k * 4 + m * k + m * 4, 3 * m * k
         bms, by = bound_ms(nbytes, ops, "f32")
-        rows.append(dict(shape=[m, k], max_abs_err=0.0, bound_ms=bms, bound_by=by,
+        rows.append(dict(shape=[m, k], **tag, max_abs_err=0.0, bound_ms=bms, bound_by=by,
                          **timed(torch, lambda: smooth_quant(x, s),
                                  lambda: smooth_quant_ref(x, s), None, 50, flush)))
-    results["smooth_quant"] = rows
+    return rows
 
-    # -- norm_smooth_quant: attn_norm with its three readers (q/k/v) at the
-    #    vanilla (4), chain (24), paged chain (48), tree (88) and paged tree
-    #    (176) windows' rows; bit-equal to the plain version (the kernel's sum
-    #    order in elementwise f32 adds); no PyTorch call computes it --
+
+def norm_smooth_quant_rows(torch, dev, g, flush, ms, d: int, readers: int, eps: float,
+                           **tag) -> list:
+    """``norm_smooth_quant`` (an RMSNorm of width ``d`` fused with the
+    quantization of each of its ``readers`` linears) at each row count of
+    ``ms``: bit-equal to the plain version (the kernel's sum order in
+    elementwise f32 adds); no PyTorch call computes it."""
+    from repro_torch.kernels.smooth_quant import norm_smooth_quant, norm_smooth_quant_ref
+
     rows = []
-    for m in (B, M, 2 * M, MT, 2 * MT):
-        x = (torch.randn(m, D, generator=g, device=dev) * 3).to(torch.bfloat16)
-        scale = torch.rand(D, generator=g, device=dev) + 0.5
-        sm = [torch.rand(D, generator=g, device=dev) * 7.875 + 0.125 for _ in range(3)]
-        got = norm_smooth_quant(x, scale, cfg.norm_eps, sm)
-        want = norm_smooth_quant_ref(x, scale, cfg.norm_eps, sm)
+    for m in ms:
+        x = (torch.randn(m, d, generator=g, device=dev) * 3).to(torch.bfloat16)
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        sm = [torch.rand(d, generator=g, device=dev) * 7.875 + 0.125 for _ in range(readers)]
+        got = norm_smooth_quant(x, scale, eps, sm)
+        want = norm_smooth_quant_ref(x, scale, eps, sm)
         torch.cuda.synchronize()
         for (q, dx), (rq, rdx) in zip(got, want):
             if not (torch.equal(q, rq) and torch.equal(dx.view(torch.int32),
                                                        rdx.view(torch.int32))):
-                raise AssertionError(f"norm_smooth_quant ({m},{D}) x3 is not bit-equal to "
-                                     "its plain version")
-        # read x, scale and the smooth vectors once, write three codes and
-        # scales; ~4 f32 operations per element for the norm, 4 per reader
-        nbytes, ops = m * D * 2 + 4 * D * 4 + 3 * (m * D + 4 * m), m * D * (4 + 4 * 3)
-        bms, by = bound_ms(nbytes, ops, "f32")
-        rows.append(dict(shape=[m, D, 3], max_abs_err=0.0, bound_ms=bms, bound_by=by,
-                         **timed(torch, lambda: norm_smooth_quant(x, scale, cfg.norm_eps, sm),
-                                 lambda: norm_smooth_quant_ref(x, scale, cfg.norm_eps, sm),
+                raise AssertionError(f"norm_smooth_quant ({m},{d}) x{readers} is not "
+                                     "bit-equal to its plain version")
+        # read x, scale and the smooth vectors once, write each reader's codes
+        # and scales; ~4 f32 operations per element for the norm, 4 per reader
+        nbytes = m * d * 2 + (1 + readers) * d * 4 + readers * (m * d + 4 * m)
+        bms, by = bound_ms(nbytes, m * d * (4 + 4 * readers), "f32")
+        rows.append(dict(shape=[m, d, readers], **tag, max_abs_err=0.0, bound_ms=bms,
+                         bound_by=by,
+                         **timed(torch, lambda: norm_smooth_quant(x, scale, eps, sm),
+                                 lambda: norm_smooth_quant_ref(x, scale, eps, sm),
                                  None, 50, flush)))
-    results["norm_smooth_quant"] = rows
+    return rows
 
-    # -- int8_matmul: q/o, k/v, gate/up, down, lm_head at the chain window; a
-    #    prefill GEMM; gate/up at the vanilla (M 4), paged chain (8 slots, 48),
-    #    tree (88) and paged tree (176) windows; the tree's lm_head --
+
+def int8_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
+    """``int8_matmul`` at each (M, K, N) of ``shapes``: exact against its
+    plain version, timed beside it and ``torch._int_mm`` + the same
+    epilogue (where M > 16, the rows ``_int_mm`` takes)."""
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
     rows = []
-    for m, k, n in ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V),
-                    (B * (PROMPT - 1), D, FF), (B, D, FF), (2 * M, D, FF), (MT, D, FF),
-                    (2 * MT, D, FF), (MT, D, V)):
+    for m, k, n in shapes:
         xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         dx = torch.rand(m, generator=g, device=dev) * 1e-2
@@ -323,13 +350,80 @@ def kernel_phase(torch, dev, flush, cfg):
             raise AssertionError("torch._int_mm yardstick disagrees with the plain version")
         nbytes, ops = m * k + n * k + 4 * (m + n) + 2 * m * n, 2 * m * n * k
         bms, by = bound_ms(nbytes, ops, "int8")
-        iters = 20 if n == V or m > 256 else 50
-        rows.append(dict(shape=[m, k, n], max_abs_err=0.0, bound_ms=bms, bound_by=by,
+        iters = 20 if n > 65536 or m > 256 else 50       # lm_head, prefill: fewer
+        rows.append(dict(shape=[m, k, n], **tag, max_abs_err=0.0, bound_ms=bms, bound_by=by,
                          **timed(torch, lambda: int8_matmul(xq, w, dx, dw),
                                  lambda: int8_matmul_ref(xq, w, dx, dw), library, iters,
                                  flush)))
         del xq, w, y, ry
-    results["int8_matmul"] = rows
+    return rows
+
+
+def int4_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
+    """``int4_matmul`` at each (M, K, N) of ``shapes``: exact against its
+    plain version, timed beside it and beside ``int8_matmul`` at the same
+    shape (its yardstick: no PyTorch call computes a packed-int4 GEMM)."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref
+    from repro_torch.kernels.int8_matmul import int8_matmul
+
+    rows = []
+    for m, k, n in shapes:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w4 = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        dx = torch.rand(m, generator=g, device=dev) * 1e-2
+        dw = torch.rand(n, generator=g, device=dev) * 1e-3
+        y = int4_matmul(xq, w4, dx, dw)
+        ry = int4_matmul_ref(xq, w4, dx, dw)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ry):
+            raise AssertionError(f"int4_matmul ({m},{k},{n}) differs from its plain version")
+        nbytes, ops = m * k + n * k // 2 + 4 * (m + n) + 2 * m * n, 2 * m * n * k
+        bms, by = bound_ms(nbytes, ops, "int8")
+        iters = 20 if n > 65536 or m > 256 else 50       # lm_head, prefill: fewer
+        # no PyTorch call computes a packed-int4 GEMM: library_ms stays null
+        row = dict(shape=[m, k, n], **tag, max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                   **timed(torch, lambda: int4_matmul(xq, w4, dx, dw),
+                           lambda: int4_matmul_ref(xq, w4, dx, dw), None, iters, flush))
+        row["yardstick_int8_matmul_ms"] = time_ms(
+            torch, lambda: int8_matmul(xq, w8, dx, dw), iters, flush)
+        rows.append(row)
+        del xq, w4, w8, y, ry
+    return rows
+
+
+def kernel_phase(torch, dev, flush, cfg):
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
+    from repro_torch.models.attention import _quant_kv
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(0)
+    D, FF, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    M = B * (GAMMA + 1)
+    MT = B * TreeTemplate(TREE).num_nodes
+    S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128      # transformer.init_cache
+    results = {}
+
+    # -- smooth_quant: decode (M, K) for K = d_model and d_ff; prefill rows --
+    results["smooth_quant"] = smooth_quant_rows(torch, dev, g, flush,
+                                                ((M, D), (M, FF), (B * (PROMPT - 1), D)))
+
+    # -- norm_smooth_quant: attn_norm with its three readers (q/k/v) at the
+    #    vanilla (4), chain (24), paged chain (48), tree (88) and paged tree
+    #    (176) windows' rows --
+    results["norm_smooth_quant"] = norm_smooth_quant_rows(
+        torch, dev, g, flush, (B, M, 2 * M, MT, 2 * MT), D, 3, cfg.norm_eps)
+
+    # -- int8_matmul: q/o, k/v, gate/up, down, lm_head at the chain window; a
+    #    prefill GEMM; gate/up at the vanilla (M 4), paged chain (8 slots, 48),
+    #    tree (88) and paged tree (176) windows; the tree's lm_head --
+    results["int8_matmul"] = int8_matmul_rows(
+        torch, dev, g, flush,
+        ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V),
+         (B * (PROMPT - 1), D, FF), (B, D, FF), (2 * M, D, FF), (MT, D, FF),
+         (2 * MT, D, FF), (MT, D, V)))
 
     # -- flash_decode: the verify window (T = γ+1) and the vanilla one (T = 1) --
     for name, int8 in (("flash_decode", False), ("flash_decode_int8", True)):
@@ -382,31 +476,10 @@ def kernel_phase(torch, dev, flush, cfg):
 
     # -- int4_matmul: the W4A8 linears at the chain (M = 24) and tree (M = 88)
     #    verify windows, and a prefill GEMM; int8_matmul beside it as yardstick --
-    rows = []
-    for m, k, n in ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V),
-                    (MT, D, FF), (MT, D, V), (B * (PROMPT - 1), D, FF)):
-        xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        w4 = torch.randint(-128, 128, (n, k // 2), generator=g, device=dev, dtype=torch.int8)
-        w8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        dx = torch.rand(m, generator=g, device=dev) * 1e-2
-        dw = torch.rand(n, generator=g, device=dev) * 1e-3
-        y = int4_matmul(xq, w4, dx, dw)
-        ry = int4_matmul_ref(xq, w4, dx, dw)
-        torch.cuda.synchronize()
-        if not torch.equal(y, ry):
-            raise AssertionError(f"int4_matmul ({m},{k},{n}) differs from its plain version")
-        nbytes, ops = m * k + n * k // 2 + 4 * (m + n) + 2 * m * n, 2 * m * n * k
-        bms, by = bound_ms(nbytes, ops, "int8")
-        iters = 20 if n == V or m > MT else 50
-        # no PyTorch call computes a packed-int4 GEMM: library_ms stays null
-        row = dict(shape=[m, k, n], max_abs_err=0.0, bound_ms=bms, bound_by=by,
-                   **timed(torch, lambda: int4_matmul(xq, w4, dx, dw),
-                           lambda: int4_matmul_ref(xq, w4, dx, dw), None, iters, flush))
-        row["yardstick_int8_matmul_ms"] = time_ms(
-            torch, lambda: int8_matmul(xq, w8, dx, dw), iters, flush)
-        rows.append(row)
-        del xq, w4, w8, y, ry
-    results["int4_matmul"] = rows
+    results["int4_matmul"] = int4_matmul_rows(
+        torch, dev, g, flush,
+        ((M, D, D), (M, D, HKV * DH), (M, D, FF), (M, FF, D), (M, D, V), (MT, D, FF),
+         (MT, D, V), (B * (PROMPT - 1), D, FF)))
 
     # -- tree flash_decode: the (3,2,1,1) window of the tree runs and the
     #    widest templates, bf16 and int8 KV; each at the cache length the
@@ -824,73 +897,81 @@ def to_pages(torch, dev, bs: int, seed: int, tensors: dict):
     return bt, pools
 
 
-def paged_kernel_phase(torch, dev, flush, cfg):
-    """The four flash_decode_paged variants at the 7B chain (T = γ+1) and
-    (3,2,1,1) tree windows, for each block size of PAGED_BLOCKS: bit-equal
-    to the contiguous kernel on the same logical content, within FLASH_TOL
-    of the plain version; timed beside both."""
+def paged_rows(torch, dev, g, flush, cfg, b: int, tree: bool, int8: bool, blocks,
+               **tag) -> list:
+    """One ``flash_decode_paged`` variant at ``cfg``'s heads, ``b`` rows of
+    the chain (T = γ+1) or (3,2,1,1) tree window, for each block size of
+    ``blocks``: bit-equal to the contiguous kernel on the same logical
+    content, within FLASH_TOL of the plain version; timed beside both."""
     from repro_torch.core.tree import TreeTemplate
     from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
                                                   flash_decode_paged_ref, visible)
     from repro_torch.models.attention import _quant_kv
 
-    g = torch.Generator(device=dev).manual_seed(13)
     HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    name = "flash_decode_paged" + "_tree" * tree + "_int8" * int8
+    tables = TreeTemplate(TREE if tree else (1,) * GAMMA).on(dev)
+    t = tables.depths.shape[0]
+    s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128         # transformer.init_cache
+    win_start = torch.full((b,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+    qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+    masks = dict(tree_mask=tables.mask, win_start=win_start) if tree else {}
+    bits = dict(tree_bits=tables.mask_bits) if tree else {}
+    vis = visible(qpos, s_len, masks.get("tree_mask"), masks.get("win_start"))
+    # each batch row reads its keys up to the window's last live slot once
+    keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
+    q = torch.randn(b, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+    kv = {n: torch.randn(b, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+          for n in ("k", "v")}
+    if int8:
+        kv["k"], kv["k_scale"] = _quant_kv(kv["k"])
+        kv["v"], kv["v_scale"] = _quant_kv(kv["v"])
+    scales = {n: kv[n] for n in ("k_scale", "v_scale") if n in kv}
+    contig = flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks, **bits)
+    rows = []
+    for bs in blocks:
+        bt, pools = to_pages(torch, dev, bs, bs + 100 * tree + 10 * int8, kv)
+        pscales = {n: pools[n] for n in scales}
+        run = lambda: flash_decode_paged(q, pools["k"], pools["v"], bt, qpos,  # noqa: E731
+                                         **pscales, **masks, **bits)
+        plain = lambda: flash_decode_paged_ref(  # noqa: E731
+            q, pools["k"], pools["v"], bt, qpos, pscales.get("k_scale"),
+            pscales.get("v_scale"), masks.get("tree_mask"), masks.get("win_start"))
+        o, ro = run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(o, contig):
+            raise AssertionError(f"{name} bs={bs}: not bit-equal to the contiguous "
+                                 "kernel on the same logical content")
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} bs={bs}: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda m: f"{name} bs={bs}: {m}")
+        err = (o.float() - ro.float()).abs().max().item()
+        kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8 else 0)
+        nbytes = (2 * 2 * b * t * HQ * DH + kv_bytes + 4 * b * t + 4 * bt.numel()
+                  + (4 * tables.mask_bits.numel() if tree else 0))
+        bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
+        row = dict(shape=[b, t, HQ, HKV, s_len, DH], **tag, block_size=bs,
+                   table=list(bt.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+                   **timed(torch, run, plain, None, 50, flush))
+        row["yardstick_contiguous_ms"] = time_ms(
+            torch, lambda: flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks,
+                                        **bits), 50, flush)
+        rows.append(row)
+        del pools
+    return rows
+
+
+def paged_kernel_phase(torch, dev, flush, cfg):
+    """The four flash_decode_paged variants at the 7B chain (T = γ+1) and
+    (3,2,1,1) tree windows, for each block size of PAGED_BLOCKS
+    (:func:`paged_rows`)."""
+    g = torch.Generator(device=dev).manual_seed(13)
     results = {}
     for tree in (False, True):
-        tables = TreeTemplate(TREE if tree else (1,) * GAMMA).on(dev)
-        t = tables.depths.shape[0]
-        s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128         # transformer.init_cache
-        win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
-        qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
-        masks = dict(tree_mask=tables.mask, win_start=win_start) if tree else {}
-        bits = dict(tree_bits=tables.mask_bits) if tree else {}
-        vis = visible(qpos, s_len, masks.get("tree_mask"), masks.get("win_start"))
-        # each batch row reads its keys up to the window's last live slot once
-        keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
         for int8 in (False, True):
             name = "flash_decode_paged" + "_tree" * tree + "_int8" * int8
-            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
-            kv = {n: torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
-                  for n in ("k", "v")}
-            if int8:
-                kv["k"], kv["k_scale"] = _quant_kv(kv["k"])
-                kv["v"], kv["v_scale"] = _quant_kv(kv["v"])
-            scales = {n: kv[n] for n in ("k_scale", "v_scale") if n in kv}
-            contig = flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks, **bits)
-            rows = []
-            for bs in PAGED_BLOCKS:
-                bt, pools = to_pages(torch, dev, bs, bs + 100 * tree + 10 * int8, kv)
-                pscales = {n: pools[n] for n in scales}
-                run = lambda: flash_decode_paged(q, pools["k"], pools["v"], bt, qpos,  # noqa: E731
-                                                 **pscales, **masks, **bits)
-                plain = lambda: flash_decode_paged_ref(  # noqa: E731
-                    q, pools["k"], pools["v"], bt, qpos, pscales.get("k_scale"),
-                    pscales.get("v_scale"), masks.get("tree_mask"), masks.get("win_start"))
-                o, ro = run(), plain()
-                torch.cuda.synchronize()
-                if not torch.equal(o, contig):
-                    raise AssertionError(f"{name} bs={bs}: not bit-equal to the contiguous "
-                                         "kernel on the same logical content")
-                if not torch.isfinite(o).all():
-                    raise AssertionError(f"{name} bs={bs}: non-finite output")
-                torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
-                                           msg=lambda m: f"{name} bs={bs}: {m}")
-                err = (o.float() - ro.float()).abs().max().item()
-                kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8
-                                                                       else 0)
-                nbytes = (2 * 2 * B * t * HQ * DH + kv_bytes + 4 * B * t + 4 * bt.numel()
-                          + (4 * tables.mask_bits.numel() if tree else 0))
-                bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
-                row = dict(shape=[B, t, HQ, HKV, s_len, DH], block_size=bs,
-                           table=list(bt.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
-                           **timed(torch, run, plain, None, 50, flush))
-                row["yardstick_contiguous_ms"] = time_ms(
-                    torch, lambda: flash_decode(q, kv["k"], kv["v"], qpos, **scales, **masks,
-                                                **bits), 50, flush)
-                rows.append(row)
-                del pools
-            results[name] = rows
+            results[name] = paged_rows(torch, dev, g, flush, cfg, B, tree, int8, PAGED_BLOCKS)
     log("  flash_decode_paged == contiguous flash_decode, bit for bit, for every variant "
         f"and block size {PAGED_BLOCKS}")
     for name, rows in results.items():
@@ -1439,6 +1520,443 @@ def server_phase(torch, dev):
     return out
 
 
+def moe_rows(cfg) -> dict:
+    """The rows ``n`` each regime of the MoE phase gives its kernels, and
+    the capacity ``C`` (rows per expert) the dispatch gives them at the
+    config's factor: vanilla (B), chain (B(γ+1)), paged chain (8 slots of
+    γ+1), (3,2,1,1) tree, paged tree (8 slots of it: no MoE run takes it,
+    the batched kernel is held there too), a paged admission's single-row
+    prefill, and the batch prefill."""
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving.engine import DEFAULT_BATCH_SLOTS as SLOTS
+
+    nodes = TreeTemplate(TREE).num_nodes
+    rows = dict(vanilla=B, chain=B * (GAMMA + 1), paged=SLOTS * (GAMMA + 1), tree=B * nodes,
+                paged_tree=SLOTS * nodes, admission=PROMPT - 1, prefill=B * (PROMPT - 1))
+    return {k: (n, capacity(n, cfg.num_experts, cfg.experts_per_token,
+                            cfg.moe_capacity_factor)) for k, n in rows.items()}
+
+
+def moe_kernel_phase(torch, dev, flush, cfg):
+    """Every kernel of the MoE phase's path at moonshot's shapes, held
+    against its plain version as :func:`kernel_phase` holds them at 7B:
+    ``int8_matmul_batched`` (up/gate and down at each regime's C,
+    :func:`moe_rows`) bit-equal, timed beside a bf16 ``torch.bmm`` at the
+    same shapes (the yardstick: no PyTorch call computes a batched int8
+    product with int32 sums); ``smooth_quant`` bit-equal on o's rows and on
+    the experts' dispatched (E·C, d_model) and (E·C, moe_d_ff) rows;
+    ``norm_smooth_quant`` bit-equal at d_model (attn_norm with q/k/v, the
+    final norm with ``lm_head``); ``int8_matmul`` exact at q/k/v/o and
+    ``lm_head``; ``int4_matmul`` exact at the W4A8 run's linears;
+    ``flash_decode`` chain and (3,2,1,1) tree, contiguous, and
+    ``flash_decode_paged`` chain through a block table of 128-key blocks,
+    at G = 1 (16 query heads over 16 KV heads) within one bf16 rounding
+    step of the plain version."""
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
+    from repro_torch.kernels.int8_matmul import int8_matmul_batched, int8_matmul_batched_ref
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(19)
+    E, D, FE, V = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, cfg.vocab_size
+    arch = dict(arch=cfg.name)
+    regimes = moe_rows(cfg)
+    log(f"  MoE rows n and rows per expert C by regime: {regimes}")
+    rows = []
+    for regime, (_, c) in regimes.items():
+        for k, n in ((D, FE), (FE, D)):
+            xq = torch.randint(-127, 128, (E, c, k), generator=g, device=dev, dtype=torch.int8)
+            w = torch.randint(-127, 128, (E, n, k), generator=g, device=dev, dtype=torch.int8)
+            dx = torch.rand(E, c, generator=g, device=dev) * 1e-2
+            dw = torch.rand(E, n, generator=g, device=dev) * 1e-3
+            y = int8_matmul_batched(xq, w, dx, dw)
+            ry = int8_matmul_batched_ref(xq, w, dx, dw)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ry):
+                raise AssertionError(f"int8_matmul_batched ({E},{c},{k},{n}) differs from its "
+                                     "plain version")
+            del y, ry
+            xb = torch.randn(E, c, k, generator=g, device=dev).to(torch.bfloat16)
+            wb = torch.randn(E, k, n, generator=g, device=dev).to(torch.bfloat16)
+            # every expert's weight is read (an expert with no token still
+            # gets its tiles), X and the scales once, Y written once
+            nbytes, ops_ = E * (c * k + n * k + 4 * (c + n) + 2 * c * n), 2 * E * c * n * k
+            bms, by = bound_ms(nbytes, ops_, "int8")
+            iters = 20 if c > 64 else 50
+            row = dict(shape=[E, c, k, n], regime=regime, max_abs_err=0.0, bound_ms=bms,
+                       bound_by=by,
+                       **timed(torch, lambda: int8_matmul_batched(xq, w, dx, dw),
+                               lambda: int8_matmul_batched_ref(xq, w, dx, dw), None,
+                               iters, flush))
+            row["yardstick_bmm_bf16_ms"] = time_ms(torch, lambda: torch.bmm(xb, wb), iters,
+                                                   flush)
+            rows.append(row)
+            log(f"  int8_matmul_batched {regime:10s} {str(row['shape']):24s} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} ({by}) "
+                f"bmm_bf16_ms={row['yardstick_bmm_bf16_ms']:.4f} host_ms={row['host_ms']:.4f}")
+            del xq, w, xb, wb
+    out = {"int8_matmul_batched": rows, "flash_decode": [], "flash_decode_tree": []}
+
+    # -- the other kernels of the path, at the rows each regime gives them:
+    #    attention (o's quantization, q/k/v/o, attn_norm with 3 readers) at
+    #    every n but the paged tree's; the experts' quantization at every
+    #    E·C; lm_head and the final norm (1 reader) at the decode windows;
+    #    the W4A8 run (spec chain) at its chain window and prefill --
+    attn_n = [n for regime, (n, _) in regimes.items() if regime != "paged_tree"]
+    dec_n = [regimes[r][0] for r in ("vanilla", "chain", "paged", "tree")]
+    out["smooth_quant"] = smooth_quant_rows(
+        torch, dev, g, flush,
+        [(n, cfg.num_heads * cfg.head_dim) for n in attn_n]
+        + [(E * c, k) for _, c in regimes.values() for k in (D, FE)], **arch)
+    out["norm_smooth_quant"] = (
+        norm_smooth_quant_rows(torch, dev, g, flush, attn_n, D, 3, cfg.norm_eps, **arch)
+        + norm_smooth_quant_rows(torch, dev, g, flush, dec_n, D, 1, cfg.norm_eps, **arch))
+    out["int8_matmul"] = int8_matmul_rows(
+        torch, dev, g, flush, [(n, D, D) for n in attn_n] + [(n, D, V) for n in dec_n], **arch)
+    out["int4_matmul"] = int4_matmul_rows(
+        torch, dev, g, flush, [(regimes[r][0], D, D) for r in ("chain", "prefill")]
+        + [(regimes["chain"][0], D, V)], **arch)
+    out["flash_decode_paged"] = paged_rows(torch, dev, g, flush, cfg, regimes["paged"][0] // (
+        GAMMA + 1), False, False, (128,), **arch)
+    for name in ("smooth_quant", "norm_smooth_quant", "int8_matmul", "int4_matmul",
+                 "flash_decode_paged"):
+        for r in out[name]:
+            extra = "".join(f" {k}={r[k]:.4f}" for k in ("yardstick_int8_matmul_ms",
+                                                           "yardstick_contiguous_ms") if k in r)
+            log(f"  {name:20s} {str(r['shape']):30s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} host_ms={r['host_ms']:.4f} "
+                f"max_abs_err={r['max_abs_err']}{extra}")
+
+    # -- flash_decode at G = 1: the MoE chain window and the (3,2,1,1) tree --
+    HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128
+    for name, branches in (("flash_decode", None), ("flash_decode_tree", TREE)):
+        if branches is None:
+            t, kw, tkw = GAMMA + 1, {}, {}
+            qpos = (torch.arange(t, device=dev) + PROMPT - 1 + 17).expand(B, t)
+            qpos = qpos.to(torch.int32).contiguous()
+            vis = (torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None])
+        else:
+            tables = TreeTemplate(branches).on(dev)
+            t = tables.depths.shape[0]
+            win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+            qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+            kw = dict(tree_mask=tables.mask, win_start=win_start)
+            tkw = dict(tree_bits=tables.mask_bits)
+            vis = visible(qpos, S, tables.mask, win_start)
+        q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
+        o = flash_decode(q, k, v, qpos, **kw, **tkw)
+        ro = flash_decode_ref(q, k, v, qpos, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} G=1: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda m: f"{name} G=1: {m}")
+        err = (o.float() - ro.float()).abs().max().item()
+        keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(S).sum())
+        nbytes = 2 * 2 * B * t * HQ * DH + 2 * keys * HKV * DH * 2 + 4 * B * t
+        bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
+        mask = vis[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask).transpose(1, 2)
+
+        lib_err = (library().float() - ro.float()).abs().max().item()
+        if lib_err > SDPA_TOL:
+            raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+        row = dict(shape=[B, t, HQ, HKV, S, DH], arch=cfg.name, max_abs_err=err,
+                   bound_ms=bms, bound_by=by,
+                   **timed(torch, lambda: flash_decode(q, k, v, qpos, **kw, **tkw),
+                           lambda: flash_decode_ref(q, k, v, qpos, **kw), library, 50, flush))
+        out[name].append(row)
+        log(f"  {name} G=1 {str(row['shape']):30s} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+            f"sdpa_ms={row['library_ms']:.4f} max_abs_err={err}")
+    return out
+
+
+def moe_launches_per_chain_step(layers: int) -> dict:
+    """The kernel launches of one W8A8 chain step of an MoE decoder, from
+    the code: per layer the attention norm (fused with q/k/v's quantization),
+    q/k/v/o, o's quantization, flash_decode, and the MoE FFN's up/gate/down
+    quantizations and batched GEMMs (its norm feeds the f32 router, so it does
+    not fuse); then the final norm fused with lm_head's quantization, and
+    lm_head."""
+    return {"norm_smooth_quant": layers + 1, "smooth_quant": 4 * layers,
+            "int8_matmul": 4 * layers + 1, "int8_matmul_batched": 3 * layers,
+            "flash_decode": layers}
+
+
+def moe_drop_hooks(params, counter, t_window: int) -> list:
+    """Forward pre-hooks on every MoE layer of ``params`` that route the
+    layer's input again (``moe.route``, the layer's own function on its own
+    rows, so the same ``keep``) and add its dropped and routed (token, slot)
+    counts to ``counter`` (4,) int64 in place: [0:2] for forwards whose
+    window is ``t_window`` tokens (the decode step), [2:4] for the rest
+    (prefills).  For eager runs only: hooks run while a graph is captured,
+    so a captured step would carry them.  Returns the hook handles."""
+    from repro_torch.models import moe
+
+    def count(layer, args):
+        x = args[0]
+        cfg = layer.cfg
+        keep = moe.route(moe.router_logits(x.reshape(-1, x.shape[-1]), layer.router.w),
+                         cfg.experts_per_token, cfg.num_experts, cfg.moe_capacity_factor)["keep"]
+        at = 0 if x.shape[1] == t_window else 2
+        counter[at].add_((~keep).sum())
+        counter[at + 1].add_(keep.numel())
+
+    return [m.register_forward_pre_hook(count) for m in params.modules()
+            if isinstance(m, moe.MoE)]
+
+
+def moe_phase(torch, dev, flush):
+    """``moonshot-v1-16b-a3b`` at full width, MOE_LAYERS of its 48 layers
+    (the most whose raw bf16 and prepared weights fit the card beside the
+    caches: PERF.md §4), seeded random bf16 weights from the serve CLI's
+    seed, s = 1, gsm8k-preset 1024-token prompts, 64 new tokens, greedy,
+    every decode step through CUDA graphs.  Kernels first
+    (:func:`moe_kernel_phase`); then at the config's capacity factor 1.25:
+    ``generate`` at batch 4 — spec W8A8 (ngram γ 5, KV bf16), vanilla W8A8,
+    tree (3,2,1,1) W8A8, spec W4A8 — and ``generate_requests`` paged W8A8
+    (12 requests through 8 slots, block 128); each gated on finite logits
+    and on launching ``int8_matmul_batched`` and its attention kernel, with
+    a step (tick) window each (launches read just after the run, before
+    anything else reaches the card).  Each run again eagerly with
+    :func:`moe_drop_hooks`: replay tokens == eager tokens bit for bit, equal
+    launches, and the dropped share of expert slots (decode steps apart
+    from prefills).  Then the lossless gate on a dropless copy of
+    the config (the same weights, capacity factor = 64 experts): spec, tree
+    and pruned == vanilla, and paged == contiguous, 256-token prompts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import with_config
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"  card at the MoE phase's start: {held / 1e9:.3f} GB allocated (the L2 flush "
+        f"buffer included), {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    if held > 2e9:
+        raise AssertionError(f"the MoE phase needs an empty card: {held / 1e9:.2f} GB held")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS,
+                              kv_cache_dtype="bf16")
+    out = {"config": dict(arch=cfg.name, num_layers=cfg.num_layers, full_depth=get_config(
+        MOE_ARCH).num_layers, capacity_factor=cfg.moe_capacity_factor)}
+    kern = moe_kernel_phase(torch, dev, flush, cfg)
+
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+    torch.cuda.synchronize()
+    raw_gb = sum(t.numel() * t.element_size() for t in raw.buffers()) / 1e9
+    out["raw_gb"], out["init_s"] = raw_gb, time.perf_counter() - t0
+
+    def prepare(verifier):
+        t0 = time.perf_counter()
+        prep = SpecEngine(model, SpecConfig(verifier=verifier)).prepare_params(raw)
+        torch.cuda.synchronize()
+        own = {id(t) for t in raw.buffers()}
+        gb = sum(t.numel() * t.element_size() for t in prep.buffers() if id(t) not in own) / 1e9
+        out[f"prepared_{verifier}_gb"] = gb
+        out[f"prepare_{verifier}_s"] = time.perf_counter() - t0
+        log(f"  prepared {verifier}: {gb:.2f} GB beside the raw {raw_gb:.2f} GB "
+            f"({time.perf_counter() - t0:.1f} s); "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        return prep
+
+    prompts_np = task_prompts(serve.TASK, PAGED_REQUESTS, PROMPT, cfg.vocab_size)
+    prompts = torch.as_tensor(prompts_np[:B], device=dev, dtype=torch.int32)
+    L = cfg.num_layers
+    want = moe_launches_per_chain_step(L)
+    runs, toks = {}, {}
+
+    def eager_drops(name, params, scfg, t_window, run, graph_out, graph_launches):
+        """The run again with ``graphs=False`` and :func:`moe_drop_hooks` on
+        every MoE layer: its tokens and launches must equal the graph run's
+        (replay ≡ eager), so the drops it counts are the graph run's.  The
+        graph run's programs carry no counting ops."""
+        gc.collect()
+        eng = SpecEngine(model, scfg, graphs=False)
+        counter = torch.zeros(4, dtype=torch.int64, device=dev)
+        hooks = moe_drop_hooks(params, counter, t_window)
+        try:
+            ops.reset_launch_counts()
+            got = run(eng)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            for h in hooks:
+                h.remove()
+        if not torch.equal(got, graph_out):
+            raise AssertionError(f"moe {name}: eager tokens differ from replayed tokens")
+        if launches != graph_launches:
+            raise AssertionError(f"moe {name}: launches differ between graphs and eager: "
+                                 f"{launches} != {graph_launches}")
+        d_dec, r_dec, d_other, r_other = counter.tolist()
+        del eng
+        return dict(dropped_share_decode=d_dec / max(r_dec, 1),
+                    dropped_share_prefill=d_other / max(r_other, 1))
+
+    def generate_run(name, params, verifier, drafter, branches, needed):
+        scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
+                          tree_branches=branches)
+        eng = SpecEngine(model, scfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = eng.generate(params, prompts, NEW)
+        torch.cuda.synchronize()
+        info = dict(launches=ops.launch_counts(), tok_s=r.tokens_per_s, L=r.mean_accept_len,
+                    steps=r.steps, new_tokens=r.new_tokens, decode_s=r.wall_s,
+                    prefill_s=r.prefill_s,
+                    mean_step_ms=1e3 * (r.wall_s - r.capture_s) / max(r.steps, 1),
+                    capture_ms=1e3 * r.capture_s, step_traces=eng.step_traces,
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    bad_rows=int(r.bad.sum()))
+        missing = [k for k in needed if info["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"moe {name}: kernels never launched on the path: {missing}")
+        if info["bad_rows"]:
+            raise AssertionError(f"moe {name}: non-finite verifier logits in "
+                                 f"{info['bad_rows']} rows")
+        if r.new_tokens != B * NEW:
+            raise AssertionError(f"moe {name}: {r.new_tokens} new tokens, expected {B * NEW}")
+        info["window"] = step_window(torch, eng, params, prompts)
+        toks[name] = r.tokens[:, PROMPT:PROMPT + NEW].cpu()
+        graph_out = r.tokens
+        del eng, r
+        t_window = (TreeTemplate(branches).num_nodes if branches
+                    else 1 if drafter == "vanilla" else GAMMA + 1)
+        info.update(eager_drops(name, params, scfg, t_window,
+                                lambda e: e.generate(params, prompts, NEW).tokens, graph_out,
+                                info["launches"]))
+        log(f"  moe {name}: {json.dumps(info)}")
+        return info
+
+    # -- W8A8 at the config's capacity factor (1.25): slots may drop --
+    prep = prepare("w8a8")
+    attn = ("int8_matmul_batched", "int8_matmul", "smooth_quant", "norm_smooth_quant")
+    runs["moe_spec_w8a8"] = generate_run("spec_w8a8", prep, "w8a8", "ngram", None,
+                                         attn + ("flash_decode",))
+    per_step = runs["moe_spec_w8a8"]["window"]["launches_per_step"]
+    if per_step != want:
+        raise AssertionError(f"moe W8A8 chain step launches {per_step}, expected {want}")
+    runs["moe_vanilla_w8a8"] = generate_run("vanilla_w8a8", prep, "w8a8", "vanilla", None,
+                                            attn + ("flash_decode",))
+    runs["moe_tree_w8a8"] = generate_run("tree_w8a8", prep, "w8a8", "ngram-tree", TREE,
+                                         attn + ("flash_decode_tree",))
+    log("  moe spec, vanilla and tree W8A8: eager tokens == replayed tokens, bit for bit; "
+        "launches equal")
+    for name in ("spec_w8a8", "tree_w8a8"):
+        share = (toks[name] == toks["vanilla_w8a8"]).float().mean().item()
+        runs[f"moe_{name}"]["vs_vanilla_shared_tokens"] = share
+        log(f"  moe {name} vs vanilla at capacity factor {cfg.moe_capacity_factor}: "
+            f"{share:.4f} of greedy tokens shared (drops make a row depend on its batch)")
+
+    # paged: 12 requests through 8 slots, block 128
+    scfg = SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8", kv_layout="paged",
+                      kv_block_size=128)
+    eng = SpecEngine(model, scfg)
+    reqs = [GenerationRequest(p, NEW, seed=i) for i, p in enumerate(prompts_np)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate_requests(prep, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g0 = eng.group_stats[0]
+    info = dict(launches=ops.launch_counts(), served_tok_s=sum(r.new_tokens for r in res) / wall,
+                wall_s=wall, steps=g0["steps"], L=sum(r.accept_len for r in res) / len(res),
+                capture_ms=1e3 * eng.capture_s, step_traces=eng.step_traces,
+                bad_rows=sum(int(r.bad) for r in res), peak_blocks=g0.get("peak_blocks"))
+    if info["bad_rows"] or any(r.tokens.size != NEW for r in res):
+        raise AssertionError("moe paged W8A8: a request failed or tripped the NaN flag")
+    missing = [k for k in attn + ("flash_decode_paged",) if info["launches"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"moe paged W8A8: kernels never launched on the path: {missing}")
+    info["window"] = tick_window(torch, eng, prep, window_requests(prompts_np))
+    paged_out = torch.as_tensor(np.stack([r.tokens for r in res]))
+    del eng, res
+    # the eager pass's "prefill" share is the admissions' prefills (any
+    # forward whose window is not the decode step's γ+1)
+    info.update(eager_drops("paged_w8a8", prep, scfg, GAMMA + 1, lambda e: torch.as_tensor(
+        np.stack([r.tokens for r in e.generate_requests(prep, reqs)])), paged_out,
+        info["launches"]))
+    runs["moe_paged_w8a8"] = info
+    log(f"  moe paged_w8a8: {json.dumps(info)}")
+
+    # -- the dropless lossless gate: the same weights, capacity factor = E --
+    cfg_d = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+    model_d = Model(cfg_d, device=dev)
+    prep_d = with_config(prep, cfg_d)
+    gp = torch.as_tensor(task_prompts(serve.TASK, 2, MOE_GATE_PROMPT, cfg.vocab_size),
+                         device=dev, dtype=torch.int32)
+    gate = {}
+    for name, kw in (("vanilla", dict(drafter="vanilla")), ("ngram", dict(drafter="ngram")),
+                     ("ngram-tree", dict(drafter="ngram-tree", tree_branches=TREE)),
+                     ("pruned", dict(drafter="pruned", pruned_retention=0.75))):
+        r = SpecEngine(model_d, SpecConfig(gamma=GAMMA, verifier="w8a8", **kw)).generate(
+            prep_d, gp, MOE_GATE_NEW)
+        if bool(r.bad.any()):
+            raise AssertionError(f"moe dropless {name}: non-finite logits")
+        gate[name] = r.tokens[:, :MOE_GATE_PROMPT + MOE_GATE_NEW].cpu()
+    for name in ("ngram", "ngram-tree", "pruned"):
+        if not torch.equal(gate[name], gate["vanilla"]):
+            raise AssertionError(f"moe dropless: greedy {name} != vanilla on the card")
+    gate_reqs = [GenerationRequest(p, MOE_GATE_NEW, seed=i) for i, p in enumerate(
+        task_prompts(serve.TASK, 4, MOE_GATE_PROMPT, cfg.vocab_size))]
+    lay = {}
+    for layout in ("paged", "contiguous"):
+        res = SpecEngine(model_d, SpecConfig(gamma=GAMMA, verifier="w8a8", kv_layout=layout,
+                                             kv_block_size=128)).generate_requests(
+            prep_d, gate_reqs, batch_slots=2)
+        if any(bool(r.bad) for r in res):
+            raise AssertionError(f"moe dropless {layout}: non-finite logits")
+        lay[layout] = np.stack([r.tokens for r in res])
+    if not np.array_equal(lay["paged"], lay["contiguous"]):
+        raise AssertionError("moe dropless: paged tokens != contiguous tokens")
+    log(f"  moe dropless ({MOE_GATE_PROMPT}-token prompts): ngram, ngram-tree, pruned == "
+        "vanilla; paged == contiguous (4 requests, 2 slots)")
+    out["dropless_gate"] = dict(prompt=MOE_GATE_PROMPT, new_tokens=MOE_GATE_NEW, held=True)
+    del prep_d, model_d, prep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- W4A8: the attention linears and lm_head int4, the experts int8 --
+    prep = prepare("w4a8")
+    runs["moe_spec_w4a8"] = generate_run(
+        "spec_w4a8", prep, "w4a8", "ngram", None,
+        ("int8_matmul_batched", "int4_matmul", "smooth_quant", "norm_smooth_quant",
+         "flash_decode"))
+    out["replay_equals_eager"] = sorted(runs)
+    del prep, raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out, kern
+
+
 def main() -> int:
     import torch
 
@@ -1455,11 +1973,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    log(f"device: {name} x{torch.cuda.device_count()}; torch {torch.__version__}, "
+    log(f"device: {device_name} x{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     log(smi)
 
@@ -1509,6 +2027,13 @@ def main() -> int:
     log("server phase")
     server = server_phase(torch, dev)
     runs["server_s1"] = server["s1"]
+    log("MoE phase")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    moe_out, moe_kern = moe_phase(torch, dev, flush)
+    del flush
+    for kname, rows in moe_kern.items():        # the MoE phase's rows after the 7B ones
+        kern.setdefault(kname, []).extend(rows)
+    runs.update(moe_out.pop("runs"))
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -1531,10 +2056,14 @@ def main() -> int:
         **{name: ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode.py:273", run)
            for run, (_, _, name) in PAGED_RUNS.items()},
+        # not a TPU kernel: the reference's expert product is a jnp dot_general
+        "int8_matmul_batched": ("src/repro_torch/csrc/int8_matmul.cu",
+                                "src/repro/models/moe.py:72", "moe_spec_w8a8"),
     }
     # the representative main-path shape of each kernel in the summary line
     pick = {"smooth_quant": 0, "norm_smooth_quant": 1, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
             "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
+            "int8_matmul_batched": 2,                              # up/gate, chain C 3
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
@@ -1546,21 +2075,22 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
             host_ms=row["host_ms"],
-            **{k: row[k] for k in ("yardstick_contiguous_ms", "yardstick_int8_matmul_ms")
+            **{k: row[k] for k in ("yardstick_contiguous_ms", "yardstick_int8_matmul_ms",
+                                   "yardstick_bmm_bf16_ms")
                if k in row},
             launches_by_run={k: v["launches"].get(kname, 0) for k, v in runs.items()
                              if isinstance(v, dict)}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        dict(device=name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        dict(device=device_name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph, server=server),
+             graph=graph, server=server, moe=moe_out),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

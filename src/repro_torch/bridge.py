@@ -7,7 +7,10 @@ converts back.  Both handle the bf16 linear layout ``{"w"[, "b"]}`` and the
 W8A8 layout ``{"w_int8", "w_scale", "smooth"[, "b"]}`` and the W4A8
 layout ``{"w_int4", ...}``; the port stores ``w_int8`` transposed, (dout,
 din) with din contiguous, and ``w_int4`` as (dout, din/2)
-(models/linear.py), and ``to_numpy`` transposes both back.  ``cache_from_numpy`` /
+(models/linear.py), and ``to_numpy`` transposes both back.  An MoE layer
+(``{"moe": {"router", "up", "gate", "down"[, "dense"]}}``) carries batched
+expert tensors: ``w`` (E, din, dout), or ``w_int8`` stored (E, dout, din)
+with ``w_scale`` (E, dout), transposed the same way.  ``cache_from_numpy`` /
 ``cache_to_numpy`` do the same for a contiguous or paged cache pytree.
 
 JAX bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
@@ -24,7 +27,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.common import Norm
 from repro_torch.models.ffn import FFN
-from repro_torch.models.linear import Linear, W4A8Linear, W8A8Linear
+from repro_torch.models.linear import (ExpertLinear, Linear, W4A8Linear, W8A8ExpertLinear,
+                                       W8A8Linear)
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, Embed, Transformer
 
 
@@ -55,6 +60,25 @@ def _linear(p: dict, device):
     return Linear(tensor(p["w"], device), b)
 
 
+def _expert_linear(p: dict, device):
+    if "w_int8" in p:     # (E, din, dout) → (E, dout, din)
+        return W8A8ExpertLinear(tensor(p["w_int8"], device).transpose(1, 2).contiguous(),
+                                tensor(p["w_scale"], device), tensor(p["smooth"], device))
+    return ExpertLinear(tensor(p["w"], device))
+
+
+def _ffn(cfg, p: dict, device) -> FFN:
+    return FFN(cfg, _linear(p["up"], device), _linear(p["down"], device),
+               _linear(p["gate"], device) if "gate" in p else None)
+
+
+def _moe(cfg, p: dict, device) -> MoE:
+    return MoE(cfg, _linear(p["router"], device), _expert_linear(p["up"], device),
+               _expert_linear(p["down"], device),
+               _expert_linear(p["gate"], device) if "gate" in p else None,
+               _ffn(cfg, p["dense"], device) if "dense" in p else None)
+
+
 def _norm(cfg, p: dict, device) -> Norm:
     n = Norm(cfg, np.asarray(p["scale"]).shape[0], device)
     n.scale = tensor(p["scale"], device)
@@ -68,18 +92,23 @@ def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
     dev = resolve_device(device)
     layers = []
     for lp in tree["layers"]:
-        a, f = lp["attn"], lp["ffn"]
+        a = lp["attn"]
         attn = Attention(cfg, *(_linear(a[n], dev) for n in ("q", "k", "v", "o")))
-        ffn = FFN(cfg, _linear(f["up"], dev), _linear(f["down"], dev),
-                  _linear(f["gate"], dev) if "gate" in f else None)
         layers.append(Block(_norm(cfg, lp["attn_norm"], dev), attn,
-                            _norm(cfg, lp["ffn_norm"], dev), ffn))
+                            _norm(cfg, lp["ffn_norm"], dev),
+                            ffn=_ffn(cfg, lp["ffn"], dev) if "ffn" in lp else None,
+                            moe=_moe(cfg, lp["moe"], dev) if "moe" in lp else None))
     lm_head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     return Transformer(cfg, Embed(tensor(tree["embed"]["w"], dev)), layers,
                        _norm(cfg, tree["final_norm"], dev), lm_head)
 
 
 def _linear_np(m) -> dict:
+    if isinstance(m, W8A8ExpertLinear):
+        return {"w_int8": array(m.w_int8.transpose(1, 2)), "w_scale": array(m.w_scale),
+                "smooth": array(m.smooth)}
+    if isinstance(m, ExpertLinear):
+        return {"w": array(m.w)}
     if isinstance(m, (W8A8Linear, W4A8Linear)):
         name = "w_int8" if isinstance(m, W8A8Linear) else "w_int4"
         out = {name: array(getattr(m, name).T), "w_scale": array(m.w_scale),
@@ -88,6 +117,13 @@ def _linear_np(m) -> dict:
         out = {"w": array(m.w)}
     if m.b is not None:
         out["b"] = array(m.b)
+    return out
+
+
+def _ffn_np(f: FFN) -> dict:
+    out = {"up": _linear_np(f.up), "down": _linear_np(f.down)}
+    if f.gate is not None:
+        out["gate"] = _linear_np(f.gate)
     return out
 
 
@@ -103,11 +139,18 @@ def to_numpy(params: Transformer) -> dict:
     layers = []
     for blk in params.layers:
         attn = {n: _linear_np(getattr(blk.attn, n)) for n in ("q", "k", "v", "o")}
-        ffn = {"up": _linear_np(blk.ffn.up), "down": _linear_np(blk.ffn.down)}
-        if blk.ffn.gate is not None:
-            ffn["gate"] = _linear_np(blk.ffn.gate)
-        layers.append({"attn_norm": _norm_np(blk.attn_norm), "attn": attn,
-                       "ffn_norm": _norm_np(blk.ffn_norm), "ffn": ffn})
+        layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": attn,
+                 "ffn_norm": _norm_np(blk.ffn_norm)}
+        if blk.moe is not None:
+            moe = {n: _linear_np(getattr(blk.moe, n)) for n in ("router", "up", "down")}
+            if blk.moe.gate is not None:
+                moe["gate"] = _linear_np(blk.moe.gate)
+            if blk.moe.dense is not None:
+                moe["dense"] = _ffn_np(blk.moe.dense)
+            layer["moe"] = moe
+        else:
+            layer["ffn"] = _ffn_np(blk.ffn)
+        layers.append(layer)
     tree = {"embed": {"w": array(params.embed.w)}, "layers": layers,
             "final_norm": _norm_np(params.final_norm)}
     if params.lm_head is not None:

@@ -7,9 +7,9 @@ torch dtype.
 * :class:`QuantConfig` — W8A8 / W4A8 verification settings (the paper's technique).
 * :class:`SpecConfig`  — speculative-decoding settings (drafting + verify).
 
-The port so far runs the dense decoder over a contiguous or paged KV
-cache; the fields of the other families are kept for parity and rejected
-where they would be read.
+The port so far runs the dense and MoE decoders over a contiguous or
+paged KV cache; the fields of the other families are kept for parity and
+rejected where they would be read.
 """
 from __future__ import annotations
 

@@ -1,12 +1,17 @@
 """W8A8 int8 GEMM with int32 accumulation and the per-token × per-channel
 dequantization epilogue (paper Eq. 8 / 10) — port of
-``repro/kernels/int8_matmul.py``.
+``repro/kernels/int8_matmul.py`` — and its batched form over experts.
 
 The weight is (N, K), K contiguous: the transpose of the reference's
 (K, N) layout (see ``csrc/int8_matmul.cu`` for why).  ``int8_matmul``
 checks its inputs, then runs the plain version for CPU tensors and the
 CUDA kernel for CUDA tensors.  The integer sum is exact on both, and the
 epilogue is the same sequence of f32 roundings, so outputs are equal.
+
+``int8_matmul_batched`` is the W8A8 branch of the reference's MoE expert
+product (``repro/models/moe.py:72-87`` ``_expert_linear``, a jnp
+``dot_general`` over experts, no Pallas kernel): x̂ (E, C, K) × W (E, N, K)
+→ (E, C, N), one launch of the same kernel with an expert grid dimension.
 """
 from __future__ import annotations
 
@@ -34,6 +39,16 @@ def int8_matmul_ref(x_int8, w_nk, dx, dw, out_dtype=torch.bfloat16):
     """Plain version: (M, K) int8 × (N, K) int8 → (M, N) ``out_dtype``."""
     acc = int32_acc(x_int8, w_nk)
     y = acc.float() * dx[:, None] * dw[None, :]
+    return y.to(out_dtype)
+
+
+def int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype=torch.bfloat16):
+    """Plain version of the batched product: x̂ (E, C, K) int8 × W (E, N, K)
+    int8 → (E, C, N) ``out_dtype`` = (float(acc) · Δx[e, c]) · Δw[e, n], the
+    reference's order.  One exact :func:`int32_acc` per expert, so the card
+    allocates one expert's float64 operands at a time."""
+    acc = torch.stack([int32_acc(x_int8[e], w_enk[e]) for e in range(x_int8.shape[0])])
+    y = acc.float() * dx[:, :, None] * dw[:, None, :]
     return y.to(out_dtype)
 
 
@@ -91,11 +106,13 @@ def _every_rank_has_k(ktiles: int, cluster: int) -> bool:
     return (cluster - 1) * -(-ktiles // cluster) < ktiles
 
 
-def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True) -> Plan:
+def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True,
+              experts: int = 1) -> Plan:
     """The swapped regime of both s8 GEMMs (``csrc/gemm_s8.cuh``), M <= 256:
     W tiles are wgmma's A, all M rows of X its N, so each weight byte is
     read once.  ``w_row_bytes``: bytes of one W row in a ring stage (128 for
-    int8, 64 for packed int4).
+    int8, 64 for packed int4).  ``experts``: the batched product's grid
+    holds that many copies of one expert's W tiles.
 
     One 64-row W tile per consumer warpgroup (two above width 48); up to
     three blocks per SM; K split across a cluster (a split costs two
@@ -113,7 +130,7 @@ def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True) -> Pla
         stages = min(MAX_STAGES, room // stage)
         if stages >= 4 or per_sm == 1:
             break
-    tiles = -(-N // tile_n)
+    tiles = -(-N // tile_n) * experts
     cluster = 1
     while (cluster * 2 <= MAX_CLUSTER and _every_rank_has_k(ktiles, cluster * 2)
            and tiles * cluster < NUM_SMS and tiles * cluster * 2 <= NUM_SMS * per_sm):
@@ -125,14 +142,15 @@ def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True) -> Pla
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_plan(M: int, N: int, K: int) -> Plan:
+def gemm_plan(M: int, N: int, K: int, E: int = 1) -> Plan:
     """The card kernel's launch, chosen from the shapes alone: M <= 256 the
     swapped regime (:func:`swap_plan`); M > 256 128 x 256 output tiles, X
-    the A operand and W the B operand, four stages."""
+    the A operand and W the B operand, four stages.  ``E`` > 1: the batched
+    product, M = C rows per expert, every expert's tiles in one grid."""
     if M > SMALL_M:
         stage = (128 + 256) * KT
         return Plan("tiled", 256, 256, 1, 4, SMEM_RESERVE + 4 * stage)
-    return swap_plan(M, N, K, KT)
+    return swap_plan(M, N, K, KT, experts=E)
 
 
 _FN = None
@@ -143,25 +161,26 @@ def _kernel_fn():
     if _FN is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = ops.c_function("int8_matmul", "int8_matmul_launch",
-                             [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p])
+                             [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p])
     return _FN
 
 
-def _launch(x, w, dx, dw, out_dtype):
-    M, K = x.shape
-    N = w.shape[0]
+def _launch(x, w, dx, dw, out_dtype, name="int8_matmul"):
+    """One launch for x (E, M, K) and w (E, N, K) (E = 1: the plain GEMM)."""
+    E, M, K = x.shape
+    N = w.shape[1]
     if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("int8_matmul: the kernel loads rows with TMA in 16-byte "
+        raise ValueError(f"{name}: the kernel loads rows with TMA in 16-byte "
                          "units; x and w must be 16-byte aligned")
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    plan = gemm_plan(M, N, K)
+    out = torch.empty((E, M, N), dtype=out_dtype, device=x.device)
+    plan = gemm_plan(M, N, K, E)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn()(x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                       out.data_ptr(), out_dtype == torch.bfloat16, M, N, K,
+                       out.data_ptr(), out_dtype == torch.bfloat16, E, M, N, K,
                        plan.regime == "swap", plan.width, plan.tile_n, plan.cluster,
                        plan.stages, plan.smem, stream)
     ops.check("int8_matmul", err)
-    ops.LAUNCHES["int8_matmul"] += 1
+    ops.LAUNCHES[name] += 1
     return out
 
 
@@ -171,4 +190,26 @@ def int8_matmul(x_int8, w_nk, dx, dw, *, out_dtype=torch.bfloat16):
     _check(x_int8, w_nk, dx, dw, out_dtype)
     return ops.dispatch(
         x_int8, lambda: int8_matmul_ref(x_int8, w_nk, dx, dw, out_dtype),
-        lambda: _launch(x_int8, w_nk, dx, dw, out_dtype))
+        lambda: _launch(x_int8[None], w_nk[None], dx, dw, out_dtype)[0])
+
+
+def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16):
+    """x̂ (E, C, K) int8, W (E, N, K) int8, Δx (E, C) f32, Δw (E, N) f32 →
+    (E, C, N) ``out_dtype`` = float(x̂[e]·W[e]ᵀ) · Δx[e, c] · Δw[e, n]: every
+    expert's GEMM in one launch (``int8_matmul_batched`` in the counts)."""
+    if x_int8.dim() != 3 or w_enk.dim() != 3 or x_int8.shape[0] != w_enk.shape[0]:
+        raise ValueError(f"int8_matmul_batched: need x (E, C, K) and w (E, N, K), got "
+                         f"{tuple(x_int8.shape)} and {tuple(w_enk.shape)}")
+    E, C, K = x_int8.shape
+    N = w_enk.shape[1]
+    if dx.shape != (E, C) or dw.shape != (E, N):
+        raise ValueError(f"int8_matmul_batched: dx must be {(E, C)} and dw {(E, N)}, "
+                         f"got {tuple(dx.shape)}, {tuple(dw.shape)}")
+    if not all(t.is_contiguous() for t in (x_int8, w_enk, dx, dw)):
+        raise ValueError("int8_matmul_batched: inputs must be contiguous (w is "
+                         "(E, N, K), K contiguous)")
+    _check(x_int8.view(E * C, K), w_enk.view(E * N, w_enk.shape[2]), dx.view(-1),
+           dw.view(-1), out_dtype)
+    return ops.dispatch(
+        x_int8, lambda: int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype),
+        lambda: _launch(x_int8, w_enk, dx, dw, out_dtype, "int8_matmul_batched"))

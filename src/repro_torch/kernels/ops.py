@@ -224,3 +224,21 @@ def w4a8_matmul(
     dequant, in ``x.dtype``."""
     xq, dx = quantize_act(x, smooth)
     return w4a8_gemm(xq, dx, w_int4, w_scale, x.shape[:-1], x.dtype)
+
+
+def w8a8_expert_matmul(
+    x: torch.Tensor,         # (E, C, K) dispatched activations (bf16/f32)
+    w_int8: torch.Tensor,    # (E, N, K) int8, K contiguous
+    w_scale: torch.Tensor,   # (E, N) f32
+    smooth: torch.Tensor,    # (K,) f32, shared by the experts
+) -> torch.Tensor:
+    """The W8A8 expert product of an MoE layer (``repro/models/moe.py``
+    ``_expert_linear``): every row smoothed and quantized per token, then
+    every expert's int8 GEMM in one ``int8_matmul_batched`` launch →
+    (E, C, N) in ``x.dtype``."""
+    from repro_torch.kernels.int8_matmul import int8_matmul_batched
+
+    E, C, K = x.shape
+    xq, dx = quantize_act(x, smooth)
+    return int8_matmul_batched(xq.view(E, C, K), w_int8, dx.view(E, C), w_scale,
+                               out_dtype=x.dtype)

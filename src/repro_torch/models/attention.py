@@ -199,15 +199,34 @@ def write_cache(cache: dict, k, v, slots) -> dict:
     return cache
 
 
-def write_cache_paged(cache: dict, k, v, slots, bt) -> dict:
+def last_writer(rows: torch.Tensor) -> torch.Tensor:
+    """For each write of ``rows`` (n,), the index of the last write to the
+    same row: an (n, n) comparison, static shapes, no sort."""
+    order = torch.arange(rows.numel(), device=rows.device)
+    return ((rows[:, None] == rows[None, :]) * order).amax(dim=1)
+
+
+def write_cache_paged(cache: dict, k, v, slots, bt, last_wins: bool = False) -> dict:
     """Scatter T new K/V rows into a *paged* layer pool through the block
     table, in place.  ``slots`` (B, T) are logical slots;
     ``core/paged_cache.physical_slots`` maps them onto rows of the pool
     viewed as ``(N * bs, Hkv, dh)``.  Rows never collide across live rows:
     the host forks a shared block (copy-on-write) before a window can
     reach it.  Idle rows (and slots past a row's table) land in the
-    scratch block, whose content is never validly read."""
+    scratch block, whose content no live row's kept output reads.
+
+    Several of those writes can land on one scratch row, and on the card
+    which of them sticks is not fixed from run to run.  ``last_wins``
+    gives every write to a row the values of the last write to it (in
+    (row, t) order, what a sequential scatter leaves), so what an idle row
+    reads back does not depend on that race.  Needed where rows interact:
+    an MoE layer whose capacity is below its expert count, where an idle
+    row's routing takes expert slots from the live rows."""
     phys = physical_slots(bt, slots, cache["k"].shape[1]).reshape(-1)      # (B*T,)
+    if last_wins:
+        src = last_writer(phys)
+        k = k.reshape((-1,) + tuple(k.shape[2:])).index_select(0, src).view(k.shape)
+        v = v.reshape((-1,) + tuple(v.shape[2:])).index_select(0, src).view(v.shape)
     if cache["k"].dtype == torch.int8:
         k, ks = _quant_kv(k)
         v, vs = _quant_kv(v)
@@ -268,7 +287,9 @@ class Attention(nn.Module):
         masks = dict(tree_mask=tree.get("mask"), win_start=tree.get("win_start"),
                      tree_bits=tree.get("bits"))
         if cache is not None and block_tables is not None:     # paged: decode/verify
-            cache = write_cache_paged(cache, k, v, slots, block_tables)
+            cache = write_cache_paged(cache, k, v, slots, block_tables,
+                                      last_wins=cfg.is_moe and
+                                      cfg.moe_capacity_factor < cfg.num_experts)
             o = attend_paged(q, cache, block_tables, qpos, **masks)
         elif cache is not None:
             cache = write_cache(cache, k, v, slots)

@@ -13,6 +13,10 @@ port of ``repro/models/linear.py``.
   per byte along din (``repro_torch.quant.int4``), with ``w_scale``,
   ``smooth`` [+ ``b``] as above: the verify pass streams 0.5 byte per
   weight.
+* :class:`ExpertLinear` / :class:`W8A8ExpertLinear` — an MoE layer's
+  batched expert weights (``models/moe.py``): ``w`` (E, din, dout), or
+  ``w_int8`` (E, dout, din) with ``w_scale`` (E, dout) and one ``smooth``
+  (din,) shared by the experts (``quant.int8.quantize_batched``).
 
 At run time the activations are smoothed and quantized per token (Eq. 9),
 the GEMM runs in int8 and the result is dequantized by Δw·Δx (Eq. 10).
@@ -82,3 +86,30 @@ class W4A8Linear(nn.Module):
         """As :meth:`W8A8Linear.forward_quantized`, through the W4A8 GEMM."""
         y = ops.w4a8_gemm(xq, dx, self.w_int4, self.w_scale, batch_shape, out_dtype)
         return y + self.b.to(y.dtype) if self.b is not None else y
+
+
+class ExpertLinear(nn.Module):
+    """Batched expert weights ``w`` (E, din, dout): x (E, C, din) → (E, C,
+    dout), the reference's ``einsum("ecd,edf->ecf")`` as one ``bmm``."""
+
+    def __init__(self, w: torch.Tensor):
+        super().__init__()
+        self.register_buffer("w", w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(x, self.w.to(x.dtype))
+
+
+class W8A8ExpertLinear(nn.Module):
+    """W8A8 expert weights: ``w_int8`` (E, dout, din), din contiguous (the
+    transpose of the reference's (E, din, dout), for the same reason as
+    :class:`W8A8Linear`), ``w_scale`` (E, dout) f32, ``smooth`` (din,) f32."""
+
+    def __init__(self, w_int8: torch.Tensor, w_scale: torch.Tensor, smooth: torch.Tensor):
+        super().__init__()
+        self.register_buffer("w_int8", w_int8)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("smooth", smooth)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops.w8a8_expert_matmul(x, self.w_int8, self.w_scale, self.smooth)

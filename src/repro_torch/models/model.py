@@ -34,10 +34,16 @@ class Model:
 
     # -- full forward (calibration / fidelity eval) -----------------------
     def forward(self, params: Transformer, tokens, *, collect=None, num_layers=None):
-        """Returns (logits (B,T,V) f32, aux loss 0) over positions 0..T-1."""
+        """Returns (logits (B,T,V) f32, aux loss) over positions 0..T-1: the
+        MoE layers' load-balance losses summed in layer order (0 for a dense
+        stack), as the reference's forward returns them."""
         start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
-        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers)
-        return logits, torch.zeros((), device=tokens.device)
+        aux = []
+        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers, aux=aux)
+        total = torch.zeros((), device=tokens.device)
+        for a in aux:
+            total = total + a
+        return logits, total
 
     # -- serving ------------------------------------------------------------
     def prefill(self, params: Transformer, cache: dict, tokens, num_layers=None) -> dict:

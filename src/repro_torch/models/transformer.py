@@ -1,17 +1,18 @@
-"""Decoder stack — port of the ``dense`` path of
-``repro/models/transformer.py``: self-attention + FFN blocks over a
-contiguous or paged KV cache, with the pruned-stack (``num_layers``) and
-token-tree verify windows, and the tree commit.
+"""Decoder stack — port of the ``dense`` and ``moe`` paths of
+``repro/models/transformer.py``: self-attention + FFN (or MoE FFN) blocks
+over a contiguous or paged KV cache, with the pruned-stack (``num_layers``)
+and token-tree verify windows, and the tree commit.
 
 The parameter tree is an ``nn.Module`` tree whose submodule paths are the
 reference pytree's paths (``embed/w``, ``layers/<i>/attn/q``,
-``layers/<i>/ffn/up``, ``final_norm``, ``lm_head``), so calibration
-statistics, quantization and the weight bridge address linears by the
-same names.
+``layers/<i>/ffn/up``, ``layers/<i>/moe/{router,up,gate,down,dense}``,
+``final_norm``, ``lm_head``), so calibration statistics, quantization and
+the weight bridge address linears by the same names.
 """
 from __future__ import annotations
 
-from typing import Optional
+import copy
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -21,12 +22,33 @@ from repro_torch.models.attention import Attention, init_attn_cache
 from repro_torch.models.common import Norm, embed_init
 from repro_torch.models.ffn import FFN, apply_linear
 from repro_torch.models.linear import Linear
+from repro_torch.models.moe import MoE
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Each layer's kind, as the reference derives it (``dense`` or ``moe``
+    among the families the port runs; ``ssm``, ``cross`` and ``audio`` for
+    the others)."""
+    kinds = []
+    for i in range(cfg.num_layers):
+        if cfg.arch_type in ("ssm", "hybrid"):
+            kinds.append("ssm")
+        elif cfg.arch_type == "audio":
+            kinds.append("audio")
+        elif cfg.cross_attn_every and (i + 1) % cfg.cross_attn_every == 0:
+            kinds.append("cross")
+        elif cfg.is_moe:
+            kinds.append("moe")
+        else:
+            kinds.append("dense")
+    return kinds
 
 
 def check_supported(cfg) -> None:
-    if cfg.arch_type != "dense" or cfg.sliding_window or cfg.cross_attn_every:
+    if (cfg.arch_type not in ("dense", "moe") or cfg.sliding_window or cfg.encoder_layers
+            or set(layer_kinds(cfg)) - {"dense", "moe"}):
         raise NotImplementedError(
-            f"the port runs dense full-attention decoders; "
+            f"the port runs dense and MoE full-attention decoders; "
             f"{cfg.name} ({cfg.arch_type}, window={cfg.sliding_window}) waits "
             "for a later slice")
     if cfg.attn_impl != "auto":
@@ -41,35 +63,47 @@ class Embed(nn.Module):
 
 
 class Block(nn.Module):
-    """Dense decoder block: x + attn(norm(x)), then + ffn(norm(x)).  Each
-    norm is told which linears read it, so on the card it can quantize for
-    them in the same launch (``models/common.Norm``); calibration
-    (``collect``) needs the normed tensor and tells it none."""
+    """Decoder block: x + attn(norm(x)), then + ffn(norm(x)) (a dense
+    block) or + moe(norm(x)) (an MoE block: exactly one of ``ffn`` and
+    ``moe`` is set).  Each norm is told which linears read it, so on the
+    card it can quantize for them in the same launch
+    (``models/common.Norm``); calibration (``collect``) needs the normed
+    tensor and tells it none, and so does an MoE block's FFN norm, which
+    the f32 router reads."""
 
-    def __init__(self, attn_norm: Norm, attn: Attention, ffn_norm: Norm, ffn: FFN):
+    def __init__(self, attn_norm: Norm, attn: Attention, ffn_norm: Norm,
+                 ffn: Optional[FFN] = None, moe: Optional[MoE] = None):
         super().__init__()
-        self.attn_norm, self.attn, self.ffn_norm, self.ffn = attn_norm, attn, ffn_norm, ffn
+        if (ffn is None) == (moe is None):
+            raise ValueError("a block has either an FFN or an MoE FFN")
+        self.attn_norm, self.attn, self.ffn_norm = attn_norm, attn, ffn_norm
+        self.ffn, self.moe = ffn, moe
 
     @classmethod
-    def init(cls, generator, cfg, device):
-        return cls(Norm(cfg, cfg.d_model, device), Attention.init(generator, cfg, device),
-                   Norm(cfg, cfg.d_model, device), FFN.init(generator, cfg, device))
+    def init(cls, generator, cfg, device, kind: str = "dense"):
+        attn_norm, attn = Norm(cfg, cfg.d_model, device), Attention.init(generator, cfg, device)
+        ffn_norm = Norm(cfg, cfg.d_model, device)
+        if kind == "moe":
+            return cls(attn_norm, attn, ffn_norm, moe=MoE.init(generator, cfg, device))
+        return cls(attn_norm, attn, ffn_norm, ffn=FFN.init(generator, cfg, device))
 
     def forward(self, x, qpos, cache=None, *, read_cache=True, collect=None, path="",
-                tree=None, block_tables=None, plain_attn=False):
+                tree=None, block_tables=None, plain_attn=False, aux=None):
         calib = collect is not None
         h, cache = self.attn(self.attn_norm(x, () if calib else self.attn.readers()), qpos,
                              cache=cache, read_cache=read_cache, collect=collect,
                              path=f"{path}/attn", tree=tree, block_tables=block_tables,
                              plain_attn=plain_attn)
         x = x + h
+        if self.moe is not None:
+            return x + self.moe(self.ffn_norm(x), collect, f"{path}/moe", aux), cache
         x = x + self.ffn(self.ffn_norm(x, () if calib else self.ffn.readers()), collect,
                          f"{path}/ffn")
         return x, cache
 
 
 class Transformer(nn.Module):
-    """The parameter tree and the forward pass of one dense decoder."""
+    """The parameter tree and the forward pass of one dense or MoE decoder."""
 
     def __init__(self, cfg, embed: Embed, layers, final_norm: Norm,
                  lm_head: Optional[nn.Module]):
@@ -85,7 +119,7 @@ class Transformer(nn.Module):
     def init(cls, cfg, generator: torch.Generator, device) -> "Transformer":
         """Seeded random weights with the reference's distributions."""
         check_supported(cfg)
-        layers = [Block.init(generator, cfg, device) for _ in range(cfg.num_layers)]
+        layers = [Block.init(generator, cfg, device, kind) for kind in layer_kinds(cfg)]
         lm_head = (None if cfg.tie_embeddings else
                    Linear.init(generator, cfg.d_model, cfg.vocab_size, False, cfg.dtype, device))
         embed = Embed(embed_init(generator, (cfg.vocab_size, cfg.d_model), cfg.dtype, device))
@@ -95,9 +129,11 @@ class Transformer(nn.Module):
                 read_cache: bool = True, collect=None, need_logits: bool = True,
                 path: str = "", num_layers: Optional[int] = None,
                 tree_depths=None, tree_mask=None, tree_bits=None,
-                plain_attn: bool = False):
+                plain_attn: bool = False, aux: Optional[list] = None):
         """tokens (B,T) int, start (B,) first position →
-        (logits (B,T,V) f32 or None, cache or None).
+        (logits (B,T,V) f32 or None, cache or None).  ``aux``: a list each
+        MoE layer appends its load-balance loss to (``Model.forward``); the
+        decode and verify steps pass none and compute none.
 
         ``num_layers`` runs the first layers only (the pruned drafter); the
         final norm and ``lm_head`` still apply.  ``tree_depths`` (T,) and
@@ -132,7 +168,7 @@ class Transformer(nn.Module):
             lcache = cache["layers"][i] if cache is not None else None
             x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
                             path=f"{path}layers/{i}", tree=tree,
-                            block_tables=block_tables, plain_attn=plain_attn)
+                            block_tables=block_tables, plain_attn=plain_attn, aux=aux)
         logits = None
         if need_logits:
             if cfg.tie_embeddings:
@@ -142,6 +178,19 @@ class Transformer(nn.Module):
                 x = self.final_norm(x, () if collect is not None else (self.lm_head,))
                 logits = apply_linear(self.lm_head, x, collect, f"{path}lm_head").float()
         return logits, cache
+
+
+def with_config(params: Transformer, cfg) -> Transformer:
+    """A view of ``params`` under another configuration of the same shapes
+    (e.g. a dropless MoE capacity factor): every tensor shared.  The
+    reference passes the config beside its params; the port's modules hold
+    it."""
+    check_supported(cfg)
+    out = copy.deepcopy(params, {id(t): t for t in params.buffers()})
+    for mod in out.modules():
+        if hasattr(mod, "cfg"):
+            mod.cfg = cfg
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, device,

@@ -2,7 +2,9 @@
 ``repro/quant/apply.py``: replace every quantizable :class:`Linear` of a
 parameter tree with its smoothed W8A8 form, or with W4A8 where
 ``QuantConfig.w_bits == 4`` and din is even (an odd din stays W8A8, so one
-tree may mix the two)."""
+tree may mix the two).  An MoE layer's batched experts
+(:class:`ExpertLinear`) always become W8A8, under ``w_bits == 4`` too: the
+reference checks for 3-D weights before it looks at ``w_bits``."""
 from __future__ import annotations
 
 import copy
@@ -12,9 +14,9 @@ import torch
 from torch import nn
 
 from repro_torch.core.config import QuantConfig
-from repro_torch.models.linear import Linear
+from repro_torch.models.linear import ExpertLinear, Linear
 from repro_torch.quant.int4 import quantize_linear_w4
-from repro_torch.quant.int8 import quantize_linear
+from repro_torch.quant.int8 import quantize_batched, quantize_linear
 from repro_torch.quant.smoothquant import smoothing_factors
 
 # Param-path fragments that must stay in the model dtype: tiny and/or
@@ -43,10 +45,14 @@ def quantize_params(params: nn.Module,
     out = copy.deepcopy(params, memo)
     for name, mod in list(out.named_modules()):
         path = name.replace(".", "/")
-        if isinstance(mod, Linear) and not _excluded(path, qcfg):
+        if isinstance(mod, (Linear, ExpertLinear)) and not _excluded(path, qcfg):
             s = smoothing_factors(mod.w, act_stats.get(path), qcfg.alpha)
-            quant = (quantize_linear_w4 if qcfg.w_bits == 4 and mod.w.shape[0] % 2 == 0
-                     else quantize_linear)
+            if isinstance(mod, ExpertLinear):
+                quant = quantize_batched
+            elif qcfg.w_bits == 4 and mod.w.shape[0] % 2 == 0:
+                quant = quantize_linear_w4
+            else:
+                quant = quantize_linear
             parent_name, _, attr = name.rpartition(".")
             setattr(out.get_submodule(parent_name), attr, quant(mod, s))
     return out

@@ -16,7 +16,8 @@ rows, the bf16 linear's rows against M, T > 0 scheduling, partial tiles, K and
 S not multiples of the blocks, every instantiated head size, f32 inputs,
 paged block sizes that divide neither the 32-key chunk nor the 128-key
 split, idle rows on the scratch block, and the wrappers' card-only input
-checks.
+checks; the MoE path's batched expert GEMM, routing rows against the row
+count and its decode step through graphs.
 """
 import copy
 import dataclasses
@@ -31,7 +32,8 @@ from repro_torch.core.tree import TreeTemplate
 from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_paged,
                                               flash_decode_paged_ref, flash_decode_ref)
 from repro_torch.kernels.int4_matmul import int4_matmul, int4_matmul_ref, unpack_nk
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_batched,
+                                             int8_matmul_batched_ref, int8_matmul_ref)
 from repro_torch.kernels.smooth_quant import (norm_smooth_quant, norm_smooth_quant_ref,
                                                smooth_quant, smooth_quant_ref)
 from repro_torch.models import Model
@@ -432,6 +434,7 @@ def _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed):
     (2, 6, 300, 2, 2, 64),     # several splits, the last one partial
     (1, 3, 128, 1, 9, 128),    # S exactly one split; G·T not a row-block multiple
     (4, 6, 1152, 8, 4, 128),   # the 7B verify window
+    (4, 6, 1152, 16, 1, 128),  # moonshot's verify window: MHA, G = 1
     (1, 1, 6, 3, 3, 64),       # S shorter than the window's chunk
     (2, 3, 300, 2, 9, 32),     # G·T = 27: not a multiple of the 16-row tile
     (3, 5, 700, 2, 7, 64)])    # G·T = 35, three tiles, the last nearly empty
@@ -499,6 +502,7 @@ def _tree_attn(dev, branches, b, s, hkv, g, dh, dtype, int8, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("branches,b,s,hkv,g,dh", [
     ((3, 2, 1, 1), 4, 1152, 8, 4, 128),   # the 7B tree window
+    ((3, 2, 1, 1), 4, 1152, 16, 1, 128),  # moonshot's tree window: MHA, G = 1
     ((2, 2), 2, 300, 2, 3, 64),           # several splits, the window in the last
     ((4, 4, 4), 2, 700, 8, 4, 128),       # 340 rows per KV head: three row blocks
     ((64,), 1, 200, 2, 4, 128),           # the widest template: 260 rows
@@ -605,18 +609,22 @@ def _to_pages(dev, bs, seed, k, v, kw):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("tree", [False, True])
-@pytest.mark.parametrize("bs,s", [(8, 300), (16, 1152), (128, 1152), (24, 300), (5, 97)])
-def test_flash_decode_paged_bit_equal_to_contiguous_on_card(dev, bs, s, tree, int8):
+@pytest.mark.parametrize("bs,s,b,hkv,g", [
+    (8, 300, 4, 8, 4), (16, 1152, 4, 8, 4), (128, 1152, 4, 8, 4), (24, 300, 4, 8, 4),
+    (5, 97, 4, 8, 4),
+    (128, 1152, 8, 16, 1)])    # moonshot's paged run: 8 slots, MHA, G = 1
+def test_flash_decode_paged_bit_equal_to_contiguous_on_card(dev, bs, s, b, hkv, g, tree,
+                                                            int8):
     """Over the same logical content the paged kernel gives the contiguous
     kernel's bits — for block sizes that divide the 32-key chunk, equal the
     128-key split, and divide neither (24, 5) — and agrees with its plain
     version within one bf16 rounding step."""
     if tree:
-        q, k, v, qpos, kw, tables = _tree_attn(dev, (3, 2, 1, 1), 4, s, 8, 4, 128,
+        q, k, v, qpos, kw, tables = _tree_attn(dev, (3, 2, 1, 1), b, s, hkv, g, 128,
                                                torch.bfloat16, int8, seed=bs)
         kw["tree_bits"] = tables.mask_bits
     else:
-        q, k, v, qpos, kw = _attn(dev, 4, 6, s, 8, 4, 128, torch.bfloat16, int8, seed=bs)
+        q, k, v, qpos, kw = _attn(dev, b, 6, s, hkv, g, 128, torch.bfloat16, int8, seed=bs)
     bt, pages = _to_pages(dev, bs, bs + s, k, v, kw)
     ops.reset_launch_counts()
     contig = flash_decode(q, k, v, qpos, **kw)
@@ -1231,3 +1239,208 @@ def test_streaming_server_captures_on_its_thread_on_card(dev):
     srv.metrics.check_conservation()
     assert all(v == 0 for v in srv.metrics.robustness.values())
     assert threads and all(t == "repro-torch-serving-loop" for t in threads)
+
+
+# -- MoE (models/moe.py): the batched expert GEMM, row invariance, graphs ------
+
+@pytest.mark.parametrize("e,c,k,n", [
+    (64, 3, 2048, 1408), (64, 11, 2048, 1408), (64, 21, 1408, 2048),   # moonshot decode
+    (64, 480, 2048, 1408), (64, 480, 1408, 2048),                      # moonshot prefill
+    (16, 4, 4096, 6400), (16, 4, 6400, 4096), (16, 300, 4096, 6400),   # phi3.5-moe
+    (4, 1, 16 * 37, 200), (3, 9, 144, 72), (5, 257, 48, 130), (2, 200, 4096, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_batched_bit_equal_on_card(dev, e, c, k, n, out_dtype):
+    """Every expert's GEMM in one launch, bit-equal to the plain version at
+    moonshot's and phi3.5-moe's expert shapes (decode C 3, 11, 21 and
+    prefill C 480 on moonshot) and at the plan's edges: C 1 and 9 (wgmma
+    widths 8, 24), 257 (tiled), N not a multiple of the W tile, K not of the
+    128-byte step, a K split across a cluster (few experts, few tiles).  An
+    expert's X tile runs past its C rows into the next expert's: those
+    products are never written."""
+    g = _gen(dev, e * c + k + n)
+    x = torch.randint(-127, 128, (e, c, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (e, n, k), generator=g, device=dev, dtype=torch.int8)
+    if c <= 21:
+        acc = int8_matmul_batched(x, w, torch.ones(e, c, device=dev),
+                                  torch.ones(e, n, device=dev), out_dtype=torch.float32)
+        want = torch.stack([x[i].cpu().to(torch.int64) @ w[i].cpu().to(torch.int64).T
+                            for i in range(e)])
+        assert torch.equal(acc.cpu().to(torch.int64), want)
+    dx = torch.rand(e, c, generator=g, device=dev) * 1e-2
+    dw = torch.rand(e, n, generator=g, device=dev) * 1e-3
+    y = int8_matmul_batched(x, w, dx, dw, out_dtype=out_dtype)
+    assert y.shape == (e, c, n) and y.dtype == out_dtype
+    assert torch.equal(y, int8_matmul_batched_ref(x, w, dx, dw, out_dtype))
+
+
+def _graph_node_types(fn) -> list:
+    """The CUDA graph node types (``CUgraphNodeType``: 0 kernel, 1 memcpy,
+    2 memset, ...) of one call of ``fn``, captured after a warm-up call.
+    Counts device work without the profiler, whose kernel records go
+    missing in some processes (ROADMAP §3)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int()
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+@pytest.mark.parametrize("c", [3, 480])
+def test_int8_matmul_batched_is_one_kernel_per_call_on_card(dev, c):
+    """One device kernel per expert linear (no memset, no second kernel), at
+    decode (swapped) and at prefill (tiled): one call captured in a graph
+    holds one node, a kernel, and counts one launch."""
+    x = torch.randint(-127, 128, (64, c, 2048), device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (64, 1408, 2048), device=dev, dtype=torch.int8)
+    dx, dw = torch.rand(64, c, device=dev), torch.rand(64, 1408, device=dev)
+    ops.reset_launch_counts()
+    with ops.launches_apart() as counted:
+        assert _graph_node_types(lambda: int8_matmul_batched(x, w, dx, dw)) == [0]
+    assert counted == {"int8_matmul_batched": 2}          # the warm-up and the capture
+
+
+def _moe_layer(dev, cfg, verifier="w8a8"):
+    from repro_torch.core.config import QuantConfig
+    from repro_torch.models.moe import MoE
+    from repro_torch.quant.apply import quantize_params
+
+    moe = MoE.init(_gen(dev, 11), cfg, dev)
+    if verifier == "bf16":
+        return moe
+    return quantize_params(moe, None, QuantConfig(w_bits=8 if verifier == "w8a8" else 4))
+
+
+def test_moe_routing_row_does_not_depend_on_m_on_card(dev):
+    """At moonshot's width (d 2048, 64 experts top-6, experts of 1408),
+    dropless: a row's router logits, probabilities, top-k, gates and the
+    W8A8 layer's output (dispatch, expert GEMMs, combine) are the same bits
+    in calls of 4, 24, 88 and 176 rows."""
+    from repro_torch.models.moe import route, router_logits
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), moe_capacity_factor=64.0)
+    moe = _moe_layer(dev, cfg)
+    g = _gen(dev, 12)
+    x = (torch.randn(176, cfg.d_model, generator=g, device=dev)).to(torch.bfloat16)
+    x[5] = 0                            # a zero row: every probability ties
+    outs = {}
+    with torch.inference_mode():
+        for m in (4, 24, 88, 176):
+            logits = router_logits(x[:m], moe.router.w)
+            r = route(logits, cfg.experts_per_token, cfg.num_experts, cfg.moe_capacity_factor)
+            y = moe(x[:m].view(1, m, -1)).view(m, -1)
+            outs[m] = (logits[:4], r["probs"][:4], r["eidx"][:4], r["gates"][:4], y[:4])
+    for m in (24, 88, 176):
+        for a, b in zip(outs[m], outs[4]):
+            assert torch.equal(a, b), m
+    with torch.inference_mode():
+        r = route(router_logits(x[:24], moe.router.w), 6, 64, 64.0)
+    assert r["eidx"][5].tolist() == list(range(6))      # ties: the lower index first
+
+
+def _moe_graph_setup(dev, factor, kv="bf16"):
+    """A reduced moonshot with its 64 experts top-6 and a 4096-wide
+    vocabulary; ``factor`` its capacity factor (64: dropless)."""
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), num_experts=64,
+                              experts_per_token=6, moe_capacity_factor=factor,
+                              vocab_size=4096, kv_cache_dtype=kv)
+    model = Model(cfg, device=dev)
+    raw = model.init_params(_gen(dev, 3))
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, cfg.vocab_size, (4, 7))
+    prompts = torch.from_numpy(np.concatenate([np.tile(pat, 5), pat[:, :2]], axis=1)
+                               .astype(np.int32)).to(dev)
+    return model, raw, prompts
+
+
+@pytest.mark.parametrize("factor", [1.25, 64.0])
+@pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("drafter", ["ngram", "tree"])
+def test_moe_graph_replay_equals_eager_on_card(dev, drafter, verifier, factor):
+    """The MoE decode step (routing, capacity dispatch, the batched expert
+    GEMMs, combine) captured as a graph gives the eager step's tokens bit
+    for bit, with drops (capacity factor 1.25) and without."""
+    from repro_torch.core.config import SpecConfig
+
+    model, raw, prompts = _moe_graph_setup(dev, factor)
+    scfg = SpecConfig(temperature=0.0, verifier=verifier, **GRAPH_DRAFTERS[drafter])
+    out = _eager_and_graph(model, scfg, lambda eng: eng.generate(raw, prompts, 16))
+    (eager, n_eager, e_eng), (graph, n_graph, g_eng) = out[False], out[True]
+    assert graph.steps == eager.steps >= 3
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert not graph.bad.any()
+    assert n_graph == n_eager and n_graph["int8_matmul_batched"] > 0
+    assert (g_eng._programs.captures, e_eng._programs.captures) == (1, 0)
+
+
+def test_moe_graph_replay_equals_eager_paged_on_card(dev):
+    """The paged MoE tick through graphs gives the eager tick's tokens."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.request import GenerationRequest
+
+    model, raw, prompts = _moe_graph_setup(dev, 1.25)
+    reqs = [GenerationRequest(p.cpu().numpy(), 12, seed=i) for i, p in enumerate(prompts)]
+    scfg = SpecConfig(temperature=0.0, gamma=3, verifier="w8a8", kv_layout="paged",
+                      kv_block_size=16)
+    out = _eager_and_graph(model, scfg,
+                           lambda eng: eng.generate_requests(raw, reqs, batch_slots=2))
+    (eager, n_eager, _), (graph, n_graph, g_eng) = out[False], out[True]
+    for a, b in zip(eager, graph):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert n_graph == n_eager and n_graph["int8_matmul_batched"] > 0
+    assert g_eng._programs.captures == 1
+
+
+def test_moe_paged_idle_rows_do_not_change_live_tokens_on_card(dev):
+    """Below the expert count's capacity factor an idle paged row's routing
+    takes expert slots from the live rows, and idle rows (and slots past a
+    row's table) write colliding scratch rows: the live tokens must not
+    depend on which colliding write sticks.  Three requests of different
+    lengths through 8 slots, eager and graphs, twice each: equal tokens."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    model, raw, prompts = _moe_graph_setup(dev, 1.25)
+    reqs = [GenerationRequest(p.cpu().numpy(), n, seed=i)
+            for i, (p, n) in enumerate(zip(prompts[:3], (12, 7, 16)))]
+    scfg = SpecConfig(temperature=0.0, gamma=3, verifier="w8a8", kv_layout="paged",
+                      kv_block_size=16)
+    runs = [[r.tokens for r in SpecEngine(model, scfg, graphs=graphs).generate_requests(
+        raw, reqs, batch_slots=8)] for graphs in (False, True, False, True)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
+def test_moe_dropless_spec_equals_vanilla_on_card(dev, verifier):
+    """Dropless (capacity factor = num_experts), greedy ngram, tree and
+    pruned give vanilla's tokens on the card: every op of the MoE verify
+    forward is row-invariant."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, prompts = _moe_graph_setup(dev, 64.0)
+    toks = {}
+    for name, kw in (("vanilla", dict(drafter="vanilla")), ("ngram", dict(drafter="ngram")),
+                     ("tree", GRAPH_DRAFTERS["tree"]),
+                     ("pruned", dict(drafter="pruned", pruned_retention=0.5))):
+        r = SpecEngine(model, SpecConfig(temperature=0.0, verifier=verifier, **kw)).generate(
+            raw, prompts, 16)
+        assert not r.bad.any()
+        toks[name] = r.tokens[:, :prompts.shape[1] + 16]
+    for name in ("ngram", "tree", "pruned"):
+        assert torch.equal(toks[name], toks["vanilla"]), name

@@ -39,7 +39,7 @@ from repro_torch.core.config import SpecConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import flash_decode_paged, flash_decode_paged_ref
 from repro_torch.models import Model, transformer
-from repro_torch.models.attention import write_cache_paged
+from repro_torch.models.attention import last_writer, write_cache_paged
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from repro_torch.serving.scheduler import Scheduler
@@ -164,6 +164,39 @@ def test_paged_writes_and_tree_commit_bit_equal_to_jax(int8):
                                          torch.from_numpy(path), torch.from_numpy(n_accept))
     for name in pools:
         np.testing.assert_array_equal(ppool[name].numpy(), np.asarray(jpool[name]), name)
+
+
+def test_last_writer_names_the_last_write_to_each_row():
+    rows = torch.tensor([5, 3, 5, 0, 3, 5, 7])
+    assert last_writer(rows).tolist() == [5, 4, 5, 3, 4, 5, 6]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_write_last_wins_equals_sequential_scatter(int8):
+    """Idle rows (tables all at scratch) and a live row's slots past its
+    table collide on scratch rows.  ``last_wins`` gives each colliding
+    write the last writer's values, so the pool equals a sequential
+    scatter in (row, t) order, whichever write the device lets stick."""
+    rng = np.random.default_rng(11 + int(int8))
+    B, T, Hkv, dh, bs, nb = 4, 3, 2, 8, 4, 3
+    bt = _table(rng, B, nb, (2, 0, 1, 0))
+    pools = _pools(rng, 1 + 6, bs, Hkv, dh, int8)
+    k = rng.standard_normal((B, T, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, dh)).astype(np.float32)
+    slots = np.array([[6, 7, 8], [0, 1, 2], [3, 4, 5], [0, 1, 2]], np.int32)
+    phys = pc.physical_slots(torch.from_numpy(bt), torch.from_numpy(slots), bs).reshape(-1)
+    assert len(set(phys.tolist())) < B * T                  # writes do collide
+    got, plain = ({n: torch.from_numpy(a.copy()) for n, a in pools.items()} for _ in range(2))
+    write_cache_paged(got, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(slots),
+                      torch.from_numpy(bt), last_wins=True)
+    for r in range(B):                                      # one row, one t at a time
+        for t in range(T):
+            write_cache_paged(plain, torch.from_numpy(k[r:r + 1, t:t + 1]),
+                              torch.from_numpy(v[r:r + 1, t:t + 1]),
+                              torch.from_numpy(slots[r:r + 1, t:t + 1]),
+                              torch.from_numpy(bt[r:r + 1]))
+    for name in pools:
+        assert torch.equal(got[name], plain[name]), name
 
 
 @pytest.mark.parametrize("int8", [False, True])
