@@ -121,7 +121,29 @@
    config (the same weights, capacity factor = 64 experts), W8A8, 256-token
    prompts: spec, tree and pruned == vanilla (batch 2), paged == contiguous
    (4 requests through 2 slots).
-9. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+9. SSM phase (``models/ssm.py``, ``kernels/ssd_update.py``):
+   ``zamba2-2.7b`` at 54 of 54 layers and ``mamba2-370m`` at 48 of 48,
+   seeded random bf16 weights, s = 1, the card empty at its start.
+   Kernels, each against its plain version at the SSM path's shapes:
+   ``ssd_update`` (states bit-equal, y within rtol 1e-5 / atol 1e-4) at
+   the chain and vanilla windows with every state kept and at the pruned
+   draft's T = 1 without, for both models; chain ``flash_decode`` at
+   zamba2's head size 80, bf16 and int8 K/V, beside SDPA;
+   ``int8_matmul`` and ``int4_matmul`` (exact) at ``in_proj`` (N 10448 and
+   4384), ``out_proj``, the shared block's linears and ``lm_head``;
+   ``norm_smooth_quant`` with 1, 3 and 2 readers and ``smooth_quant`` (bit-
+   equal).  Then through graphs, the 7B phases' prompts, batch and budget:
+   zamba2 spec and vanilla W8A8, W4A8 and W8A8 over an int8 KV cache, pruned
+   W8A8, contiguous ``generate_requests`` (8 equal-length requests, 4
+   slots); mamba2 spec and vanilla W8A8.  Each run with its launches,
+   ``step_traces`` (one program) and the share of its new tokens seen
+   earlier in their row, and (but the W4A8 and int8-KV vanilla runs, there
+   for the gates) a step (tick) window, then again eagerly: replay ≡ eager,
+   tokens and launches.  Gated on finite logits,
+   every kernel of its path launched, the W8A8 chain step's launches
+   (``ssm_launches_per_chain_step``), greedy spec and pruned ≡ vanilla and
+   the scheduled requests ≡ the spec run's rows.
+10. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -221,6 +243,7 @@ SERVER_KERNELS = ("norm_smooth_quant", "smooth_quant", "int8_matmul", "flash_dec
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 40                    # of 48: the weights' reckoning in PERF.md §4
 MOE_GATE_PROMPT, MOE_GATE_NEW = 256, 32   # the dropless gate (batch 2)
+SSM_ARCHS = ("zamba2-2.7b", "mamba2-370m")   # the SSM phase, at full width and depth
 
 
 def log(msg: str) -> None:
@@ -392,6 +415,65 @@ def int4_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
     return rows
 
 
+def flash_chain_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, s_len: int,
+                     int8: bool, **tag) -> list:
+    """Chain ``flash_decode`` (int8 K/V with ``int8``) at the verify window
+    (T = γ+1) and the vanilla one (T = 1) over an ``s_len``-slot cache:
+    within one bf16 rounding step of its plain version, timed beside it and
+    (bf16 K/V) beside SDPA with a boolean mask."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.models.attention import _quant_kv
+
+    F = torch.nn.functional
+    name = "flash_decode" + "_int8" * int8
+    rows = []
+    for t in (GAMMA + 1, 1):
+        q = torch.randn(B, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        qpos = (torch.arange(t, device=dev) + PROMPT - 1 + 17).expand(B, t)
+        qpos = qpos.to(torch.int32).contiguous()
+        kw = {}
+        if int8:
+            k, ks = _quant_kv(k)
+            v, vs = _quant_kv(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        o = flash_decode(q, k, v, qpos, **kw)
+        ro = flash_decode_ref(q, k, v, qpos, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} dh {dh} T={t}: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda m: f"{name} dh {dh} T={t}: {m}")
+        # the work this qpos needs: each batch row reads its slots up to
+        # its window's last position; each query row scores (and sums
+        # values over) the keys at or before its own position
+        keys = int((qpos.amax(dim=1).long() + 1).clamp(max=s_len).sum())
+        kv_bytes = 2 * keys * hkv * dh * (1 if int8 else 2) + (8 * keys * hkv if int8 else 0)
+        nbytes = 2 * 2 * B * t * hq * dh + kv_bytes + 4 * B * t
+        scored = int((qpos.long() + 1).clamp(max=s_len).sum())
+        bms, by = bound_ms(nbytes, 4 * hq * scored * dh, "bf16")
+        library = None
+        if not int8:       # SDPA with a boolean mask; int8 K/V has no such call
+            mask = (torch.arange(s_len, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+            lib_err = (library().float() - ro.float()).abs().max().item()
+            if lib_err > SDPA_TOL:
+                raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+        rows.append(dict(shape=[B, t, hq, hkv, s_len, dh], **tag, max_abs_err=err,
+                         bound_ms=bms, bound_by=by,
+                         **timed(torch, lambda: flash_decode(q, k, v, qpos, **kw),
+                                 lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
+                                 50, flush)))
+    return rows
+
+
 def kernel_phase(torch, dev, flush, cfg):
     from repro_torch.core.tree import TreeTemplate
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
@@ -427,52 +509,7 @@ def kernel_phase(torch, dev, flush, cfg):
 
     # -- flash_decode: the verify window (T = γ+1) and the vanilla one (T = 1) --
     for name, int8 in (("flash_decode", False), ("flash_decode_int8", True)):
-        rows = []
-        for t in (GAMMA + 1, 1):
-            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
-            k = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
-            v = torch.randn(B, S, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
-            qpos = (torch.arange(t, device=dev) + PROMPT - 1 + 17).expand(B, t)
-            qpos = qpos.to(torch.int32).contiguous()
-            kw = {}
-            if int8:
-                k, ks = _quant_kv(k)
-                v, vs = _quant_kv(v)
-                kw = dict(k_scale=ks, v_scale=vs)
-            o = flash_decode(q, k, v, qpos, **kw)
-            ro = flash_decode_ref(q, k, v, qpos, **kw)
-            torch.cuda.synchronize()
-            err = (o.float() - ro.float()).abs().max().item()
-            if not torch.isfinite(o).all():
-                raise AssertionError(f"{name} T={t}: non-finite output")
-            torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
-                                       msg=lambda m: f"{name} T={t}: {m}")
-            # the work this qpos needs: each batch row reads its slots up to
-            # its window's last position; each query row scores (and sums
-            # values over) the keys at or before its own position
-            keys = int((qpos.amax(dim=1).long() + 1).clamp(max=S).sum())
-            kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8 else 0)
-            nbytes = 2 * 2 * B * t * HQ * DH + kv_bytes + 4 * B * t
-            scored = int((qpos.long() + 1).clamp(max=S).sum())
-            bms, by = bound_ms(nbytes, 4 * HQ * scored * DH, "bf16")
-            library = None
-            if not int8:       # SDPA with a boolean mask; int8 K/V has no such call
-                mask = (torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
-
-                def library():
-                    return F.scaled_dot_product_attention(
-                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        attn_mask=mask, enable_gqa=True).transpose(1, 2)
-
-                lib_err = (library().float() - ro.float()).abs().max().item()
-                if lib_err > SDPA_TOL:
-                    raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
-            rows.append(dict(shape=[B, t, HQ, HKV, S, DH], max_abs_err=err, bound_ms=bms,
-                             bound_by=by,
-                             **timed(torch, lambda: flash_decode(q, k, v, qpos, **kw),
-                                     lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
-                                     50, flush)))
-        results[name] = rows
+        results[name] = flash_chain_rows(torch, dev, g, flush, HQ, HKV, DH, S, int8)
 
     # -- int4_matmul: the W4A8 linears at the chain (M = 24) and tree (M = 88)
     #    verify windows, and a prefill GEMM; int8_matmul beside it as yardstick --
@@ -1956,6 +1993,343 @@ def moe_phase(torch, dev, flush):
     out["runs"] = runs
     return out, kern
 
+def ssd_update_rows(torch, dev, g, flush, shapes, **tag) -> list:
+    """``ssd_update`` at each (B, T, H, P, N, collect) of ``shapes``: states
+    bit-equal to its plain version (the token loop), y within rtol 1e-5 /
+    atol 1e-4 (the two sum N f32 products in different orders), timed
+    beside it.  Its bound is bytes: h0 and x, B, C, dt read once, y and the
+    kept states (every window position's with ``collect``) written once.
+    No PyTorch call computes the recurrence: library_ms stays null."""
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+    from repro_torch.models.ssm import softplus
+
+    rows = []
+    for b, t, h, p, n, collect in shapes:
+        x = torch.randn(b, t, h, p, generator=g, device=dev)
+        bm = torch.randn(b, t, n, generator=g, device=dev)
+        cm = torch.randn(b, t, n, generator=g, device=dev)
+        dt = softplus(torch.randn(b, t, h, generator=g, device=dev) - 4.0)
+        a = torch.linspace(1.0, 16.0, h, device=dev)
+        h0 = torch.randn(b, h, p, n, generator=g, device=dev) * 0.5
+        args = (x, bm, cm, dt, a, h0, collect)
+        y, st = ssd_update(*args)
+        ry, rst = ssd_update_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(st, rst):
+            raise AssertionError(f"ssd_update {(b, t, h, p, n, collect)}: states are not "
+                                 "bit-equal to the plain version's")
+        torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-4,
+                                   msg=lambda m: f"ssd_update {(b, t, h, p, n)}: {m}")
+        kept = b * t * h * p * n if collect else b * h * p * n
+        nbytes = 4 * (2 * b * t * h * p + 2 * b * t * n + b * t * h + h + b * h * p * n + kept)
+        bms, by = bound_ms(nbytes, 5 * b * t * h * p * n, "f32")
+        rows.append(dict(shape=[b, t, h, p, n], collect_states=collect, **tag,
+                         max_abs_err=(y - ry).abs().max().item(), bound_ms=bms, bound_by=by,
+                         **timed(torch, lambda: ssd_update(*args),
+                                 lambda: ssd_update_ref(*args), None, 50, flush)))
+    return rows
+
+
+def ssm_kernel_phase(torch, dev, flush) -> dict:
+    """Every kernel of the SSM phase's path at zamba2-2.7b's and
+    mamba2-370m's shapes, against its plain version: ``ssd_update`` at the
+    chain (T = γ+1) and vanilla (T = 1) windows with every state kept and at
+    the pruned draft's T = 1 without; chain ``flash_decode`` at zamba2's
+    head size 80 (bf16 and int8 K/V, beside SDPA); ``int8_matmul`` and
+    ``int4_matmul`` at ``in_proj`` (N 10448 and 4384: not multiples of 64),
+    ``out_proj``, the shared block's linears and zamba2's ``lm_head``;
+    ``norm_smooth_quant`` at the SSM pre-norm (1 reader) and the shared
+    block's norms (3 and 2); ``smooth_quant`` at ``out_proj``'s and the
+    shared o's and down's inputs."""
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    z, m2 = get_config(SSM_ARCHS[0]), get_config(SSM_ARCHS[1])
+    M = B * (GAMMA + 1)
+    out = {}
+    shapes = []
+    for cfg in (z, m2):
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        shapes += [(B, GAMMA + 1, H, P, N, True), (B, 1, H, P, N, True), (B, 1, H, P, N, False)]
+    out["ssd_update"] = ssd_update_rows(torch, dev, g, flush, shapes)
+    S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128
+    out["flash_decode_dh80"] = flash_chain_rows(torch, dev, g, flush, z.num_heads,
+                                                z.num_kv_heads, z.head_dim, S, False,
+                                                arch=z.name)
+    out["flash_decode_int8_dh80"] = flash_chain_rows(torch, dev, g, flush, z.num_heads,
+                                                     z.num_kv_heads, z.head_dim, S, True,
+                                                     arch=z.name)
+    gemms = []
+    for cfg in (z, m2):
+        D, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        gemms += [(M, D, 2 * di + 2 * N + H), (B, D, 2 * di + 2 * N + H), (M, di, D)]
+    gemms += [(M, z.d_model, z.q_dim), (M, z.d_model, z.d_ff), (M, z.d_ff, z.d_model),
+              (M, z.d_model, z.vocab_size)]
+    out["int8_matmul"] = int8_matmul_rows(torch, dev, g, flush, gemms, phase="ssm")
+    out["int4_matmul"] = int4_matmul_rows(torch, dev, g, flush, gemms, phase="ssm")
+    out["norm_smooth_quant"] = (
+        norm_smooth_quant_rows(torch, dev, g, flush, (B, M), z.d_model, 1, z.norm_eps,
+                               phase="ssm", arch=z.name)
+        + norm_smooth_quant_rows(torch, dev, g, flush, (M,), z.d_model, 3, z.norm_eps,
+                                 phase="ssm", arch=z.name)
+        + norm_smooth_quant_rows(torch, dev, g, flush, (M,), z.d_model, 2, z.norm_eps,
+                                 phase="ssm", arch=z.name)
+        + norm_smooth_quant_rows(torch, dev, g, flush, (B, M), m2.d_model, 1, m2.norm_eps,
+                                 phase="ssm", arch=m2.name))
+    out["smooth_quant"] = smooth_quant_rows(
+        torch, dev, g, flush, ((M, z.d_inner), (M, m2.d_inner), (M, z.q_dim), (M, z.d_ff)),
+        phase="ssm")
+    for name, rows in out.items():
+        for r in rows:
+            log(f"  {name:22s} {str(r['shape']):32s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']}")
+    return out
+
+
+def ssm_launches_per_chain_step(cfg) -> dict:
+    """The kernel launches of one W8A8 chain step of an SSM or hybrid
+    decoder, from the code: per SSM layer the pre-norm (fused with
+    in_proj's quantization), in_proj, ssd_update, out_proj's quantization
+    and out_proj; per shared-block application attn_norm (fused with q/k/v),
+    q/k/v, flash_decode, o's quantization and o, ffn_norm (fused with
+    gate/up), gate/up, down's quantization and down; then the final norm
+    fused with lm_head's quantization and lm_head, or, tied (mamba2), the
+    f32 logits product, no kernel of ours."""
+    from repro_torch.models.transformer import shared_attn_positions
+
+    L, A = cfg.num_layers, len(shared_attn_positions(cfg))
+    tied = cfg.tie_embeddings
+    out = {"norm_smooth_quant": L + 2 * A + (0 if tied else 1), "smooth_quant": L + 2 * A,
+           "int8_matmul": 2 * L + 7 * A + (0 if tied else 1), "ssd_update": L}
+    if A:
+        out["flash_decode"] = A
+    return out
+
+
+def ssm_phase(torch, dev, flush):
+    """``zamba2-2.7b`` at 54 of 54 layers and ``mamba2-370m`` at 48 of 48,
+    seeded random bf16 weights from the serve CLI's seed, s = 1,
+    gsm8k-preset 1024-token prompts, batch 4, 64 new tokens, greedy, every
+    decode step through CUDA graphs, the card empty at the start.  Kernels
+    first (:func:`ssm_kernel_phase`).  zamba2: ``generate`` with spec W8A8
+    (ngram γ 5, KV bf16), vanilla W8A8, spec and vanilla W4A8, spec and
+    vanilla W8A8 over an int8 KV cache, pruned W8A8 (retention 0.75), and
+    contiguous ``generate_requests`` (8 equal-length requests through 4
+    slots); mamba2: spec and vanilla W8A8.  Each run: launches read just
+    after it, a step (tick) window (unprofiled step ms, device busy ms per
+    step, idle share, launches per step), L, tokens/s, capture ms,
+    ``step_traces`` (one program), the share of its new tokens that occur
+    earlier in their row (all prompt lookup can draft); then again eagerly
+    (``graphs=False``): tokens and launches equal, bit for bit.  The W4A8
+    and int8-KV vanilla runs, there for the gates, skip the window and the
+    eager pass.  Gates: finite logits, every
+    kernel of the path launched, the W8A8 chain step's launches equal to
+    :func:`ssm_launches_per_chain_step`, greedy spec and pruned tokens ==
+    vanilla's of the same verifier and KV cache, and the scheduled
+    requests' tokens == the spec run's rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"  card at the SSM phase's start: {held / 1e9:.3f} GB allocated (the L2 flush "
+        "buffer included)")
+    if held > 2e9:
+        raise AssertionError(f"the SSM phase needs an empty card: {held / 1e9:.2f} GB held")
+    t_phase = time.perf_counter()
+    kern = ssm_kernel_phase(torch, dev, flush)
+    out = {"kernel_phase_s": time.perf_counter() - t_phase}
+    runs, toks, replayed = {}, {}, []
+    base = ("norm_smooth_quant", "smooth_quant", "ssd_update")
+
+    def replay_equals_eager(name, model, scfg, run, graph_out, graph_launches):
+        """The run again with ``graphs=False``: tokens and launches equal."""
+        gc.collect()
+        eng = SpecEngine(model, scfg, graphs=False)
+        ops.reset_launch_counts()
+        got = run(eng)
+        torch.cuda.synchronize()
+        if not torch.equal(got, graph_out):
+            raise AssertionError(f"{name}: eager tokens differ from replayed tokens")
+        if ops.launch_counts() != graph_launches:
+            raise AssertionError(f"{name}: launches differ between graphs and eager: "
+                                 f"{ops.launch_counts()} != {graph_launches}")
+
+    def seen_share(tokens) -> float:
+        """Share of the new tokens that already occur earlier in their row
+        (prompt or output): prompt lookup can draft a token only from
+        there."""
+        t = tokens.cpu().numpy()
+        seen = [t[b, i] in set(t[b, :i].tolist()) for b in range(t.shape[0])
+                for i in range(PROMPT, PROMPT + NEW)]
+        return sum(seen) / len(seen)
+
+    def generate_run(name, model, params, prompts, verifier, drafter, needed, full=True,
+                     **kw):
+        """One ``generate`` through graphs; ``full`` adds its step window and
+        its eager pass (replay ≡ eager)."""
+        t_run = time.perf_counter()
+        scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier, **kw)
+        eng = SpecEngine(model, scfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = eng.generate(params, prompts, NEW)
+        torch.cuda.synchronize()
+        info = dict(launches=ops.launch_counts(), tok_s=r.tokens_per_s, L=r.mean_accept_len,
+                    steps=r.steps, new_tokens=r.new_tokens, decode_s=r.wall_s,
+                    prefill_s=r.prefill_s,
+                    mean_step_ms=1e3 * (r.wall_s - r.capture_s) / max(r.steps, 1),
+                    capture_ms=1e3 * r.capture_s, step_traces=eng.step_traces,
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    bad_rows=int(r.bad.sum()))
+        missing = [k for k in needed if info["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
+        if info["bad_rows"]:
+            raise AssertionError(f"{name}: non-finite verifier logits in "
+                                 f"{info['bad_rows']} rows")
+        if r.new_tokens != B * NEW:
+            raise AssertionError(f"{name}: {r.new_tokens} new tokens, expected {B * NEW}")
+        if info["step_traces"] != 1:
+            raise AssertionError(f"{name}: {info['step_traces']} programs, expected 1")
+        info["seen_share"] = seen_share(r.tokens[:, :PROMPT + NEW])
+        if full:
+            info["window"] = step_window(torch, eng, params, prompts)
+        graph_out = r.tokens
+        toks[name] = r.tokens[:, PROMPT:PROMPT + NEW].cpu()
+        del eng, r
+        info["graph_s"] = time.perf_counter() - t_run
+        if full:
+            t_eager = time.perf_counter()
+            replay_equals_eager(name, model, scfg,
+                                lambda e: e.generate(params, prompts, NEW).tokens, graph_out,
+                                info["launches"])
+            info["eager_s"] = time.perf_counter() - t_eager
+            replayed.append(name)
+        w = info.get("window", {})
+        log(f"  {name}: L={info['L']:.3f} steps={info['steps']} tok/s={info['tok_s']:.1f} "
+            f"seen_share={info['seen_share']:.3f} step_ms={w.get('step_ms')} "
+            f"busy_ms={w.get('device_busy_ms_per_step')} idle={w.get('device_idle_share')} "
+            f"capture_ms={info['capture_ms']:.1f} launches/step={w.get('launches_per_step')} "
+            f"graph_s={info['graph_s']:.1f} eager_s={info.get('eager_s')}")
+        return info
+
+    def gate(name, ref):
+        if not torch.equal(toks[name], toks[ref]):
+            share = (toks[name] == toks[ref]).float().mean().item()
+            raise AssertionError(f"greedy {name} tokens differ from {ref}'s ({share:.4f} "
+                                 "shared)")
+        runs[name]["vs_vanilla_shared_tokens"] = 1.0
+
+    for arch in SSM_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        model = Model(cfg, device=dev)
+        raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+        prompts_np = task_prompts(serve.TASK, 2 * B, PROMPT, cfg.vocab_size)
+        prompts = torch.as_tensor(prompts_np[:B], device=dev, dtype=torch.int32)
+        attn = ("flash_decode",) if cfg.arch_type == "hybrid" else ()
+        tag = arch.split("-")[0]
+        info = dict(arch=arch, num_layers=cfg.num_layers,
+                    raw_gb=sum(t.numel() * t.element_size() for t in raw.buffers()) / 1e9)
+        for verifier in ("w8a8", "w4a8") if cfg.arch_type == "hybrid" else ("w8a8",):
+            prep = SpecEngine(model, SpecConfig(verifier=verifier)).prepare_params(raw)
+            gemm = ("int8_matmul",) if verifier == "w8a8" else ("int4_matmul",)
+            need = base + gemm + attn
+            runs[f"{tag}_spec_{verifier}"] = generate_run(
+                f"{tag}_spec_{verifier}", model, prep, prompts, verifier, "ngram", need)
+            runs[f"{tag}_vanilla_{verifier}"] = generate_run(
+                f"{tag}_vanilla_{verifier}", model, prep, prompts, verifier, "vanilla", need,
+                full=verifier == "w8a8")
+            gate(f"{tag}_spec_{verifier}", f"{tag}_vanilla_{verifier}")
+            if verifier != "w8a8":
+                del prep
+                continue
+            per_step = runs[f"{tag}_spec_w8a8"]["window"]["launches_per_step"]
+            want = ssm_launches_per_chain_step(cfg)
+            if per_step != want:
+                raise AssertionError(f"{arch} W8A8 chain step launches {per_step}, "
+                                     f"expected {want}")
+            if cfg.arch_type == "hybrid":
+                model8 = Model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device=dev)
+                need8 = base + gemm + ("flash_decode_int8",)
+                runs[f"{tag}_spec_w8a8_kv_int8"] = generate_run(
+                    f"{tag}_spec_w8a8_kv_int8", model8, prep, prompts, "w8a8", "ngram", need8)
+                runs[f"{tag}_vanilla_w8a8_kv_int8"] = generate_run(
+                    f"{tag}_vanilla_w8a8_kv_int8", model8, prep, prompts, "w8a8", "vanilla",
+                    need8, full=False)
+                gate(f"{tag}_spec_w8a8_kv_int8", f"{tag}_vanilla_w8a8_kv_int8")
+                runs[f"{tag}_pruned_w8a8"] = generate_run(
+                    f"{tag}_pruned_w8a8", model, prep, prompts, "w8a8", "pruned", need,
+                    pruned_retention=0.75)
+                gate(f"{tag}_pruned_w8a8", f"{tag}_vanilla_w8a8")
+                # contiguous generate_requests: 8 equal-length requests, 4 slots
+                scfg = SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8")
+                reqs = [GenerationRequest(p, NEW, seed=i) for i, p in enumerate(prompts_np)]
+                eng = SpecEngine(model, scfg)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t_run = t0 = time.perf_counter()
+                res = eng.generate_requests(prep, reqs, batch_slots=B)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                g0 = eng.group_stats[0]
+                sched = dict(launches=ops.launch_counts(), wall_s=wall, steps=g0["steps"],
+                             served_tok_s=sum(r.new_tokens for r in res) / wall,
+                             L=sum(r.accept_len for r in res) / len(res),
+                             capture_ms=1e3 * eng.capture_s, step_traces=eng.step_traces,
+                             bad_rows=sum(int(r.bad) for r in res))
+                if sched["bad_rows"] or any(r.tokens.size != NEW for r in res):
+                    raise AssertionError(f"{tag} generate_requests: a request failed or "
+                                         "tripped the NaN flag")
+                missing = [k for k in need if sched["launches"].get(k, 0) <= 0]
+                if missing:
+                    raise AssertionError(f"{tag} generate_requests: kernels never launched "
+                                         f"on the path: {missing}")
+                if sched["step_traces"] != 1:
+                    raise AssertionError(f"{tag} generate_requests: {sched['step_traces']} "
+                                         "programs, expected 1")
+                got = torch.as_tensor(np.stack([r.tokens for r in res]))
+                if not torch.equal(got[:B], toks[f"{tag}_spec_w8a8"]):
+                    raise AssertionError(f"{tag} generate_requests: tokens differ from the "
+                                         "spec run's rows")
+                sched["window"] = tick_window(torch, eng, prep, window_requests(prompts_np))
+                del eng, res
+                sched["graph_s"] = time.perf_counter() - t_run
+                t_eager = time.perf_counter()
+                replay_equals_eager(f"{tag}_requests_w8a8", model, scfg, lambda e: torch.as_tensor(
+                    np.stack([r.tokens for r in e.generate_requests(prep, reqs,
+                                                                    batch_slots=B)])),
+                    got, sched["launches"])
+                sched["eager_s"] = time.perf_counter() - t_eager
+                replayed.append(f"{tag}_requests_w8a8")
+                runs[f"{tag}_requests_w8a8"] = sched
+                log(f"  {tag}_requests_w8a8: {json.dumps(sched)}")
+                del model8
+            del prep
+        del raw, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["phase_s"] = time.perf_counter() - t_arch
+        out[tag] = info
+    out["replay_equals_eager"] = sorted(replayed)
+    out["runs"] = runs
+    return out, kern
+
 
 def main() -> int:
     import torch
@@ -2034,6 +2408,16 @@ def main() -> int:
     for kname, rows in moe_kern.items():        # the MoE phase's rows after the 7B ones
         kern.setdefault(kname, []).extend(rows)
     runs.update(moe_out.pop("runs"))
+    log("SSM phase")
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    ssm_out, ssm_kern = ssm_phase(torch, dev, flush)
+    del flush
+    ssm_out["phase_s"] = time.perf_counter() - t0
+    log(f"  SSM phase: {ssm_out['phase_s']:.1f} s")
+    for kname, rows in ssm_kern.items():        # the SSM phase's rows after the others
+        kern.setdefault(kname, []).extend(rows)
+    runs.update(ssm_out.pop("runs"))
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -2059,18 +2443,30 @@ def main() -> int:
         # not a TPU kernel: the reference's expert product is a jnp dot_general
         "int8_matmul_batched": ("src/repro_torch/csrc/int8_matmul.cu",
                                 "src/repro/models/moe.py:72", "moe_spec_w8a8"),
+        # not a TPU kernel: the reference's SSD recurrence is a lax.scan
+        "ssd_update": ("src/repro_torch/csrc/ssd_update.cu", "src/repro/models/ssm.py:89",
+                       "zamba2_spec_w8a8"),
+        # zamba2's shared attention, head size 80 (counted as flash_decode[_int8])
+        "flash_decode_dh80": ("src/repro_torch/csrc/flash_decode.cu",
+                              "src/repro/kernels/flash_decode.py:117", "zamba2_spec_w8a8"),
+        "flash_decode_int8_dh80": ("src/repro_torch/csrc/flash_decode.cu",
+                                   "src/repro/kernels/flash_decode.py:134",
+                                   "zamba2_spec_w8a8_kv_int8"),
     }
+    counter = {"flash_decode_dh80": "flash_decode", "flash_decode_int8_dh80": "flash_decode_int8"}
     # the representative main-path shape of each kernel in the summary line
     pick = {"smooth_quant": 0, "norm_smooth_quant": 1, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
             "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
             "int8_matmul_batched": 2,                              # up/gate, chain C 3
+            "ssd_update": 0, "flash_decode_dh80": 0, "flash_decode_int8_dh80": 0,   # zamba2 chain
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
         row = kern[kname][pick[kname]]
+        key = counter.get(kname, kname)
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=runs[run]["launches"].get(kname, 0),
+            launches=runs[run]["launches"].get(key, 0),
             max_abs_err=max(r["max_abs_err"] for r in kern[kname]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], shape=row["shape"],
@@ -2078,15 +2474,15 @@ def main() -> int:
             **{k: row[k] for k in ("yardstick_contiguous_ms", "yardstick_int8_matmul_ms",
                                    "yardstick_bmm_bf16_ms")
                if k in row},
-            launches_by_run={k: v["launches"].get(kname, 0) for k, v in runs.items()
-                             if isinstance(v, dict)}))
+            launches_by_run={k: v["launches"].get(key, 0) for k, v in runs.items()
+                             if isinstance(v, dict) and "launches" in v}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(device=device_name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph, server=server, moe=moe_out),
+             graph=graph, server=server, moe=moe_out, ssm=ssm_out),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,15 @@ din) with din contiguous, and ``w_int4`` as (dout, din/2)
 (models/linear.py), and ``to_numpy`` transposes both back.  An MoE layer
 (``{"moe": {"router", "up", "gate", "down"[, "dense"]}}``) carries batched
 expert tensors: ``w`` (E, din, dout), or ``w_int8`` stored (E, dout, din)
-with ``w_scale`` (E, dout), transposed the same way.  ``cache_from_numpy`` /
-``cache_to_numpy`` do the same for a contiguous or paged cache pytree.
+with ``w_scale`` (E, dout), transposed the same way.  An SSM block
+(``{"norm", "ssm": {"in_proj", "out_proj", "conv_w", "conv_b", "A_log",
+"D_skip", "dt_bias", "norm"}}``) and zamba2's ``shared_attn`` block map onto
+``SSMBlock`` and a dense ``Block``.  ``cache_from_numpy`` /
+``cache_to_numpy`` do the same for a contiguous or paged cache pytree,
+with its ``"shared"`` attention caches and SSM layers (``{"state",
+"conv"}``, or a verify candidate ``{"states_all", "xbc_pad"}``: the port's
+candidate also carries the layer's own ``state`` and ``conv``, which
+``cache_to_numpy`` leaves out).
 
 JAX bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they cross as their 16-bit patterns
@@ -30,7 +37,8 @@ from repro_torch.models.ffn import FFN
 from repro_torch.models.linear import (ExpertLinear, Linear, W4A8Linear, W8A8ExpertLinear,
                                        W8A8Linear)
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import Block, Embed, Transformer
+from repro_torch.models.ssm import SSM
+from repro_torch.models.transformer import Block, Embed, SSMBlock, Transformer
 
 
 def tensor(a, device) -> torch.Tensor:
@@ -87,20 +95,33 @@ def _norm(cfg, p: dict, device) -> Norm:
     return n
 
 
+def _block(cfg, lp: dict, dev) -> Block:
+    a = lp["attn"]
+    attn = Attention(cfg, *(_linear(a[n], dev) for n in ("q", "k", "v", "o")))
+    return Block(_norm(cfg, lp["attn_norm"], dev), attn, _norm(cfg, lp["ffn_norm"], dev),
+                 ffn=_ffn(cfg, lp["ffn"], dev) if "ffn" in lp else None,
+                 moe=_moe(cfg, lp["moe"], dev) if "moe" in lp else None)
+
+
+_SSM_BUFFERS = ("conv_w", "conv_b", "A_log", "D_skip", "dt_bias")
+
+
+def _ssm_block(cfg, lp: dict, dev) -> SSMBlock:
+    p = lp["ssm"]
+    ssm = SSM(cfg, _linear(p["in_proj"], dev), _linear(p["out_proj"], dev),
+              *(tensor(p[n], dev) for n in _SSM_BUFFERS), _norm(cfg, p["norm"], dev))
+    return SSMBlock(_norm(cfg, lp["norm"], dev), ssm)
+
+
 def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
     """Reference parameter pytree (numpy leaves) → the port's parameters."""
     dev = resolve_device(device)
-    layers = []
-    for lp in tree["layers"]:
-        a = lp["attn"]
-        attn = Attention(cfg, *(_linear(a[n], dev) for n in ("q", "k", "v", "o")))
-        layers.append(Block(_norm(cfg, lp["attn_norm"], dev), attn,
-                            _norm(cfg, lp["ffn_norm"], dev),
-                            ffn=_ffn(cfg, lp["ffn"], dev) if "ffn" in lp else None,
-                            moe=_moe(cfg, lp["moe"], dev) if "moe" in lp else None))
+    layers = [_ssm_block(cfg, lp, dev) if "ssm" in lp else _block(cfg, lp, dev)
+              for lp in tree["layers"]]
     lm_head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
+    shared = _block(cfg, tree["shared_attn"], dev) if "shared_attn" in tree else None
     return Transformer(cfg, Embed(tensor(tree["embed"]["w"], dev)), layers,
-                       _norm(cfg, tree["final_norm"], dev), lm_head)
+                       _norm(cfg, tree["final_norm"], dev), lm_head, shared)
 
 
 def _linear_np(m) -> dict:
@@ -134,45 +155,63 @@ def _norm_np(n: Norm) -> dict:
     return out
 
 
+def _block_np(blk: Block) -> dict:
+    attn = {n: _linear_np(getattr(blk.attn, n)) for n in ("q", "k", "v", "o")}
+    layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": attn,
+             "ffn_norm": _norm_np(blk.ffn_norm)}
+    if blk.moe is not None:
+        moe = {n: _linear_np(getattr(blk.moe, n)) for n in ("router", "up", "down")}
+        if blk.moe.gate is not None:
+            moe["gate"] = _linear_np(blk.moe.gate)
+        if blk.moe.dense is not None:
+            moe["dense"] = _ffn_np(blk.moe.dense)
+        layer["moe"] = moe
+    else:
+        layer["ffn"] = _ffn_np(blk.ffn)
+    return layer
+
+
+def _ssm_block_np(blk: SSMBlock) -> dict:
+    ssm = {"in_proj": _linear_np(blk.ssm.in_proj), "out_proj": _linear_np(blk.ssm.out_proj),
+           **{n: array(getattr(blk.ssm, n)) for n in _SSM_BUFFERS},
+           "norm": _norm_np(blk.ssm.norm)}
+    return {"norm": _norm_np(blk.norm), "ssm": ssm}
+
+
 def to_numpy(params: Transformer) -> dict:
     """The port's parameters → the reference's pytree layout (numpy)."""
-    layers = []
-    for blk in params.layers:
-        attn = {n: _linear_np(getattr(blk.attn, n)) for n in ("q", "k", "v", "o")}
-        layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": attn,
-                 "ffn_norm": _norm_np(blk.ffn_norm)}
-        if blk.moe is not None:
-            moe = {n: _linear_np(getattr(blk.moe, n)) for n in ("router", "up", "down")}
-            if blk.moe.gate is not None:
-                moe["gate"] = _linear_np(blk.moe.gate)
-            if blk.moe.dense is not None:
-                moe["dense"] = _ffn_np(blk.moe.dense)
-            layer["moe"] = moe
-        else:
-            layer["ffn"] = _ffn_np(blk.ffn)
-        layers.append(layer)
+    layers = [_ssm_block_np(blk) if isinstance(blk, SSMBlock) else _block_np(blk)
+              for blk in params.layers]
     tree = {"embed": {"w": array(params.embed.w)}, "layers": layers,
             "final_norm": _norm_np(params.final_norm)}
     if params.lm_head is not None:
         tree["lm_head"] = _linear_np(params.lm_head)
+    if params.shared_attn is not None:
+        tree["shared_attn"] = _block_np(params.shared_attn)
     return tree
 
 
 def cache_from_numpy(tree: dict, device="cuda") -> dict:
     """Reference cache pytree (numpy leaves) → the port's cache: contiguous
-    ``{"layers": [{"k","v"[,scales]}]}``, or paged with the pools as the
-    layers and the block table ``"bt"`` beside them."""
+    ``{"layers": [{"k","v"[,scales]} or {"state","conv"}], "shared": [...]}``,
+    or paged with the pools as the layers and the block table ``"bt"``
+    beside them."""
     dev = resolve_device(device)
-    out = {"layers": [{k: tensor(v, dev) for k, v in layer.items()}
-                      for layer in tree["layers"]]}
+    out = {name: [{k: tensor(v, dev) for k, v in layer.items()} for layer in tree[name]]
+           for name in ("layers", "shared") if name in tree}
     if "bt" in tree:
         out["bt"] = tensor(tree["bt"], dev)
     return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    out = {"layers": [{k: array(v) for k, v in layer.items()}
-                      for layer in cache["layers"]]}
+    def layer_np(layer):
+        cand = "states_all" in layer     # a verify candidate: the reference's keys
+        return {k: array(v) for k, v in layer.items()
+                if not (cand and k in ("state", "conv"))}
+
+    out = {name: [layer_np(layer) for layer in cache[name]]
+           for name in ("layers", "shared") if name in cache}
     if "bt" in cache:
         out["bt"] = array(cache["bt"])
     return out

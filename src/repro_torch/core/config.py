@@ -8,8 +8,9 @@ torch dtype.
 * :class:`SpecConfig`  — speculative-decoding settings (drafting + verify).
 
 The port so far runs the dense and MoE decoders over a contiguous or
-paged KV cache; the fields of the other families are kept for parity and
-rejected where they would be read.
+paged KV cache, and the SSM (Mamba2) and hybrid (zamba2) decoders over a
+contiguous KV/SSM cache; the fields of the other families are kept for
+parity and rejected where they would be read.
 """
 from __future__ import annotations
 
@@ -96,6 +97,14 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family: ≤2 layers, d_model ≤ 512."""

@@ -131,7 +131,13 @@ class PrunedDrafter(Drafter):
     their own KV cache (the drafter state, updated in place); the full
     model verifies.  At T > 0 each row draws its tokens from its own
     generator, and ``probs`` carries the draft distribution q for the full
-    Eq. 2 ratio."""
+    Eq. 2 ratio.
+
+    On an SSM or hybrid model the draft cache holds the first ``n_keep``
+    layers' recurrent states, and ``propose`` steps them gamma tokens per
+    step with no rollback, as the reference does: the next step drafts
+    from states that have also seen the rejected drafts.  Drafts stay
+    lossless (the full model verifies); only L depends on it."""
 
     def __init__(self, gamma: int = 5, retention: float = 0.75,
                  temperature: float = 0.0):
@@ -165,11 +171,13 @@ class PrunedDrafter(Drafter):
                     draft_params=None):
         """Zero the draft cache's row ``row`` and prefill the unpadded
         ``prompt`` (1, P) into it, in place (the row views write through)."""
-        rows = {"layers": [{name: t[row:row + 1] for name, t in layer.items()}
-                           for layer in dstate["layers"]]}
-        for layer in rows["layers"]:
-            for t in layer.values():
-                t.zero_()
+        from repro_torch.models.transformer import cache_rows
+
+        rows = cache_rows(dstate, row)
+        for layers in rows.values():
+            for layer in layers:
+                for t in layer.values():
+                    t.zero_()
         model.prefill(draft_params if draft_params is not None else params, rows,
                       prompt[:, :-1], num_layers=self.n_keep(model))
         return dstate

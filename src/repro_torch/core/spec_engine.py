@@ -102,7 +102,8 @@ def make_decode_step(model, drafter, verifier, scfg):
         if model.cfg.arch_type in ("ssm", "hybrid"):
             raise ValueError(
                 f"tree speculation needs attention-family caches; "
-                f"{model.cfg.arch_type!r} caches are recurrent")
+                f"{model.cfg.arch_type!r} caches are recurrent (per-node "
+                "state branching is a ROADMAP follow-up)")
         if model.cfg.sliding_window:
             raise ValueError(
                 "tree speculation requires a contiguous KV cache; sliding-window "

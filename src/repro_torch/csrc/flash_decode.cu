@@ -683,8 +683,9 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
 // split j's maximum and sum (all splits at once), the row's maximum M is
 // their warp max, and the splits are then folded in split order — each
 // split's weight exp(m_j - M) broadcast from its lane — into l and the
-// lane's DH/32 output dims (coalesced rows of the partial accumulators).
-// Only the live splits are read.
+// lane's output dims lane, lane + 32, ... below DH (coalesced rows of the
+// partial accumulators; at DH 80 lanes 0-15 take a third dim).  Only the
+// live splits are read.
 constexpr int kMergeRows = 8;
 
 template <typename QT, int DH>
@@ -693,9 +694,11 @@ flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
                    const float* __restrict__ part_acc, const int* __restrict__ qpos,
                    const int* __restrict__ win_start, QT* __restrict__ out, int T,
                    int Hq, int Hkv, int S, int nsplit) {
-  constexpr int DPL = DH / 32;  // output dims per lane
+  constexpr int DPL = (DH + 31) / 32;  // output dims per lane (the last may be partial)
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
   const int G = Hq / Hkv, R = G * T, lane = threadIdx.x & 31;
+  // dim lane + 32e exists: always when DH is a multiple of 32
+  auto has = [&](int e) { return DH % 32 == 0 || 32 * e + lane < DH; };
   const int r = blockIdx.y * kMergeRows + (threadIdx.x >> 5);
   if (r >= R) return;
   const int g = r / T, t = r % T;
@@ -718,13 +721,15 @@ flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
       l += __shfl_sync(0xffffffffu, l_j, i) * w;
       const float* a = part_acc + (base + static_cast<int64_t>(j0 + i) * R) * DH + lane;
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) o[e] += a[32 * e] * w;
+      for (int e = 0; e < DPL; ++e)
+        if (has(e)) o[e] += a[32 * e] * w;
     }
   }
   const float denom = fmaxf(l, 1e-30f);
   QT* dst = out + ((static_cast<int64_t>(b) * T + t) * Hq + h * G + g) * DH + lane;
 #pragma unroll
-  for (int e = 0; e < DPL; ++e) store(dst + 32 * e, o[e] / denom);
+  for (int e = 0; e < DPL; ++e)
+    if (has(e)) store(dst + 32 * e, o[e] / denom);
 }
 
 // Everything a launch needs beyond the template arguments.
@@ -789,6 +794,8 @@ int launch_dh(int dh, const Args& a, const Rows rows) {
       return launch<QT, KVT, 32>(a, rows);
     case 64:
       return launch<QT, KVT, 64>(a, rows);
+    case 80:  // zamba2's shared attention (2560 / 32 heads)
+      return launch<QT, KVT, 80>(a, rows);
     case 128:
       return launch<QT, KVT, 128>(a, rows);
     default:

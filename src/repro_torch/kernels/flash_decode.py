@@ -43,7 +43,7 @@ CHUNK = 32                 # keys per online-softmax step (a copy group of the r
 RING = 3                   # K/V chunks staged at once in the tensor-core body
 TILE = 16                  # query rows per warp in the tensor-core body
 MMA_ROWS = 128             # most query rows per block in the tensor-core body
-HEAD_DIMS = (32, 64, 128)  # head sizes the kernel is instantiated for
+HEAD_DIMS = (32, 64, 80, 128)  # head sizes the kernel is instantiated for
 MAX_SMEM = 232448          # bytes of shared memory a block may use (H100)
 
 

@@ -34,7 +34,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = _CSRC / "_build"
-SOURCES = ("smooth_quant", "int8_matmul", "int4_matmul", "flash_decode")
+SOURCES = ("smooth_quant", "int8_matmul", "int4_matmul", "flash_decode", "ssd_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

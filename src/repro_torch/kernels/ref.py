@@ -13,6 +13,7 @@ from repro_torch.kernels.flash_decode import flash_decode_paged_ref, flash_decod
 from repro_torch.kernels.int4_matmul import int4_matmul_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.smooth_quant import EPS, INT8_MAX, smooth_quant_ref
+from repro_torch.kernels.ssd_update import ssd_update_ref  # noqa: F401
 
 
 def quantize_symmetric(x: torch.Tensor, dim: int):

@@ -26,6 +26,12 @@ falling back.  On the card the decode step is a CUDA graph
       --drafter pruned --pruned-retention 0.5
   python -m repro_torch.launch.serve --arch quasar-paper-7b --kv-layout paged \
       --batch 12 --prompt-len 1024 --new-tokens 64
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --verifier w8a8 \
+      --drafter ngram --batch 4 --prompt-len 1024 --new-tokens 64
+
+The SSM and hybrid models (``mamba2-370m``, ``zamba2-2.7b``) run on the
+contiguous cache; the engine refuses token trees, ``--kv-layout paged`` and
+``--serve`` for them (their caches are recurrent), as the reference does.
   python -m repro_torch.launch.serve --arch smollm-135m --reduced --device cpu \
       --serve --requests 8 --arrival-rate 4 --fault-plan nan_verify@2 \
       --trace-out trace.json --metrics-out metrics.json --prom-out metrics.prom

@@ -75,6 +75,18 @@ def row_mean(x32: torch.Tensor) -> torch.Tensor:
     return s.sum(dim=-1, keepdim=True) / d
 
 
+def fixed_rows_matmul(x32: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """(n, D) f32 × (D, E) f32 → (n, E).  On the card in zero-padded
+    chunks of ``rows`` rows, each the same GEMM shape, so a row's result
+    depends neither on n nor on where the row sits (cuBLAS picks its kernel,
+    and with it the reduction order, from M); the CPU takes one product."""
+    if x32.device.type != "cuda":
+        return x32 @ w
+    n = x32.shape[0]
+    x32 = F.pad(x32, (0, 0, 0, -n % rows))
+    return torch.cat([c @ w for c in x32.split(rows)])[:n]
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = row_mean(x32.square())

@@ -78,9 +78,12 @@ class Model:
         ``tree_bits``) make the window a packed token tree
         (``core/tree.TreeTemplate``): node positions follow depth, cache
         slots follow packed order.  Returns (logits, candidate cache);
-        resolve with :meth:`commit` (chain) or :meth:`commit_tree`."""
+        resolve with :meth:`commit` (chain) or :meth:`commit_tree`.  SSM
+        layers keep every window position's state for the commit
+        (``collect_states``)."""
         return params(window_tokens, start, cache=cache, num_layers=num_layers,
-                      tree_depths=tree_depths, tree_mask=tree_mask, tree_bits=tree_bits)
+                      tree_depths=tree_depths, tree_mask=tree_mask, tree_bits=tree_bits,
+                      collect_states=True)
 
     def decode_step(self, params: Transformer, cache: dict, token, start,
                     num_layers=None):
@@ -88,6 +91,8 @@ class Model:
         return params(token, start, cache=cache, num_layers=num_layers)
 
     def commit(self, cache: dict, n_last) -> dict:
+        """Chain commit: SSM layers keep the state after window token
+        ``n_last`` (``transformer.commit_cache``)."""
         return transformer.commit_cache(self.cfg, cache, n_last)
 
     def commit_tree(self, cache: dict, start, path_nodes, n_accept) -> dict:

@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, fixed_rows_matmul
 from repro_torch.models.ffn import FFN
 from repro_torch.models.linear import ExpertLinear, Linear
 from repro_torch.quant.smoothquant import record_act_stats
@@ -79,13 +79,7 @@ def router_logits(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     in zero-padded chunks of ROUTER_ROWS rows, each the same GEMM shape, so
     a row's logits do not depend on n (cuBLAS picks its kernel, and with it
     the reduction order, from M)."""
-    x32 = xf.float()
-    if x32.device.type != "cuda":
-        return x32 @ w
-    n = x32.shape[0]
-    x32 = F.pad(x32, (0, 0, 0, -n % ROUTER_ROWS))
-    out = torch.cat([c @ w for c in x32.split(ROUTER_ROWS)])
-    return out[:n]
+    return fixed_rows_matmul(xf.float(), w, ROUTER_ROWS)
 
 
 def top_k(probs: torch.Tensor, k: int):

@@ -1,13 +1,20 @@
-"""Decoder stack — port of the ``dense`` and ``moe`` paths of
+"""Decoder stack — port of the ``dense``, ``moe`` and ``ssm`` paths of
 ``repro/models/transformer.py``: self-attention + FFN (or MoE FFN) blocks
-over a contiguous or paged KV cache, with the pruned-stack (``num_layers``)
-and token-tree verify windows, and the tree commit.
+over a contiguous or paged KV cache, Mamba2 blocks over a recurrent SSM
+cache, and zamba2's shared attention block, with the pruned-stack
+(``num_layers``) and token-tree verify windows, and both commits.
 
 The parameter tree is an ``nn.Module`` tree whose submodule paths are the
 reference pytree's paths (``embed/w``, ``layers/<i>/attn/q``,
 ``layers/<i>/ffn/up``, ``layers/<i>/moe/{router,up,gate,down,dense}``,
-``final_norm``, ``lm_head``), so calibration statistics, quantization and
-the weight bridge address linears by the same names.
+``layers/<i>/norm``, ``layers/<i>/ssm/{in_proj,out_proj,conv_w,…}``,
+``shared_attn/{attn,ffn}/…``, ``final_norm``, ``lm_head``), so calibration
+statistics, quantization and the weight bridge address linears by the same
+names.
+
+zamba2 (``hybrid``) applies one shared attention+FFN block (a single
+parameter set) after every ``attn_every``-th SSM layer, each application
+with its own KV cache in the cache's ``"shared"`` list.
 """
 from __future__ import annotations
 
@@ -19,15 +26,28 @@ from torch import nn
 
 from repro_torch.core.paged_cache import physical_slots
 from repro_torch.models.attention import Attention, init_attn_cache
-from repro_torch.models.common import Norm, embed_init
+from repro_torch.models.common import Norm, embed_init, fixed_rows_matmul
 from repro_torch.models.ffn import FFN, apply_linear
 from repro_torch.models.linear import Linear
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import SSM, commit_ssm_cache, init_ssm_cache
+
+
+TIED_ROWS = 32     # rows per tied-logits GEMM on the card (one shape, one kernel)
+
+
+def tied_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(…, D) × the tied embedding (V, D) → (…, V) f32 logits, the
+    reference's ``x.f32 @ embed.f32.T``, taken in fixed chunks of TIED_ROWS
+    rows on the card so that a row's logits do not depend on the window
+    or batch it came in (vanilla's 4 rows against a verify window's 24)."""
+    out = fixed_rows_matmul(x.float().reshape(-1, x.shape[-1]), w.float().T, TIED_ROWS)
+    return out.reshape(*x.shape[:-1], w.shape[0])
 
 
 def layer_kinds(cfg) -> List[str]:
-    """Each layer's kind, as the reference derives it (``dense`` or ``moe``
-    among the families the port runs; ``ssm``, ``cross`` and ``audio`` for
+    """Each layer's kind, as the reference derives it (``dense``, ``moe`` or
+    ``ssm`` among the families the port runs; ``cross`` and ``audio`` for
     the others)."""
     kinds = []
     for i in range(cfg.num_layers):
@@ -44,11 +64,18 @@ def layer_kinds(cfg) -> List[str]:
     return kinds
 
 
+def shared_attn_positions(cfg) -> List[int]:
+    """The layers after which zamba2's shared attention block applies."""
+    if cfg.arch_type != "hybrid" or not cfg.attn_every:
+        return []
+    return [i for i in range(cfg.num_layers) if (i + 1) % cfg.attn_every == 0]
+
+
 def check_supported(cfg) -> None:
-    if (cfg.arch_type not in ("dense", "moe") or cfg.sliding_window or cfg.encoder_layers
-            or set(layer_kinds(cfg)) - {"dense", "moe"}):
+    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.sliding_window
+            or cfg.encoder_layers or set(layer_kinds(cfg)) - {"dense", "moe", "ssm"}):
         raise NotImplementedError(
-            f"the port runs dense and MoE full-attention decoders; "
+            f"the port runs dense, MoE, SSM and hybrid full-attention decoders; "
             f"{cfg.name} ({cfg.arch_type}, window={cfg.sliding_window}) waits "
             "for a later slice")
     if cfg.attn_impl != "auto":
@@ -102,38 +129,70 @@ class Block(nn.Module):
         return x, cache
 
 
+class SSMBlock(nn.Module):
+    """Mamba2 block: x + ssm(norm(x)).  On the card the pre-norm quantizes
+    for ``in_proj`` in the same launch when it is W8A8/W4A8
+    (``models/common.Norm``)."""
+
+    def __init__(self, norm: Norm, ssm: SSM):
+        super().__init__()
+        self.norm, self.ssm = norm, ssm
+
+    @classmethod
+    def init(cls, generator, cfg, device):
+        return cls(Norm(cfg, cfg.d_model, device), SSM.init(generator, cfg, device))
+
+    def forward(self, x, cache=None, *, collect_states=False, collect=None, path=""):
+        h, cache = self.ssm(self.norm(x, () if collect is not None else self.ssm.readers()),
+                            cache, collect_states=collect_states, collect=collect,
+                            path=f"{path}/ssm")
+        return x + h, cache
+
+
 class Transformer(nn.Module):
-    """The parameter tree and the forward pass of one dense or MoE decoder."""
+    """The parameter tree and the forward pass of one dense, MoE, SSM or
+    hybrid decoder."""
 
     def __init__(self, cfg, embed: Embed, layers, final_norm: Norm,
-                 lm_head: Optional[nn.Module]):
+                 lm_head: Optional[nn.Module], shared_attn: Optional[Block] = None):
         super().__init__()
         check_supported(cfg)
+        if bool(shared_attn_positions(cfg)) != (shared_attn is not None):
+            raise ValueError("a hybrid decoder has exactly one shared attention block")
         self.cfg = cfg
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.lm_head = lm_head
+        self.shared_attn = shared_attn
 
     @classmethod
     def init(cls, cfg, generator: torch.Generator, device) -> "Transformer":
         """Seeded random weights with the reference's distributions."""
         check_supported(cfg)
-        layers = [Block.init(generator, cfg, device, kind) for kind in layer_kinds(cfg)]
+        layers = [SSMBlock.init(generator, cfg, device) if kind == "ssm"
+                  else Block.init(generator, cfg, device, kind) for kind in layer_kinds(cfg)]
         lm_head = (None if cfg.tie_embeddings else
                    Linear.init(generator, cfg.d_model, cfg.vocab_size, False, cfg.dtype, device))
         embed = Embed(embed_init(generator, (cfg.vocab_size, cfg.d_model), cfg.dtype, device))
-        return cls(cfg, embed, layers, Norm(cfg, cfg.d_model, device), lm_head)
+        shared = (Block.init(generator, cfg, device, "dense") if shared_attn_positions(cfg)
+                  else None)
+        return cls(cfg, embed, layers, Norm(cfg, cfg.d_model, device), lm_head, shared)
 
     def forward(self, tokens, start, *, cache: Optional[dict] = None,
                 read_cache: bool = True, collect=None, need_logits: bool = True,
                 path: str = "", num_layers: Optional[int] = None,
                 tree_depths=None, tree_mask=None, tree_bits=None,
-                plain_attn: bool = False, aux: Optional[list] = None):
+                plain_attn: bool = False, aux: Optional[list] = None,
+                collect_states: bool = False):
         """tokens (B,T) int, start (B,) first position →
         (logits (B,T,V) f32 or None, cache or None).  ``aux``: a list each
         MoE layer appends its load-balance loss to (``Model.forward``); the
         decode and verify steps pass none and compute none.
+        ``collect_states`` (the speculative verify window) makes each SSM
+        layer's entry of the returned cache a candidate for
+        :func:`commit_cache` (``models/ssm.py``); every other cache entry is
+        written in place.
 
         ``num_layers`` runs the first layers only (the pruned drafter); the
         final norm and ``lm_head`` still apply.  ``tree_depths`` (T,) and
@@ -164,16 +223,31 @@ class Transformer(nn.Module):
         else:
             qpos = (start[:, None] + arange).to(torch.int32)
         x = self.embed.w[tokens.long()].to(cfg.dtype)
+        shared_pos = shared_attn_positions(cfg)
+        shared_caches = (cache.get("shared") or []) if cache is not None else []
+        new_layers, shared_i = [], 0
         for i, blk in enumerate(self.layers[:num_layers or cfg.num_layers]):
             lcache = cache["layers"][i] if cache is not None else None
-            x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
-                            path=f"{path}layers/{i}", tree=tree,
-                            block_tables=block_tables, plain_attn=plain_attn, aux=aux)
+            if isinstance(blk, SSMBlock):
+                x, lcache = blk(x, lcache, collect_states=collect_states, collect=collect,
+                                path=f"{path}layers/{i}")
+            else:
+                x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
+                                path=f"{path}layers/{i}", tree=tree,
+                                block_tables=block_tables, plain_attn=plain_attn, aux=aux)
+            new_layers.append(lcache)
+            if i in shared_pos:        # zamba2: the shared block, its own KV cache
+                scache = shared_caches[shared_i] if shared_caches else None
+                x, _ = self.shared_attn(x, qpos, scache, read_cache=read_cache,
+                                        collect=collect, path=f"{path}shared_attn",
+                                        plain_attn=plain_attn)
+                shared_i += 1
+        if cache is not None and any(a is not b for a, b in zip(new_layers, cache["layers"])):
+            cache = {**cache, "layers": new_layers}     # SSM verify candidates
         logits = None
         if need_logits:
             if cfg.tie_embeddings:
-                x = self.final_norm(x)
-                logits = x.float() @ self.embed.w.float().T
+                logits = tied_logits(self.final_norm(x), self.embed.w)
             else:
                 x = self.final_norm(x, () if collect is not None else (self.lm_head,))
                 logits = apply_linear(self.lm_head, x, collect, f"{path}lm_head").float()
@@ -195,19 +269,43 @@ def with_config(params: Transformer, cfg) -> Transformer:
 
 def init_cache(cfg, batch: int, max_len: int, device,
                num_layers: Optional[int] = None) -> dict:
-    """Allocate the serving cache (of the first ``num_layers`` layers).
+    """Allocate the serving cache (of the first ``num_layers`` layers): an
+    attention cache or an SSM cache per layer, and for a hybrid decoder one
+    attention cache per shared-block application among them (``"shared"``).
     ``max_len`` is rounded up so the chunked attention path (multiples of
     1024) always applies to big buffers."""
     check_supported(cfg)
     max_len = -(-max_len // 1024) * 1024 if max_len > 4096 else -(-max_len // 128) * 128
-    return {"layers": [init_attn_cache(cfg, batch, max_len, device)
-                       for _ in range(num_layers or cfg.num_layers)]}
+    kinds = layer_kinds(cfg)[:num_layers or cfg.num_layers]
+    cache = {"layers": [init_ssm_cache(cfg, batch, device) if kind == "ssm"
+                        else init_attn_cache(cfg, batch, max_len, device) for kind in kinds]}
+    shared = [i for i in shared_attn_positions(cfg) if num_layers is None or i < num_layers]
+    if shared:
+        cache["shared"] = [init_attn_cache(cfg, batch, max_len, device) for _ in shared]
+    return cache
+
+
+def cache_rows(cache: dict, row: int) -> dict:
+    """Views of batch row ``row`` of every tensor of a contiguous cache
+    (``"layers"`` and ``"shared"``): writes through them land in the cache."""
+    view = lambda layer: {name: t[row:row + 1] for name, t in layer.items()}  # noqa: E731
+    out = {"layers": [view(layer) for layer in cache["layers"]]}
+    if "shared" in cache:
+        out["shared"] = [view(layer) for layer in cache["shared"]]
+    return out
 
 
 def commit_cache(cfg, cache: dict, n_last) -> dict:
     """Resolve verify-candidate caches after acceptance.  Attention caches
-    need no work: slot positions and masking handle rollback."""
-    return cache
+    need no work: slot positions and masking handle rollback.  SSM
+    candidates are gathered to the accepted token's state, in place
+    (:func:`~repro_torch.models.ssm.commit_ssm_cache`), and the returned
+    cache holds the same tensors, in the same order, as before the step."""
+    if not any("states_all" in layer for layer in cache["layers"]):
+        return cache
+    layers = [commit_ssm_cache(layer, n_last) if "states_all" in layer else layer
+              for layer in cache["layers"]]
+    return {**cache, "layers": layers}
 
 
 def _compact_attn_rows(lcache: dict, start, path_nodes, n_accept) -> dict:
@@ -272,7 +370,14 @@ def _compact_attn_rows_paged(lcache: dict, bt, start, path_nodes, n_accept) -> d
 def commit_cache_tree(cfg, cache: dict, start, path_nodes, n_accept) -> dict:
     """Resolve tree-verify candidate caches: compact the accepted
     root-to-leaf path of every layer (see :func:`_compact_attn_rows`;
-    :func:`_compact_attn_rows_paged` for a paged cache)."""
+    :func:`_compact_attn_rows_paged` for a paged cache).  Attention-family
+    layers only: recurrent and shared caches are refused, as
+    ``core/spec_engine.make_decode_step`` refuses their models."""
+    if any("state" in layer for layer in cache["layers"]):
+        raise NotImplementedError("tree speculation does not support recurrent caches")
+    if "shared" in cache:
+        raise NotImplementedError(
+            "tree speculation does not support shared-attention caches")
     bt = cache.get("bt")
     for lcache in cache["layers"]:
         if bt is not None:

@@ -74,6 +74,7 @@ from repro_torch.core.paged_cache import (
 )
 from repro_torch.core.protocols import get_drafter, get_verifier
 from repro_torch.core.spec_engine import init_state, make_decode_step
+from repro_torch.models.transformer import cache_rows
 from repro_torch.serving.faults import NULL_FAULTS, InjectedFault, RequestFault
 from repro_torch.serving.graphs import StepPrograms
 from repro_torch.serving.metrics import AcceptanceStats
@@ -373,8 +374,7 @@ class SpecEngine:
                 raise ValueError("paged admission needs pool= and rid=")
             row_cache = self.model.init_cache(1, buf)
         else:          # the state's own row, as views that write through
-            row_cache = {"layers": [{name: t[row:row + 1] for name, t in layer.items()}
-                                    for layer in state["cache"]["layers"]]}
+            row_cache = cache_rows(state["cache"], row)
             for t in _tensors(row_cache):
                 t.zero_()
         if paged and shared_rows > 0 and self.model.cfg.kv_cache_dtype != "int8":
@@ -417,15 +417,19 @@ class SpecEngine:
 
     def _check_paged_supported(self):
         """Paged KV needs attention-family, full-causal, contiguous-slot
-        caches (as in the reference; the port's models are dense decoders,
-        so only the sliding-window check can fire)."""
+        caches, as in the reference: recurrent state cannot be paged, ring
+        buffers already bound their footprint, and cross-attention caches
+        are unpaged."""
         cfg = self.model.cfg
-        if cfg.arch_type in ("ssm", "hybrid") or cfg.cross_attn_every or cfg.encoder_layers:
-            raise ValueError(f"kv_layout='paged' supports dense/moe self-attention "
-                             f"stacks only, not {cfg.arch_type!r}")
+        if cfg.arch_type in ("ssm", "hybrid"):
+            raise ValueError(f"kv_layout='paged' needs attention KV caches; "
+                             f"{cfg.arch_type!r} caches are recurrent")
         if cfg.sliding_window:
             raise ValueError("kv_layout='paged' does not compose with sliding-window "
                              "(ring) caches — the ring already bounds the footprint")
+        if cfg.cross_attn_every or cfg.encoder_layers or cfg.arch_type == "audio":
+            raise ValueError("kv_layout='paged' supports dense/moe self-attention "
+                             "stacks only (cross-attention caches are unpaged)")
 
     def _append_paged_blocks(self, state: dict, pool: BlockPool, live: dict, gamma: int,
                              lengths: np.ndarray) -> dict:
@@ -479,12 +483,19 @@ class SpecEngine:
         t = self.scfg.temperature if temperature is None else float(temperature)
         step, drafter = self._step_for_temperature(t)
         dev = self.model.device
-        pmax = max(r.prompt.size for r in batch)
-        buf = max(r.prompt.size + r.max_new_tokens for r in batch) + drafter.gamma + 2
         paged = self.scfg.kv_layout == "paged"
-        ctx = cache = None
         if paged:
             self._check_paged_supported()
+        if (len({r.prompt.size for r in batch}) > 1
+                and self.model.cfg.arch_type in ("ssm", "hybrid")):
+            raise ValueError(
+                f"{self.model.cfg.arch_type} caches are recurrent: "
+                "heterogeneous prompt lengths cannot be right-padded; "
+                "batch equal-length prompts")
+        pmax = max(r.prompt.size for r in batch)
+        buf = max(r.prompt.size + r.max_new_tokens for r in batch) + drafter.gamma + 2
+        ctx = cache = None
+        if paged:
             plan = plan_group([r.prompt.size for r in batch],
                               [r.max_new_tokens for r in batch], drafter.gamma, buf,
                               block_size=self.scfg.kv_block_size,

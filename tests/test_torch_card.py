@@ -17,7 +17,10 @@ S not multiples of the blocks, every instantiated head size, f32 inputs,
 paged block sizes that divide neither the 32-key chunk nor the 128-key
 split, idle rows on the scratch block, and the wrappers' card-only input
 checks; the MoE path's batched expert GEMM, routing rows against the row
-count and its decode step through graphs.
+count and its decode step through graphs; the SSM path's ``ssd_update``
+(states bit-equal to the plain version, rows against the window and the
+batch), the gated norm's and the tied logits' rows against the row count,
+and the SSM and hybrid decode steps through graphs.
 """
 import copy
 import dataclasses
@@ -86,7 +89,8 @@ def test_smooth_quant_non_finite_rows_bit_equal_on_card(dev, dtype):
     assert torch.equal(dx.view(torch.int32), rdx.view(torch.int32))
 
 
-@pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (576, torch.float32)])
+@pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (576, torch.float32),
+                                     (5120, torch.bfloat16), (2048, torch.bfloat16)])
 def test_norm_row_does_not_depend_on_row_count(dev, d, dtype):
     """A row's RMSNorm and LayerNorm bits are the same whether it comes
     alone, in vanilla's 4-row step, a 24- or 88-row verify window or a
@@ -107,7 +111,8 @@ def test_norm_row_does_not_depend_on_row_count(dev, d, dtype):
 
 @pytest.mark.parametrize("m,k,n", [
     (1, 16, 1), (7, 48, 200), (65, 4096, 130), (130, 80, 64), (24, 12288, 72),
-    (300, 256, 96)])
+    (300, 256, 96),
+    (24, 2560, 10448), (4, 1024, 4384)])    # zamba2's and mamba2's in_proj: N % 64 != 0
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_exact_on_card(dev, m, k, n, out_dtype):
     g = _gen(dev, m + k + n)
@@ -189,7 +194,8 @@ def test_int8_matmul_misaligned_weight_raises_on_card(dev):
 
 @pytest.mark.parametrize("m,k,n", [
     (1, 2, 1), (7, 48, 200), (65, 4096, 130), (130, 96, 64), (24, 12288, 72),
-    (300, 256, 97), (5, 62, 33), (24, 4096, 1031)])
+    (300, 256, 97), (5, 62, 33), (24, 4096, 1031),
+    (24, 2560, 10448), (4, 1024, 4384)])    # zamba2's and mamba2's in_proj
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int4_matmul_bit_equal_on_card(dev, m, k, n, out_dtype):
     """Ragged M and N, K not a multiple of the 128-value K step, and K not
@@ -437,7 +443,9 @@ def _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed):
     (4, 6, 1152, 16, 1, 128),  # moonshot's verify window: MHA, G = 1
     (1, 1, 6, 3, 3, 64),       # S shorter than the window's chunk
     (2, 3, 300, 2, 9, 32),     # G·T = 27: not a multiple of the 16-row tile
-    (3, 5, 700, 2, 7, 64)])    # G·T = 35, three tiles, the last nearly empty
+    (3, 5, 700, 2, 7, 64),     # G·T = 35, three tiles, the last nearly empty
+    (4, 6, 1152, 32, 1, 80),   # zamba2's shared attention: dh 80 (5 k steps of 16)
+    (2, 1, 300, 3, 2, 80)])    # dh 80, vanilla's window, a partial split
 def test_flash_decode_matches_plain_on_card(dev, b, t, s, hkv, g, dh, dtype, int8):
     q, k, v, qpos, kw = _attn(dev, b, t, s, hkv, g, dh, dtype, int8, seed=s + t + g)
     o = flash_decode(q, k, v, qpos, **kw)
@@ -1444,3 +1452,157 @@ def test_moe_dropless_spec_equals_vanilla_on_card(dev, verifier):
         toks[name] = r.tokens[:, :prompts.shape[1] + 16]
     for name in ("ngram", "tree", "pruned"):
         assert torch.equal(toks[name], toks["vanilla"]), name
+
+
+# ---------------------------------------------------------------------------
+# The SSM path: ssd_update, the gated norm, the tied logits, graphs
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(dev, b, t, h, p, n, seed):
+    from repro_torch.models.ssm import softplus
+
+    g = _gen(dev, seed)
+    x = torch.randn(b, t, h, p, generator=g, device=dev)
+    bm = torch.randn(b, t, n, generator=g, device=dev)
+    cm = torch.randn(b, t, n, generator=g, device=dev)
+    dt = softplus(torch.randn(b, t, h, generator=g, device=dev) - 4.0)
+    a = torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    h0 = torch.randn(b, h, p, n, generator=g, device=dev) * 0.5
+    return x, bm, cm, dt, a, h0
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("b,t,h,p,n", [
+    (4, 6, 80, 64, 64),     # zamba2's verify window
+    (4, 6, 32, 64, 128),    # mamba2's
+    (4, 1, 80, 64, 64),     # vanilla's step
+    (2, 5, 16, 16, 16),     # the reduced configs'
+    (1, 3, 3, 32, 256), (3, 2, 5, 48, 32)])
+def test_ssd_update_matches_plain_on_card(dev, b, t, h, p, n, collect):
+    """States bit-equal to the plain version (the same IEEE steps, no FMA);
+    y within rtol 1e-5 / atol 1e-4: the two sum N f32 products in
+    different orders."""
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+
+    args = _ssd_inputs(dev, b, t, h, p, n, seed=b + t + h + n)
+    y, states = ssd_update(*args, collect)
+    ry, rstates = ssd_update_ref(*args, collect)
+    assert states.shape == rstates.shape
+    assert torch.equal(states, rstates)
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-4)
+
+
+def test_ssd_update_row_does_not_depend_on_window_or_batch(dev):
+    """A window of 6 tokens over 4 rows gives, bit for bit, what 6
+    single-token steps of one row give (vanilla's decode of that row):
+    every y and every kept state."""
+    from repro_torch.kernels.ssd_update import ssd_update
+
+    x, bm, cm, dt, a, h0 = _ssd_inputs(dev, 4, 6, 80, 64, 64, seed=9)
+    y, states = ssd_update(x, bm, cm, dt, a, h0, True)
+    for row in (0, 3):
+        h = h0[row:row + 1].contiguous()
+        for t in range(6):
+            one = lambda z: z[row:row + 1, t:t + 1].contiguous()  # noqa: E731
+            y1, h = ssd_update(one(x), one(bm), one(cm), one(dt), a, h, False)
+            assert torch.equal(y1[0, 0], y[row, t]), (row, t)
+            assert torch.equal(h[0], states[row, t]), (row, t)
+
+
+def test_tied_logits_row_does_not_depend_on_row_count_on_card(dev):
+    """mamba2's tied f32 logits (1024 → 50280): a row of vanilla's 4-row
+    step equals the same row placed anywhere in a 24- or 88-row call
+    (chunks of TIED_ROWS rows, one GEMM shape)."""
+    from repro_torch.models.transformer import tied_logits
+
+    g = _gen(dev, 50280)
+    w = (torch.randn(50280, 1024, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    x = torch.randn(88, 1024, generator=g, device=dev).to(torch.bfloat16)
+    four = tied_logits(x[:4], w)
+    for m in (24, 88):
+        big = x[:m].clone()
+        big[::6][:4] = x[:4]
+        assert torch.equal(tied_logits(big, w)[::6][:4], four), m
+    assert torch.equal(tied_logits(x[:24].view(4, 6, 1024), w)[:, 0], tied_logits(x[:24:6], w))
+
+
+def _ssm_graph_setup(dev, arch, kv="bf16"):
+    """A reduced SSM or hybrid config (f32), seeded weights, four prompts a
+    prompt lookup finds drafts in."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), kv_cache_dtype=kv)
+    model = Model(cfg, device=dev)
+    raw = model.init_params(_gen(dev, 3))
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, cfg.vocab_size, (4, 7))
+    prompts = torch.from_numpy(np.concatenate([np.tile(pat, 5), pat[:, :2]], axis=1)
+                               .astype(np.int32)).to(dev)
+    return model, raw, prompts
+
+
+@pytest.mark.parametrize("arch,verifier,kv", [
+    ("mamba2-370m", "w8a8", "bf16"), ("mamba2-370m", "w4a8", "bf16"),
+    ("zamba2-2.7b", "w8a8", "bf16"), ("zamba2-2.7b", "w4a8", "int8")])
+@pytest.mark.parametrize("drafter", ["ngram", "vanilla", "pruned"])
+def test_ssm_graph_replay_equals_eager_on_card(dev, arch, drafter, verifier, kv):
+    """The SSM decode step (ssd_update with every window state kept, the
+    commit's gathers into the layer's own state and conv) captured as a
+    graph gives the eager step's tokens bit for bit, with the same
+    launches; speculation gives vanilla's tokens."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, prompts = _ssm_graph_setup(dev, arch, kv)
+    scfg = SpecConfig(temperature=0.0, verifier=verifier, **GRAPH_DRAFTERS[drafter])
+    out = _eager_and_graph(model, scfg, lambda eng: eng.generate(raw, prompts, 16))
+    (eager, n_eager, e_eng), (graph, n_graph, g_eng) = out[False], out[True]
+    assert graph.steps == eager.steps >= 3
+    assert torch.equal(graph.tokens, eager.tokens)
+    assert not graph.bad.any()
+    assert n_graph == n_eager and n_graph["ssd_update"] > 0
+    assert g_eng.step_traces == e_eng.step_traces == 1
+    assert (g_eng._programs.captures, e_eng._programs.captures) == (1, 0)
+    vanilla = SpecEngine(model, SpecConfig(temperature=0.0, verifier=verifier,
+                                           drafter="vanilla")).generate(raw, prompts, 16)
+    n = prompts.shape[1] + 16
+    assert torch.equal(graph.tokens[:, :n], vanilla.tokens[:, :n])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_replayed_step_launches_equal_eager_step_on_card(dev, arch):
+    """A replayed SSM step counts what one eager step launches: one
+    ssd_update per SSM layer, one flash_decode per shared application."""
+    from repro_torch.core import prng
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    model, raw, prompts = _ssm_graph_setup(dev, arch)
+    per_step = {}
+    for graphs in (False, True):
+        eng = SpecEngine(model, SpecConfig(temperature=0.0, gamma=3, verifier="w8a8"),
+                         graphs=graphs)
+        params = eng.prepare_params(raw)
+        B, P = prompts.shape
+        full = lambda v: torch.full((B,), v, dtype=torch.int32, device=dev)  # noqa: E731
+        with torch.inference_mode():
+            state = eng._init_state(params, prompts, full(P), full(P + 64), P + 72,
+                                    prng.row_generators(range(B), dev))
+            for _ in range(2):
+                state = eng._step(params, state)
+            ops.reset_launch_counts()
+            eng._step(params, state)
+            torch.cuda.synchronize()
+        per_step[graphs] = ops.launch_counts()
+    assert per_step[True] == per_step[False]
+    assert per_step[True]["ssd_update"] == model.cfg.num_layers
+    assert per_step[True].get("flash_decode", 0) == (1 if arch == "zamba2-2.7b" else 0)
+
+
+def test_ssd_update_rejects_card_only_shapes(dev):
+    from repro_torch.kernels.ssd_update import ssd_update
+
+    x, bm, cm, dt, a, h0 = _ssd_inputs(dev, 1, 2, 2, 16, 16, seed=1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_update(x[..., :8].contiguous(), bm, cm, dt, a, h0[:, :, :8].contiguous())
+    with pytest.raises(ValueError, match="N in"):
+        ssd_update(x, bm[..., :8].contiguous(), cm[..., :8].contiguous(), dt, a,
+                   h0[..., :8].contiguous())

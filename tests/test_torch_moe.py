@@ -303,9 +303,8 @@ def test_check_supported_takes_moe_and_rejects_the_rest():
         assert transformer.layer_kinds(cfg) == __import__(
             "repro.models.transformer", fromlist=["layer_kinds"]).layer_kinds(jget_config(arch))
     base = get_config("moonshot-v1-16b-a3b")
-    for kw in (dict(arch_type="ssm"), dict(arch_type="hybrid"), dict(arch_type="vlm"),
-               dict(arch_type="audio"), dict(sliding_window=64), dict(cross_attn_every=2),
-               dict(encoder_layers=2)):
+    for kw in (dict(arch_type="vlm"), dict(arch_type="audio"), dict(sliding_window=64),
+               dict(cross_attn_every=2), dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError):
             transformer.check_supported(dataclasses.replace(base, **kw))
 
