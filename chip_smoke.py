@@ -244,6 +244,10 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 40                    # of 48: the weights' reckoning in PERF.md §4
 MOE_GATE_PROMPT, MOE_GATE_NEW = 256, 32   # the dropless gate (batch 2)
 SSM_ARCHS = ("zamba2-2.7b", "mamba2-370m")   # the SSM phase, at full width and depth
+FAMILY_ARCHS = ("codeqwen1.5-7b", "stablelm-12b", "llama-3.2-vision-90b", "whisper-small")
+FAMILY_VISION_LAYERS = 20          # of 100: the weights' reckoning in PERF.md §4
+FAMILY_TAGS = {"codeqwen1.5-7b": "codeqwen", "stablelm-12b": "stablelm",
+               "llama-3.2-vision-90b": "vision", "whisper-small": "whisper"}
 
 
 def log(msg: str) -> None:
@@ -348,7 +352,7 @@ def norm_smooth_quant_rows(torch, dev, g, flush, ms, d: int, readers: int, eps: 
 def int8_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
     """``int8_matmul`` at each (M, K, N) of ``shapes``: exact against its
     plain version, timed beside it and ``torch._int_mm`` + the same
-    epilogue (where M > 16, the rows ``_int_mm`` takes)."""
+    epilogue (where M > 16 and N, K are multiples of 8: what ``_int_mm`` takes)."""
     from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
     rows = []
@@ -367,7 +371,7 @@ def int8_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
             acc = torch._int_mm(xq, w.t())
             return (acc.float() * dx[:, None] * dw[None, :]).to(torch.bfloat16)
 
-        if m <= 16:             # torch._int_mm takes more than 16 rows only
+        if m <= 16 or n % 8 or k % 8:   # torch._int_mm: more than 16 rows, N and K by 8
             library = None
         elif not torch.equal(library(), ry):
             raise AssertionError("torch._int_mm yardstick disagrees with the plain version")
@@ -474,12 +478,75 @@ def flash_chain_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, s_len: in
     return rows
 
 
-def kernel_phase(torch, dev, flush, cfg):
+def flash_tree_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, templates,
+                    int8: bool, **tag) -> list:
+    """Tree ``flash_decode`` (int8 K/V with ``int8``) for each token-tree
+    template of ``templates``, each over the cache length the main path
+    allocates for it: within one bf16 rounding step of its plain version,
+    timed beside it and (bf16 K/V) beside SDPA with the materialised mask."""
     from repro_torch.core.tree import TreeTemplate
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
     from repro_torch.models.attention import _quant_kv
 
     F = torch.nn.functional
+    name = "flash_decode_tree" + "_int8" * int8
+    rows = []
+    for branches in templates:
+        tables = TreeTemplate(branches).on(dev)
+        t = tables.depths.shape[0]
+        s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128
+        q = torch.randn(B, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
+        qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
+        kw = dict(tree_mask=tables.mask, win_start=win_start)
+        bits = tables.mask_bits
+        if int8:
+            k, ks = _quant_kv(k)
+            v, vs = _quant_kv(v)
+            kw.update(k_scale=ks, v_scale=vs)
+        o = flash_decode(q, k, v, qpos, tree_bits=bits, **kw)
+        ro = flash_decode_ref(q, k, v, qpos, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} {branches} dh {dh}: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda mm: f"{name} {branches} dh {dh}: {mm}")
+        # each batch row reads its slots up to its window's last slot;
+        # each query row scores (and sums values over) the keys it sees
+        vis = visible(qpos, s_len, tables.mask, win_start)          # (B, T, S)
+        keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
+        kv_bytes = 2 * keys * hkv * dh * (1 if int8 else 2) + (8 * keys * hkv if int8 else 0)
+        nbytes = 2 * 2 * B * t * hq * dh + kv_bytes + 4 * B * t + tables.mask_bits.numel() * 4
+        bms, by = bound_ms(nbytes, 4 * hq * int(vis.sum()) * dh, "bf16")
+        library = None
+        if not int8:       # SDPA with the materialised mask; int8 K/V has no such call
+            mask = vis[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+            lib_err = (library().float() - ro.float()).abs().max().item()
+            if lib_err > SDPA_TOL:
+                raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+        rows.append(dict(shape=[B, t, hq, hkv, s_len, dh], branches=list(branches), **tag,
+                         max_abs_err=err, bound_ms=bms, bound_by=by,
+                         **timed(torch,
+                                 lambda: flash_decode(q, k, v, qpos, tree_bits=bits, **kw),
+                                 lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
+                                 50, flush)))
+    return rows
+
+
+def kernel_phase(torch, dev, flush, cfg):
+    from repro_torch.core.tree import TreeTemplate
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.attention import _quant_kv
+
     g = torch.Generator(device=dev).manual_seed(0)
     D, FF, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     HQ, HKV, DH = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -522,56 +589,8 @@ def kernel_phase(torch, dev, flush, cfg):
     #    widest templates, bf16 and int8 KV; each at the cache length the
     #    main path allocates for it --
     for name, int8 in (("flash_decode_tree", False), ("flash_decode_tree_int8", True)):
-        rows = []
-        for branches in (TREE, (4, 4, 4), (64,)):
-            tables = TreeTemplate(branches).on(dev)
-            t = tables.depths.shape[0]
-            s_len = -(-(PROMPT + NEW + t + 1) // 128) * 128
-            q = torch.randn(B, t, HQ, DH, generator=g, device=dev).to(torch.bfloat16)
-            k = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
-            v = torch.randn(B, s_len, HKV, DH, generator=g, device=dev).to(torch.bfloat16)
-            win_start = torch.full((B,), PROMPT - 1 + 17, dtype=torch.int32, device=dev)
-            qpos = (win_start[:, None] + tables.depths[None, :]).to(torch.int32).contiguous()
-            kw = dict(tree_mask=tables.mask, win_start=win_start)
-            bits = tables.mask_bits
-            if int8:
-                k, ks = _quant_kv(k)
-                v, vs = _quant_kv(v)
-                kw.update(k_scale=ks, v_scale=vs)
-            o = flash_decode(q, k, v, qpos, tree_bits=bits, **kw)
-            ro = flash_decode_ref(q, k, v, qpos, **kw)
-            torch.cuda.synchronize()
-            err = (o.float() - ro.float()).abs().max().item()
-            if not torch.isfinite(o).all():
-                raise AssertionError(f"{name} {branches}: non-finite output")
-            torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
-                                       msg=lambda mm: f"{name} {branches}: {mm}")
-            # each batch row reads its slots up to its window's last slot;
-            # each query row scores (and sums values over) the keys it sees
-            vis = visible(qpos, s_len, tables.mask, win_start)          # (B, T, S)
-            keys = int(vis.any(dim=1).flip(-1).int().argmax(-1).neg().add(s_len).sum())
-            kv_bytes = 2 * keys * HKV * DH * (1 if int8 else 2) + (8 * keys * HKV if int8 else 0)
-            nbytes = 2 * 2 * B * t * HQ * DH + kv_bytes + 4 * B * t + tables.mask_bits.numel() * 4
-            bms, by = bound_ms(nbytes, 4 * HQ * int(vis.sum()) * DH, "bf16")
-            library = None
-            if not int8:       # SDPA with the materialised mask; int8 K/V has no such call
-                mask = vis[:, None]
-
-                def library():
-                    return F.scaled_dot_product_attention(
-                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        attn_mask=mask, enable_gqa=True).transpose(1, 2)
-
-                lib_err = (library().float() - ro.float()).abs().max().item()
-                if lib_err > SDPA_TOL:
-                    raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
-            rows.append(dict(shape=[B, t, HQ, HKV, s_len, DH], branches=list(branches),
-                             max_abs_err=err, bound_ms=bms, bound_by=by,
-                             **timed(torch,
-                                     lambda: flash_decode(q, k, v, qpos, tree_bits=bits, **kw),
-                                     lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
-                                     50, flush)))
-        results[name] = rows
+        results[name] = flash_tree_rows(torch, dev, g, flush, HQ, HKV, DH,
+                                        (TREE, (4, 4, 4), (64,)), int8)
 
     # -- the tree variant with the chain template gives the chain variant's bits --
     for int8 in (False, True):
@@ -691,7 +710,8 @@ def path_phase(torch, dev):
     return runs
 
 
-def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS) -> dict:
+def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS,
+                aux_embeds=None) -> dict:
     """Steps of one batch as ``SpecEngine._run`` takes them (each ends in the
     host read of the lengths), the rows' budget (BUDGET new tokens)
     outlasting the window: two warm-up steps (through graphs: the eager
@@ -700,7 +720,8 @@ def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS) -> di
     process's CPU time per step), then PROFILE_STEPS under torch.profiler
     with the launch counters zeroed (device busy ms and launches per
     step).  ``engine`` may be any tree's ``SpecEngine`` (tools/step_bench.py
-    passes another tree's)."""
+    passes another tree's); ``aux_embeds`` go to the prefill of a
+    cross-attention model."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import prng
@@ -712,7 +733,9 @@ def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS) -> di
     with torch.inference_mode():
         state = engine._init_state(params, prompts, full(p), full(p + BUDGET),
                                    p + BUDGET + engine.drafter.gamma + 2,
-                                   prng.row_generators(range(b), dev))
+                                   prng.row_generators(range(b), dev),
+                                   **({"aux_embeds": aux_embeds} if aux_embeds is not None
+                                      else {}))
         for _ in range(2):
             state = engine._step(params, state)
             state["length"].cpu()
@@ -2330,6 +2353,371 @@ def ssm_phase(torch, dev, flush):
     out["runs"] = runs
     return out, kern
 
+def cross_rows(torch, dev, g, flush, shapes, **tag) -> list:
+    """The cross-attention read (``models/attention.cross_attend``) at each
+    (B, T, Hq, Hkv, Sa, dh) of ``shapes``: within one bf16 rounding step of
+    its plain version, a row's bits the same at T = 1 as in the window and
+    at B = 1 as in the batch, timed beside the plain version and SDPA (no
+    mask: every key is visible)."""
+    from repro_torch.kernels.flash_decode import flash_decode_ref
+    from repro_torch.models.attention import cross_attend
+
+    F = torch.nn.functional
+    rows = []
+    for b, t, hq, hkv, sa, dh in shapes:
+        q = torch.randn(b, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        qpos = torch.full((b, t), sa - 1, dtype=torch.int32, device=dev)
+        o = cross_attend(q, k, v)
+        ro = flash_decode_ref(q, k, v, qpos)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"cross read {(b, t, hq, hkv, sa, dh)}: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda m: f"cross read {(b, t, hq, sa, dh)}: {m}")
+        for i in range(t):
+            if not torch.equal(cross_attend(q[:, i:i + 1].contiguous(), k, v), o[:, i:i + 1]):
+                raise AssertionError(f"cross read: window row {i} differs from T = 1")
+        for i in range(b):
+            one = cross_attend(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                               v[i:i + 1].contiguous())
+            if not torch.equal(one, o[i:i + 1]):
+                raise AssertionError(f"cross read: batch row {i} differs from B = 1")
+
+        def library():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2),
+                                                  enable_gqa=True).transpose(1, 2)
+
+        lib_err = (library().float() - ro.float()).abs().max().item()
+        if lib_err > SDPA_TOL:
+            raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+        nbytes = 2 * 2 * b * t * hq * dh + 2 * 2 * b * sa * hkv * dh
+        bms, by = bound_ms(nbytes, 4 * b * t * hq * sa * dh, "bf16")
+        rows.append(dict(shape=[b, t, hq, hkv, sa, dh], **tag,
+                         max_abs_err=(o.float() - ro.float()).abs().max().item(),
+                         bound_ms=bms, bound_by=by, rows_equal_t1_and_b1=True,
+                         **timed(torch, lambda: cross_attend(q, k, v),
+                                 lambda: flash_decode_ref(q, k, v, qpos), library, 50, flush)))
+    return rows
+
+
+def families_kernel_phase(torch, dev, flush) -> dict:
+    """Every kernel of the families phase's path at its shapes, against its
+    plain version: ``flash_decode`` at stablelm-12b's head size 160 (32/8
+    heads) — chain and (3,2,1,1) tree, bf16 and int8 K/V, and through a
+    block table (block 128) — and at codeqwen's 32/32 heads (G = 1); the
+    cross-attention read at llama-3.2-vision's (64/8 heads, 1600 image
+    tokens, dh 128) and whisper's (12/12, 1500 frames, dh 64) shapes, rows
+    against T and B; ``int8_matmul`` and ``int4_matmul`` at the four
+    models' linears (chain window, M 24); ``norm_smooth_quant`` at d 4096,
+    5120 (3 readers) and 8192 (3, and 1: the cross q); ``smooth_quant``
+    at the o and down inputs (up to vision's 28672)."""
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    cq, sl, vi, wh = (get_config(a) for a in FAMILY_ARCHS)
+    M = B * (GAMMA + 1)
+    S = -(-(PROMPT + NEW + GAMMA + 2) // 128) * 128
+    out = {}
+    out["flash_decode_dh160"] = flash_chain_rows(torch, dev, g, flush, sl.num_heads,
+                                                 sl.num_kv_heads, sl.head_dim, S, False,
+                                                 arch=sl.name)
+    out["flash_decode_int8_dh160"] = flash_chain_rows(torch, dev, g, flush, sl.num_heads,
+                                                      sl.num_kv_heads, sl.head_dim, S, True,
+                                                      arch=sl.name)
+    for name, int8 in (("flash_decode_tree_dh160", False), ("flash_decode_tree_int8_dh160", True)):
+        out[name] = flash_tree_rows(torch, dev, g, flush, sl.num_heads, sl.num_kv_heads,
+                                    sl.head_dim, (TREE,), int8, arch=sl.name)
+    out["flash_decode_paged_dh160"] = paged_rows(torch, dev, g, flush, sl, B, False, False,
+                                                 (128,), arch=sl.name)
+    out["flash_decode_paged_tree_int8_dh160"] = paged_rows(torch, dev, g, flush, sl, B, True,
+                                                           True, (128,), arch=sl.name)
+    out["flash_decode_g1_kv32"] = flash_chain_rows(torch, dev, g, flush, cq.num_heads,
+                                                   cq.num_kv_heads, cq.head_dim, S, False,
+                                                   arch=cq.name)
+    out["flash_decode_cross"] = cross_rows(
+        torch, dev, g, flush,
+        ((B, GAMMA + 1, vi.num_heads, vi.num_kv_heads, vi.num_image_tokens, vi.head_dim),
+         (B, GAMMA + 1, wh.num_heads, wh.num_kv_heads, wh.num_audio_frames, wh.head_dim)))
+    gemms = []
+    for cfg in (cq, sl, vi, wh):
+        D, FF, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+        gemms += [(M, D, cfg.q_dim), (M, D, cfg.kv_dim), (M, D, FF), (M, FF, D), (M, D, V)]
+    gemms = list(dict.fromkeys(gemms))           # codeqwen's q and k/v share a shape
+    log("  families: attention rows done")
+    out["int8_matmul"] = int8_matmul_rows(torch, dev, g, flush, gemms, phase="families")
+    out["int4_matmul"] = int4_matmul_rows(torch, dev, g, flush, gemms, phase="families")
+    nsq = []
+    for cfg, readers in ((cq, 3), (sl, 3), (vi, 3), (vi, 1)):
+        nsq += norm_smooth_quant_rows(torch, dev, g, flush, (B, M), cfg.d_model, readers,
+                                      cfg.norm_eps, phase="families", arch=cfg.name)
+    out["norm_smooth_quant"] = nsq
+    out["smooth_quant"] = smooth_quant_rows(
+        torch, dev, g, flush, ((M, cq.d_ff), (M, sl.q_dim), (M, sl.d_ff), (M, vi.q_dim),
+                               (M, vi.d_ff), (M, wh.d_model), (M, wh.d_ff)),
+        phase="families")
+    for name, rows in out.items():
+        for r in rows:
+            log(f"  {name:34s} {str(r['shape']):32s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']}")
+    return out
+
+
+def families_launches_per_chain_step(cfg, layers: int) -> dict:
+    """The kernel launches of one W8A8 chain step of the first ``layers``
+    layers of a dense, cross-attention or whisper model, from the code.
+    Per dense layer: attn_norm fused with q/k/v's quantization, q/k/v,
+    flash_decode, o's quantization and o, ffn_norm fused with gate/up,
+    gate/up, down's quantization and down.  Per cross layer the same with
+    one reader (q) and the cross read (``flash_decode_cross``) in place of
+    the self read.  Per whisper block (LayerNorm: nothing fuses) each of its
+    eight linears (q/k/v/o, cross q/o, up, down) quantizes its own input,
+    beside flash_decode and the cross read.  Then the final norm fused with
+    lm_head's quantization and lm_head, or, tied (whisper), the f32 logits
+    product, no kernel of ours."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)[:layers]
+    n = {k: kinds.count(k) for k in ("dense", "cross", "audio")}
+    if n["audio"]:
+        return {"smooth_quant": 8 * n["audio"], "int8_matmul": 8 * n["audio"],
+                "flash_decode": n["audio"], "flash_decode_cross": n["audio"]}
+    out = {"norm_smooth_quant": 2 * layers + 1, "smooth_quant": 2 * layers,
+           "int8_matmul": 7 * n["dense"] + 5 * n["cross"] + 1, "flash_decode": n["dense"]}
+    if n["cross"]:
+        out["flash_decode_cross"] = n["cross"]
+    return out
+
+
+def families_phase(torch, dev, flush):
+    """The last four families at full width, seeded random bf16 weights from
+    the serve CLI's seed, s = 1, the gsm8k-preset 1024-token prompts, batch
+    4, 64 new tokens, greedy, every decode step through CUDA graphs, the
+    card near empty at the start of each model.  Kernels first
+    (:func:`families_kernel_phase`).  codeqwen1.5-7b (32 of 32 layers) and
+    stablelm-12b (40 of 40): ``generate`` with spec W8A8 (ngram γ 5),
+    vanilla W8A8, tree (3,2,1,1) W8A8, spec and vanilla W4A8, spec (and,
+    stablelm, tree) W8A8 over an int8 KV cache and vanilla over it, and
+    (stablelm) paged W8A8 ``generate_requests`` (4 requests through 4
+    slots, block 128).  llama-3.2-vision-90b at FAMILY_VISION_LAYERS of its
+    100 layers (its cross layers 4, 9, 14, 19), the cross gates set to 1.0
+    after init (at init they are 0 and a cross layer adds nothing), seeded
+    random (B, 1600, 8192) image embeddings; whisper-small whole, seeded
+    random (B, 1500, 768) frame embeddings through its encoder: spec,
+    vanilla and tree W8A8.  Each run: launches read just after it, L,
+    tokens/s, capture ms, one program, finite logits, every kernel of its
+    path launched; the spec and vanilla W8A8 runs a step window (device
+    busy ms per step, idle share, launches per step, which must be
+    :func:`families_launches_per_chain_step`'s for spec); then again
+    eagerly (``graphs=False``): tokens and launches equal, bit for bit.
+    Gates: greedy spec, tree (KV bf16) and paged tokens == vanilla's of the
+    same verifier and KV cache; the int8-KV tree run records the share of
+    tokens it shares with vanilla's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kern = families_kernel_phase(torch, dev, flush)
+    out = {"kernel_phase_s": time.perf_counter() - t_phase}
+    runs, toks, replayed = {}, {}, []
+
+    def replay_equals_eager(name, model, scfg, run, graph_out, graph_launches):
+        gc.collect()
+        eng = SpecEngine(model, scfg, graphs=False)
+        ops.reset_launch_counts()
+        got = run(eng)
+        torch.cuda.synchronize()
+        if not torch.equal(got, graph_out):
+            raise AssertionError(f"{name}: eager tokens differ from replayed tokens")
+        if ops.launch_counts() != graph_launches:
+            raise AssertionError(f"{name}: launches differ between graphs and eager: "
+                                 f"{ops.launch_counts()} != {graph_launches}")
+        replayed.append(name)
+
+    def generate_run(name, model, params, prompts, aux, verifier, drafter, needed,
+                     window=False, **kw):
+        t_run = time.perf_counter()
+        scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier, **kw)
+        eng = SpecEngine(model, scfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = eng.generate(params, prompts, NEW, aux_embeds=aux)
+        torch.cuda.synchronize()
+        info = dict(launches=ops.launch_counts(), tok_s=r.tokens_per_s, L=r.mean_accept_len,
+                    steps=r.steps, new_tokens=r.new_tokens, decode_s=r.wall_s,
+                    prefill_s=r.prefill_s,
+                    mean_step_ms=1e3 * (r.wall_s - r.capture_s) / max(r.steps, 1),
+                    capture_ms=1e3 * r.capture_s, step_traces=eng.step_traces,
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    bad_rows=int(r.bad.sum()))
+        missing = [k for k in needed if info["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
+        if info["bad_rows"]:
+            raise AssertionError(f"{name}: non-finite verifier logits in "
+                                 f"{info['bad_rows']} rows")
+        if r.new_tokens != B * NEW:
+            raise AssertionError(f"{name}: {r.new_tokens} new tokens, expected {B * NEW}")
+        if info["step_traces"] != 1:
+            raise AssertionError(f"{name}: {info['step_traces']} programs, expected 1")
+        if window:
+            info["window"] = step_window(torch, eng, params, prompts, aux_embeds=aux)
+        graph_out = r.tokens
+        toks[name] = r.tokens[:, PROMPT:PROMPT + NEW].cpu()
+        del eng, r
+        info["graph_s"] = time.perf_counter() - t_run
+        t_eager = time.perf_counter()
+        replay_equals_eager(name, model, scfg,
+                            lambda e: e.generate(params, prompts, NEW, aux_embeds=aux).tokens,
+                            graph_out, info["launches"])
+        info["eager_s"] = time.perf_counter() - t_eager
+        w = info.get("window", {})
+        log(f"  {name}: L={info['L']:.3f} steps={info['steps']} tok/s={info['tok_s']:.1f} "
+            f"step_ms={w.get('step_ms')} busy_ms={w.get('device_busy_ms_per_step')} "
+            f"idle={w.get('device_idle_share')} capture_ms={info['capture_ms']:.1f} "
+            f"launches={info['launches']} graph_s={info['graph_s']:.1f} "
+            f"eager_s={info['eager_s']:.1f} peak_gb={info['peak_mem_gb']:.1f}")
+        runs[name] = info
+        return info
+
+    def gate(name, ref):
+        if not torch.equal(toks[name], toks[ref]):
+            share = (toks[name] == toks[ref]).float().mean().item()
+            raise AssertionError(f"greedy {name} tokens differ from {ref}'s ({share:.4f} "
+                                 "shared)")
+        runs[name]["vs_vanilla_shared_tokens"] = 1.0
+
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        layers = FAMILY_VISION_LAYERS if full.cross_attn_every else full.num_layers
+        cfg = dataclasses.replace(full, num_layers=layers)
+        tag = FAMILY_TAGS[arch]
+        model = Model(cfg, device=dev)
+        raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+        gates = 0
+        for blk in raw.layers:
+            if hasattr(blk, "gate_attn"):           # 0 at init: the cross path would add 0
+                blk.gate_attn.fill_(1.0)
+                blk.gate_ffn.fill_(1.0)
+                gates += 1
+        frames = cfg.num_image_tokens or cfg.num_audio_frames
+        aux = None
+        if frames:
+            aux = (torch.randn(B, frames, cfg.d_model,
+                               generator=torch.Generator(device=dev).manual_seed(7),
+                               device=dev) * 0.5).to(cfg.dtype)
+        prompts = torch.as_tensor(task_prompts(serve.TASK, B, PROMPT, cfg.vocab_size),
+                                  device=dev, dtype=torch.int32)
+        info = dict(arch=arch, num_layers=layers, of_layers=full.num_layers,
+                    cross_layers=gates,
+                    raw_gb=sum(t.numel() * t.element_size() for t in raw.buffers()) / 1e9)
+        attn = ("flash_decode",) + (("flash_decode_cross",) if frames else ())
+        norm = () if cfg.norm == "layernorm" else ("norm_smooth_quant",)
+        verifiers = ("w8a8",) if frames else ("w8a8", "w4a8")
+        for verifier in verifiers:
+            prep = SpecEngine(model, SpecConfig(verifier=verifier)).prepare_params(raw)
+            if verifier == "w8a8":
+                info["prepared_gb"] = sum(t.numel() * t.element_size()
+                                          for t in prep.buffers()) / 1e9
+            gemm = ("int8_matmul",) if verifier == "w8a8" else ("int4_matmul",)
+            need = norm + ("smooth_quant",) + gemm + attn
+            v = f"{tag}_vanilla_{verifier}"
+            generate_run(v, model, prep, prompts, aux, verifier, "vanilla", need,
+                         window=verifier == "w8a8")
+            generate_run(f"{tag}_spec_{verifier}", model, prep, prompts, aux, verifier,
+                         "ngram", need, window=verifier == "w8a8")
+            gate(f"{tag}_spec_{verifier}", v)
+            if verifier != "w8a8":
+                del prep
+                continue
+            per_step = runs[f"{tag}_spec_w8a8"]["window"]["launches_per_step"]
+            want = families_launches_per_chain_step(cfg, layers)
+            if per_step != want:
+                raise AssertionError(f"{arch} W8A8 chain step launches {per_step}, "
+                                     f"expected {want}")
+            generate_run(f"{tag}_tree_w8a8", model, prep, prompts, aux, "w8a8", "ngram-tree",
+                         norm + ("smooth_quant", "int8_matmul", "flash_decode_tree") + attn[1:],
+                         tree_branches=TREE)
+            gate(f"{tag}_tree_w8a8", v)
+            if not frames:        # the dense two: int8 KV (and stablelm's paged run)
+                model8 = Model(dataclasses.replace(cfg, kv_cache_dtype="int8"), device=dev)
+                base8 = norm + ("smooth_quant", "int8_matmul")
+                generate_run(f"{tag}_vanilla_w8a8_kv_int8", model8, prep, prompts, None,
+                             "w8a8", "vanilla", base8 + ("flash_decode_int8",))
+                generate_run(f"{tag}_spec_w8a8_kv_int8", model8, prep, prompts, None, "w8a8",
+                             "ngram", base8 + ("flash_decode_int8",))
+                gate(f"{tag}_spec_w8a8_kv_int8", f"{tag}_vanilla_w8a8_kv_int8")
+                if cfg.head_dim == 160:
+                    # not gated on vanilla's tokens: a tree node past the root
+                    # reads its ancestors at packed slots, where the kernel's
+                    # chunks group and sum the keys otherwise than at the
+                    # chain slots vanilla reads (the 7B's tree int8-KV run is
+                    # not gated either); the shared share is recorded
+                    name = f"{tag}_tree_w8a8_kv_int8"
+                    generate_run(name, model8, prep, prompts, None, "w8a8", "ngram-tree",
+                                 base8 + ("flash_decode_tree_int8",), tree_branches=TREE)
+                    runs[name]["vs_vanilla_shared_tokens"] = (
+                        toks[name] == toks[f"{tag}_vanilla_w8a8_kv_int8"]).float().mean().item()
+                    # paged: 4 requests through 4 slots of 128-token blocks
+                    t_run = time.perf_counter()
+                    scfg = SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8",
+                                      kv_layout="paged", kv_block_size=128)
+                    reqs = [GenerationRequest(p, NEW, seed=i)
+                            for i, p in enumerate(prompts.cpu().numpy())]
+                    eng = SpecEngine(model, scfg)
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    res = eng.generate_requests(prep, reqs, batch_slots=B)
+                    torch.cuda.synchronize()
+                    got = torch.as_tensor(np.stack([r.tokens for r in res]))
+                    paged = dict(launches=ops.launch_counts(), steps=eng.group_stats[0]["steps"],
+                                 L=sum(r.accept_len for r in res) / len(res),
+                                 step_traces=eng.step_traces,
+                                 bad_rows=sum(int(r.bad) for r in res),
+                                 graph_s=time.perf_counter() - t_run)
+                    if paged["bad_rows"] or paged["step_traces"] != 1:
+                        raise AssertionError(f"{tag} paged: {paged}")
+                    if paged["launches"].get("flash_decode_paged", 0) <= 0:
+                        raise AssertionError(f"{tag} paged: flash_decode_paged never launched")
+                    toks[f"{tag}_paged_w8a8"] = got
+                    runs[f"{tag}_paged_w8a8"] = paged
+                    gate(f"{tag}_paged_w8a8", v)
+                    del eng, res
+                    replay_equals_eager(f"{tag}_paged_w8a8", model, scfg, lambda e: torch.as_tensor(
+                        np.stack([r.tokens for r in e.generate_requests(prep, reqs,
+                                                                        batch_slots=B)])),
+                        got, paged["launches"])
+                    log(f"  {tag}_paged_w8a8: {json.dumps(paged)}")
+                del model8
+            del prep
+        del raw, model, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["phase_s"] = time.perf_counter() - t_arch
+        log(f"  {arch}: {json.dumps(info)}")
+        out[tag] = info
+    out["replay_equals_eager"] = sorted(replayed)
+    out["runs"] = runs
+    return out, kern
+
 
 def main() -> int:
     import torch
@@ -2418,6 +2806,16 @@ def main() -> int:
     for kname, rows in ssm_kern.items():        # the SSM phase's rows after the others
         kern.setdefault(kname, []).extend(rows)
     runs.update(ssm_out.pop("runs"))
+    log("families phase")
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    fam_out, fam_kern = families_phase(torch, dev, flush)
+    del flush
+    fam_out["phase_s"] = time.perf_counter() - t0
+    log(f"  families phase: {fam_out['phase_s']:.1f} s")
+    for kname, rows in fam_kern.items():        # the families' rows after the others
+        kern.setdefault(kname, []).extend(rows)
+    runs.update(fam_out.pop("runs"))
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -2452,13 +2850,42 @@ def main() -> int:
         "flash_decode_int8_dh80": ("src/repro_torch/csrc/flash_decode.cu",
                                    "src/repro/kernels/flash_decode.py:134",
                                    "zamba2_spec_w8a8_kv_int8"),
+        # stablelm-12b, head size 160; codeqwen's MHA at 32 KV heads (G = 1)
+        "flash_decode_dh160": ("src/repro_torch/csrc/flash_decode.cu",
+                               "src/repro/kernels/flash_decode.py:117", "stablelm_spec_w8a8"),
+        "flash_decode_int8_dh160": ("src/repro_torch/csrc/flash_decode.cu",
+                                    "src/repro/kernels/flash_decode.py:134",
+                                    "stablelm_spec_w8a8_kv_int8"),
+        "flash_decode_tree_dh160": ("src/repro_torch/csrc/flash_decode.cu",
+                                    "src/repro/kernels/flash_decode.py:125",
+                                    "stablelm_tree_w8a8"),
+        "flash_decode_tree_int8_dh160": ("src/repro_torch/csrc/flash_decode.cu",
+                                         "src/repro/kernels/flash_decode.py:143",
+                                         "stablelm_tree_w8a8_kv_int8"),
+        "flash_decode_paged_dh160": ("src/repro_torch/csrc/flash_decode.cu",
+                                     "src/repro/kernels/flash_decode.py:273",
+                                     "stablelm_paged_w8a8"),
+        "flash_decode_g1_kv32": ("src/repro_torch/csrc/flash_decode.cu",
+                                 "src/repro/kernels/flash_decode.py:117", "codeqwen_spec_w8a8"),
+        # not a TPU kernel: the reference's cross-attention is a jnp attend;
+        # the port reads ck/cv through flash_decode for row invariance
+        "flash_decode_cross": ("src/repro_torch/csrc/flash_decode.cu",
+                               "src/repro/models/attention.py:459", "vision_spec_w8a8"),
     }
-    counter = {"flash_decode_dh80": "flash_decode", "flash_decode_int8_dh80": "flash_decode_int8"}
+    counter = {"flash_decode_dh80": "flash_decode", "flash_decode_int8_dh80": "flash_decode_int8",
+               "flash_decode_dh160": "flash_decode", "flash_decode_int8_dh160": "flash_decode_int8",
+               "flash_decode_tree_dh160": "flash_decode_tree",
+               "flash_decode_tree_int8_dh160": "flash_decode_tree_int8",
+               "flash_decode_paged_dh160": "flash_decode_paged",
+               "flash_decode_g1_kv32": "flash_decode"}
     # the representative main-path shape of each kernel in the summary line
     pick = {"smooth_quant": 0, "norm_smooth_quant": 1, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
             "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
             "int8_matmul_batched": 2,                              # up/gate, chain C 3
             "ssd_update": 0, "flash_decode_dh80": 0, "flash_decode_int8_dh80": 0,   # zamba2 chain
+            "flash_decode_dh160": 0, "flash_decode_int8_dh160": 0, "flash_decode_tree_dh160": 0,
+            "flash_decode_tree_int8_dh160": 0, "flash_decode_paged_dh160": 0,
+            "flash_decode_g1_kv32": 0, "flash_decode_cross": 0,     # chain window, vision
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
@@ -2482,7 +2909,7 @@ def main() -> int:
         dict(device=device_name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph, server=server, moe=moe_out, ssm=ssm_out),
+             graph=graph, server=server, moe=moe_out, ssm=ssm_out, families=fam_out),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,13 @@ with ``w_scale`` (E, dout), transposed the same way.  An SSM block
 with its ``"shared"`` attention caches and SSM layers (``{"state",
 "conv"}``, or a verify candidate ``{"states_all", "xbc_pad"}``: the port's
 candidate also carries the layer's own ``state`` and ``conv``, which
-``cache_to_numpy`` leaves out).
+``cache_to_numpy`` leaves out).  llama-3.2-vision's cross layers
+(``{"attn_norm", "cross", "gate_attn", "ffn_norm", "ffn", "gate_ffn"}``,
+the gates f32 scalars), whisper's decoder blocks (``{"attn_norm", "attn",
+"cross_norm", "cross", "ffn_norm", "ffn"}``) and its ``encoder``
+(``{"layers", "norm"}``) map onto ``CrossBlock``, ``AudioBlock`` and
+``Encoder``; their caches (``{"ck","cv"}`` and ``{"self", "ck", "cv"}``)
+cross as they are, nested.
 
 JAX bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they cross as their 16-bit patterns
@@ -31,14 +37,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, CrossAttention
 from repro_torch.models.common import Norm
 from repro_torch.models.ffn import FFN
 from repro_torch.models.linear import (ExpertLinear, Linear, W4A8Linear, W8A8ExpertLinear,
                                        W8A8Linear)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
-from repro_torch.models.transformer import Block, Embed, SSMBlock, Transformer
+from repro_torch.models.transformer import (AudioBlock, Block, CrossBlock, Embed, Encoder,
+                                            SSMBlock, Transformer)
 
 
 def tensor(a, device) -> torch.Tensor:
@@ -95,9 +102,36 @@ def _norm(cfg, p: dict, device) -> Norm:
     return n
 
 
+def _attention(cfg, a: dict, dev, cls=Attention):
+    return cls(cfg, *(_linear(a[n], dev) for n in ("q", "k", "v", "o")))
+
+
+def _cross_block(cfg, lp: dict, dev) -> CrossBlock:
+    return CrossBlock(_norm(cfg, lp["attn_norm"], dev), _attention(cfg, lp["cross"], dev,
+                                                                   CrossAttention),
+                      _norm(cfg, lp["ffn_norm"], dev), _ffn(cfg, lp["ffn"], dev),
+                      tensor(lp["gate_attn"], dev), tensor(lp["gate_ffn"], dev))
+
+
+def _audio_block(cfg, lp: dict, dev) -> AudioBlock:
+    return AudioBlock(_norm(cfg, lp["attn_norm"], dev), _attention(cfg, lp["attn"], dev),
+                      _norm(cfg, lp["cross_norm"], dev),
+                      _attention(cfg, lp["cross"], dev, CrossAttention),
+                      _norm(cfg, lp["ffn_norm"], dev), _ffn(cfg, lp["ffn"], dev))
+
+
+def _layer(cfg, lp: dict, dev):
+    if "ssm" in lp:
+        return _ssm_block(cfg, lp, dev)
+    if "cross_norm" in lp:
+        return _audio_block(cfg, lp, dev)
+    if "cross" in lp:
+        return _cross_block(cfg, lp, dev)
+    return _block(cfg, lp, dev)
+
+
 def _block(cfg, lp: dict, dev) -> Block:
-    a = lp["attn"]
-    attn = Attention(cfg, *(_linear(a[n], dev) for n in ("q", "k", "v", "o")))
+    attn = _attention(cfg, lp["attn"], dev)
     return Block(_norm(cfg, lp["attn_norm"], dev), attn, _norm(cfg, lp["ffn_norm"], dev),
                  ffn=_ffn(cfg, lp["ffn"], dev) if "ffn" in lp else None,
                  moe=_moe(cfg, lp["moe"], dev) if "moe" in lp else None)
@@ -116,12 +150,16 @@ def _ssm_block(cfg, lp: dict, dev) -> SSMBlock:
 def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
     """Reference parameter pytree (numpy leaves) → the port's parameters."""
     dev = resolve_device(device)
-    layers = [_ssm_block(cfg, lp, dev) if "ssm" in lp else _block(cfg, lp, dev)
-              for lp in tree["layers"]]
+    layers = [_layer(cfg, lp, dev) for lp in tree["layers"]]
     lm_head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     shared = _block(cfg, tree["shared_attn"], dev) if "shared_attn" in tree else None
+    encoder = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = Encoder(cfg, [_block(cfg, lp, dev) for lp in enc["layers"]],
+                          _norm(cfg, enc["norm"], dev))
     return Transformer(cfg, Embed(tensor(tree["embed"]["w"], dev)), layers,
-                       _norm(cfg, tree["final_norm"], dev), lm_head, shared)
+                       _norm(cfg, tree["final_norm"], dev), lm_head, shared, encoder)
 
 
 def _linear_np(m) -> dict:
@@ -155,9 +193,26 @@ def _norm_np(n: Norm) -> dict:
     return out
 
 
+def _attention_np(a) -> dict:
+    return {n: _linear_np(getattr(a, n)) for n in ("q", "k", "v", "o")}
+
+
+def _layer_np(blk) -> dict:
+    if isinstance(blk, SSMBlock):
+        return _ssm_block_np(blk)
+    if isinstance(blk, CrossBlock):
+        return {"attn_norm": _norm_np(blk.attn_norm), "cross": _attention_np(blk.cross),
+                "gate_attn": array(blk.gate_attn), "ffn_norm": _norm_np(blk.ffn_norm),
+                "ffn": _ffn_np(blk.ffn), "gate_ffn": array(blk.gate_ffn)}
+    if isinstance(blk, AudioBlock):
+        return {"attn_norm": _norm_np(blk.attn_norm), "attn": _attention_np(blk.attn),
+                "cross_norm": _norm_np(blk.cross_norm), "cross": _attention_np(blk.cross),
+                "ffn_norm": _norm_np(blk.ffn_norm), "ffn": _ffn_np(blk.ffn)}
+    return _block_np(blk)
+
+
 def _block_np(blk: Block) -> dict:
-    attn = {n: _linear_np(getattr(blk.attn, n)) for n in ("q", "k", "v", "o")}
-    layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": attn,
+    layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": _attention_np(blk.attn),
              "ffn_norm": _norm_np(blk.ffn_norm)}
     if blk.moe is not None:
         moe = {n: _linear_np(getattr(blk.moe, n)) for n in ("router", "up", "down")}
@@ -180,14 +235,16 @@ def _ssm_block_np(blk: SSMBlock) -> dict:
 
 def to_numpy(params: Transformer) -> dict:
     """The port's parameters → the reference's pytree layout (numpy)."""
-    layers = [_ssm_block_np(blk) if isinstance(blk, SSMBlock) else _block_np(blk)
-              for blk in params.layers]
-    tree = {"embed": {"w": array(params.embed.w)}, "layers": layers,
+    tree = {"embed": {"w": array(params.embed.w)},
+            "layers": [_layer_np(blk) for blk in params.layers],
             "final_norm": _norm_np(params.final_norm)}
     if params.lm_head is not None:
         tree["lm_head"] = _linear_np(params.lm_head)
     if params.shared_attn is not None:
         tree["shared_attn"] = _block_np(params.shared_attn)
+    if params.encoder is not None:
+        tree["encoder"] = {"layers": [_block_np(blk) for blk in params.encoder.layers],
+                           "norm": _norm_np(params.encoder.norm)}
     return tree
 
 
@@ -197,7 +254,12 @@ def cache_from_numpy(tree: dict, device="cuda") -> dict:
     or paged with the pools as the layers and the block table ``"bt"``
     beside them."""
     dev = resolve_device(device)
-    out = {name: [{k: tensor(v, dev) for k, v in layer.items()} for layer in tree[name]]
+
+    def layer_t(layer):
+        return {k: layer_t(v) if isinstance(v, dict) else tensor(v, dev)
+                for k, v in layer.items()}
+
+    out = {name: [layer_t(layer) for layer in tree[name]]
            for name in ("layers", "shared") if name in tree}
     if "bt" in tree:
         out["bt"] = tensor(tree["bt"], dev)
@@ -207,8 +269,8 @@ def cache_from_numpy(tree: dict, device="cuda") -> dict:
 def cache_to_numpy(cache: dict) -> dict:
     def layer_np(layer):
         cand = "states_all" in layer     # a verify candidate: the reference's keys
-        return {k: array(v) for k, v in layer.items()
-                if not (cand and k in ("state", "conv"))}
+        return {k: layer_np(v) if isinstance(v, dict) else array(v)
+                for k, v in layer.items() if not (cand and k in ("state", "conv"))}
 
     out = {name: [layer_np(layer) for layer in cache[name]]
            for name in ("layers", "shared") if name in cache}

@@ -7,10 +7,13 @@ torch dtype.
 * :class:`QuantConfig` — W8A8 / W4A8 verification settings (the paper's technique).
 * :class:`SpecConfig`  — speculative-decoding settings (drafting + verify).
 
-The port so far runs the dense and MoE decoders over a contiguous or
-paged KV cache, and the SSM (Mamba2) and hybrid (zamba2) decoders over a
-contiguous KV/SSM cache; the fields of the other families are kept for
-parity and rejected where they would be read.
+The port runs every family of the reference: the dense and MoE decoders
+over a contiguous or paged KV cache, the SSM (Mamba2) and hybrid
+(zamba2) decoders over a contiguous KV/SSM cache, and the cross-attention
+(llama-3.2-vision) and encoder-decoder (whisper) models over a contiguous
+KV cache with their cross caches beside it.  ``sliding_window`` is kept
+for parity (no configuration sets it) and refused where it would be
+read.
 """
 from __future__ import annotations
 
@@ -105,6 +108,41 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's census (the cross
+        layers count their attention only, as there)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        n_attn, n_cross, n_ssm, n_moe, _ = self._layer_census()
+        attn = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
+        per_ffn = (3 if self.glu else 2) * D * F
+        moe_ffn = 0
+        if self.is_moe:
+            e_ffn = (3 if self.glu else 2) * D * self.moe_d_ff
+            moe_ffn = self.num_experts * e_ffn + D * self.num_experts
+            if self.dense_residual:
+                moe_ffn += per_ffn
+        ssm = 0
+        if n_ssm:
+            di, N, H = self.d_inner, self.ssm_state, self.ssm_heads
+            ssm = D * (2 * di + 2 * N + H) + di * D + di
+        per_layer = (n_attn * (attn + (per_ffn if not self.is_moe else 0))
+                     + n_cross * attn + n_moe * moe_ffn + n_ssm * ssm)
+        enc = self.encoder_layers * (attn + per_ffn) if self.encoder_layers else 0
+        return emb + per_layer + enc
+
+    def _layer_census(self) -> Tuple[int, int, int, int, int]:
+        """(n_self_attn, n_cross_attn, n_ssm, n_moe_ffn, n_dense_ffn) decoder layers."""
+        L = self.num_layers
+        if self.arch_type == "ssm":
+            return 0, 0, L, 0, 0
+        if self.arch_type == "hybrid":
+            return (L // self.attn_every if self.attn_every else 0), 0, L, 0, 0
+        n_cross = L // self.cross_attn_every if self.cross_attn_every else 0
+        if self.is_moe:
+            return L - n_cross, n_cross, 0, L, 0
+        return L - n_cross, n_cross, 0, 0, L
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family: ≤2 layers, d_model ≤ 512."""

@@ -91,18 +91,19 @@ class ChainTreeAdapter(Drafter):
     def with_temperature(self, temperature: float) -> "ChainTreeAdapter":
         return ChainTreeAdapter(self.base.with_temperature(temperature))
 
-    def init_state(self, model, params, prompts, buf_len, *, draft_params=None):
+    def init_state(self, model, params, prompts, buf_len, *, aux_embeds=None,
+                   draft_params=None):
         return self.base.init_state(model, params, prompts, buf_len,
-                                    draft_params=draft_params)
+                                    aux_embeds=aux_embeds, draft_params=draft_params)
 
     def alloc_state(self, model, params, batch, buf_len, *, draft_params=None):
         return self.base.alloc_state(model, params, batch, buf_len,
                                      draft_params=draft_params)
 
     def prefill_row(self, model, params, dstate, row, prompt, buf_len, *,
-                    draft_params=None):
+                    aux_embeds=None, draft_params=None):
         return self.base.prefill_row(model, params, dstate, row, prompt, buf_len,
-                                     draft_params=draft_params)
+                                     aux_embeds=aux_embeds, draft_params=draft_params)
 
     def propose(self, model, params, tokens, length, dstate, generators):
         proposal, dstate = self.base.propose(model, params, tokens, length, dstate,
@@ -157,29 +158,35 @@ class PrunedDrafter(Drafter):
     def n_keep(self, model) -> int:
         return max(1, int(round(model.cfg.num_layers * self.retention)))
 
-    def init_state(self, model, params, prompts, buf_len: int, *, draft_params=None):
+    def init_state(self, model, params, prompts, buf_len: int, *, aux_embeds=None,
+                   draft_params=None):
         n_keep = self.n_keep(model)
         pcache = model.init_cache(prompts.shape[0], buf_len, num_layers=n_keep)
         return model.prefill(draft_params if draft_params is not None else params,
-                             pcache, prompts[:, :-1], num_layers=n_keep)
+                             pcache, prompts[:, :-1], num_layers=n_keep,
+                             aux_embeds=aux_embeds)
 
     def alloc_state(self, model, params, batch: int, buf_len: int, *, draft_params=None):
         # an empty (un-prefilled) draft cache
         return model.init_cache(batch, buf_len, num_layers=self.n_keep(model))
 
     def prefill_row(self, model, params, dstate, row: int, prompt, buf_len: int, *,
-                    draft_params=None):
+                    aux_embeds=None, draft_params=None):
         """Zero the draft cache's row ``row`` and prefill the unpadded
-        ``prompt`` (1, P) into it, in place (the row views write through)."""
+        ``prompt`` (1, P) (and the request's ``aux_embeds`` (1, Sa, D)) into
+        it, in place (the row views write through)."""
         from repro_torch.models.transformer import cache_rows
+
+        def zero(tree):
+            for t in tree.values():
+                zero(t) if isinstance(t, dict) else t.zero_()
 
         rows = cache_rows(dstate, row)
         for layers in rows.values():
             for layer in layers:
-                for t in layer.values():
-                    t.zero_()
+                zero(layer)
         model.prefill(draft_params if draft_params is not None else params, rows,
-                      prompt[:, :-1], num_layers=self.n_keep(model))
+                      prompt[:, :-1], num_layers=self.n_keep(model), aux_embeds=aux_embeds)
         return dstate
 
     def propose(self, model, params, tokens, length, dstate, generators):

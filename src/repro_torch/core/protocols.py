@@ -4,11 +4,13 @@ continuous-batching slot lifecycle).
 
 ``Drafter``:
 
-* ``init_state(model, params, prompts, buf_len, *, draft_params=None)`` →
-  drafter state (once per generation; ``{}`` for stateless drafters, a
-  prefilled draft cache for ``pruned``); ``alloc_state`` allocates it
-  empty for a scheduler group, and ``prefill_row`` resets one slot of it
-  for a newly admitted request, in place;
+* ``init_state(model, params, prompts, buf_len, *, aux_embeds=None,
+  draft_params=None)`` → drafter state (once per generation; ``{}`` for
+  stateless drafters, a prefilled draft cache for ``pruned``, whose cross
+  layers read ``aux_embeds``, the (B, Sa, D) image or audio embeddings);
+  ``alloc_state`` allocates it empty for a scheduler group, and
+  ``prefill_row`` resets one slot of it for a newly admitted request, in
+  place;
 * ``propose(model, params, tokens, length, dstate, generators)`` →
   ``(DraftProposal, dstate)`` every step.  ``proposal.tokens`` is
   ``(B, gamma)`` int32; ``probs`` is ``None`` for deterministic drafters
@@ -67,7 +69,7 @@ class Drafter:
         return self
 
     def init_state(self, model, params, prompts, buf_len: int, *,
-                   draft_params=None) -> Any:
+                   aux_embeds=None, draft_params=None) -> Any:
         return {}
 
     def alloc_state(self, model, params, batch: int, buf_len: int, *,
@@ -78,11 +80,12 @@ class Drafter:
         return {}
 
     def prefill_row(self, model, params, dstate, row: int, prompt, buf_len: int, *,
-                    draft_params=None) -> Any:
+                    aux_embeds=None, draft_params=None) -> Any:
         """Reset slot ``row`` of ``dstate`` for a newly admitted request, in
         place, and return ``dstate``.  ``prompt`` is ``(1, P)`` int32, the
         **unpadded** prompt: a draft-side cache may keep slots the drafter
-        never rewrites, and a solo run has zeros there.  A no-op for
+        never rewrites, and a solo run has zeros there; ``aux_embeds`` (1,
+        Sa, D) are the request's image or audio embeddings.  A no-op for
         stateless drafters."""
         return dstate
 

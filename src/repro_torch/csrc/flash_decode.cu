@@ -450,8 +450,11 @@ __device__ __forceinline__ void split_pair(float p0, float p1, unsigned& hi, uns
 // Fragment layouts of m16n8k16 (g = lane / 4, c = lane % 4): A rows g, g+8,
 // k pairs 2c, 2c+8; B k pairs 2c, 2c+8, column g; C rows g, g+8, columns
 // 2c, 2c+1.
+// Two blocks per SM cap a thread at 128 registers; at DH 160 the 20
+// accumulator tiles do not fit in them (ptxas spilled 44-56 bytes), so that
+// head size asks for one.
 template <typename KVT, int DH, typename Rows>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+__global__ void __launch_bounds__(kMaxThreads, DH > 128 ? 1 : 2)
 flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k,
                        const KVT* __restrict__ v, const float* __restrict__ ks,
                        const float* __restrict__ vs, const Rows rows,
@@ -798,6 +801,8 @@ int launch_dh(int dh, const Args& a, const Rows rows) {
       return launch<QT, KVT, 80>(a, rows);
     case 128:
       return launch<QT, KVT, 128>(a, rows);
+    case 160:  // stablelm-12b (5120 / 32 heads)
+      return launch<QT, KVT, 160>(a, rows);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,7 +23,8 @@
 // D and the pointers allow it (else element by element, in the same
 // order), and held in registers: thread t holds chunks t, t + 256, ...
 // (up to CPT of them, a template parameter: 2, enough for a 4096-wide bf16
-// row, or 8).  No second read of the row, so one block per row moves the
+// row, or 8; smooth_quant alone also 16, for llama-3.2-vision's 28672-wide
+// down projection).  No second read of the row, so one block per row moves the
 // bound's bytes.
 // norm_smooth_quant's sum of squares is taken in an order the kernel fixes,
 // whatever the number of rows: each thread adds the squares of its chunks'
@@ -52,7 +53,8 @@
 namespace {
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kMaxCpt = 8;  // chunks a thread holds: D <= 8 * 256 * chunk
+constexpr int kMaxNormCpt = 8;  // chunks a thread holds: D <= 8 * 256 * chunk (norm)
+constexpr int kMaxCpt = 16;     // and without the norm: D <= 16 * 256 * chunk
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -213,6 +215,9 @@ cudaError_t launch_cpt(int cpt, const T* x, const float* scale, float eps, float
   }
   QUANT_ROWS(2)
   QUANT_ROWS(8)
+  if constexpr (!NORM) {
+    QUANT_ROWS(16)
+  }
 #undef QUANT_ROWS
   return cudaErrorInvalidValue;
 }
@@ -222,7 +227,7 @@ cudaError_t launch_rows(const void* x, int x_is_bf16, const float* scale, float 
                         float inv_d, const Targets& tg, int M, int D, cudaStream_t st) {
   const int C = x_is_bf16 ? 8 : 4;
   const int cpt = ((D + C - 1) / C + kThreads - 1) / kThreads;
-  if (D <= 0 || cpt > kMaxCpt) return cudaErrorInvalidValue;
+  if (D <= 0 || cpt > (NORM ? kMaxNormCpt : kMaxCpt)) return cudaErrorInvalidValue;
   // 16-byte vectors where every chunk starts 16-byte aligned, in x and in the
   // f32 vectors (an 8-wide chunk spans two float4), and the codes' stores
   // (C bytes) are aligned
@@ -241,7 +246,7 @@ cudaError_t launch_rows(const void* x, int x_is_bf16, const float* scale, float 
 }  // namespace
 
 // x: (M, K) row-major, bf16 (x_is_bf16 != 0) or f32; s: (K,) f32;
-// q: (M, K) int8; dx: (M,) f32.  K <= 8 * 256 * (8 bf16 or 4 f32).
+// q: (M, K) int8; dx: (M,) f32.  K <= 16 * 256 * (8 bf16 or 4 f32).
 // Returns the launch's error or cudaGetLastError().
 extern "C" int smooth_quant_launch(const void* x, int x_is_bf16, const float* s,
                                    int8_t* q, float* dx, int M, int K, void* stream) {

@@ -43,7 +43,7 @@ CHUNK = 32                 # keys per online-softmax step (a copy group of the r
 RING = 3                   # K/V chunks staged at once in the tensor-core body
 TILE = 16                  # query rows per warp in the tensor-core body
 MMA_ROWS = 128             # most query rows per block in the tensor-core body
-HEAD_DIMS = (32, 64, 80, 128)  # head sizes the kernel is instantiated for
+HEAD_DIMS = (32, 64, 80, 128, 160)  # head sizes the kernel is instantiated for
 MAX_SMEM = 232448          # bytes of shared memory a block may use (H100)
 
 
@@ -227,9 +227,11 @@ def _check_table(q, k, bt) -> None:
         raise ValueError("flash_decode_paged: inputs are on different devices")
 
 
-def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None):
+def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None,
+            count_as=None):
     """Launch the split and merge kernels on contiguous K/V, or on pools
-    through the block table ``bt`` (logical length nb·bs)."""
+    through the block table ``bt`` (logical length nb·bs); the launch is
+    counted under ``count_as`` when given (the cross-attention read)."""
     B, T, Hq, dh = q.shape
     paged = bt is not None
     S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
@@ -270,20 +272,23 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
                  -(-T // 32), ops.ptr(out), ops.ptr(part_m), ops.ptr(part_l),
                  ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, *tail)
     ops.check("flash_decode", err)
-    ops.LAUNCHES["flash_decode" + "_paged" * paged + "_tree" * tree + "_int8" * int8] += 1
+    ops.LAUNCHES[count_as or
+                 "flash_decode" + "_paged" * paged + "_tree" * tree + "_int8" * int8] += 1
     return out
 
 
 def flash_decode(q, k, v, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
-                 win_start=None, tree_bits=None):
+                 win_start=None, tree_bits=None, count_as=None):
     """q (B,T,Hq,dh), k/v (B,S,Hkv,dh) of q's dtype or int8 with k_scale /
     v_scale (B,S,Hkv) f32, qpos (B,T) int32 → (B,T,Hq,dh) in q's dtype.
     A token-tree window adds ``tree_mask`` (T,T) bool and ``win_start``
-    (B,) int32 (and optionally the mask's bit words ``tree_bits``)."""
+    (B,) int32 (and optionally the mask's bit words ``tree_bits``).
+    ``count_as`` names the launch counter (default: the variant's name)."""
     _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits)
     return ops.dispatch(
         q, lambda: flash_decode_ref(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start),
-        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits))
+        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
+                        count_as=count_as))
 
 
 def flash_decode_paged(q, k, v, bt, qpos, *, k_scale=None, v_scale=None, tree_mask=None,

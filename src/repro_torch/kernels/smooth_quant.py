@@ -35,7 +35,8 @@ INT8_MAX = 127.0
 INV_INT8_MAX = float(np.float32(1.0) / np.float32(INT8_MAX))
 EPS = 1e-8
 THREADS = 256                  # the kernel's threads per row (csrc/smooth_quant.cu)
-MAX_CHUNKS_PER_THREAD = 8      # chunks of one 16-byte vector a thread holds
+MAX_CHUNKS_PER_THREAD = 8      # chunks of one 16-byte vector a thread holds (norm)
+MAX_QUANT_CHUNKS_PER_THREAD = 16   # the same for smooth_quant alone (a 28672-wide down)
 MAX_NORM_READERS = 3           # q/k/v read attn_norm
 
 
@@ -45,8 +46,14 @@ def chunk(dtype: torch.dtype) -> int:
 
 
 def max_width(dtype: torch.dtype) -> int:
-    """The widest row the kernel holds in registers."""
+    """The widest row ``norm_smooth_quant``'s kernel holds in registers."""
     return MAX_CHUNKS_PER_THREAD * THREADS * chunk(dtype)
+
+
+def max_quant_width(dtype: torch.dtype) -> int:
+    """The widest row ``smooth_quant``'s kernel holds in registers (twice
+    the norm's: llama-3.2-vision's down projection reads 28672)."""
+    return MAX_QUANT_CHUNKS_PER_THREAD * THREADS * chunk(dtype)
 
 
 def smooth_quant_ref(x: torch.Tensor, smooth: torch.Tensor):
@@ -101,7 +108,8 @@ def norm_smooth_quant_ref(x, scale, eps, smooths):
     return [smooth_quant_ref(y, s) for s in smooths]
 
 
-def _check(x: torch.Tensor, smooth: torch.Tensor, name: str = "smooth_quant") -> None:
+def _check(x: torch.Tensor, smooth: torch.Tensor, name: str = "smooth_quant",
+           widest=max_quant_width) -> None:
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: x must be (M, K) bf16/f32, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -113,8 +121,8 @@ def _check(x: torch.Tensor, smooth: torch.Tensor, name: str = "smooth_quant") ->
                          f"f32, got {tuple(smooth.shape)} {smooth.dtype}")
     if smooth.device != x.device:
         raise ValueError(f"{name}: x and smooth are on different devices")
-    if x.device.type == "cuda" and not 0 < x.shape[1] <= max_width(x.dtype):
-        raise ValueError(f"{name}: the kernel holds rows of 1 to {max_width(x.dtype)} "
+    if x.device.type == "cuda" and not 0 < x.shape[1] <= widest(x.dtype):
+        raise ValueError(f"{name}: the kernel holds rows of 1 to {widest(x.dtype)} "
                          f"{x.dtype} values in registers, got {x.shape[1]}")
 
 
@@ -168,6 +176,6 @@ def norm_smooth_quant(x: torch.Tensor, scale: torch.Tensor, eps: float, smooths)
         raise ValueError(f"norm_smooth_quant: 1 to {MAX_NORM_READERS} smooth vectors, "
                          f"got {len(smooths)}")
     for s in (scale, *smooths):
-        _check(x, s, "norm_smooth_quant")
+        _check(x, s, "norm_smooth_quant", max_width)
     return ops.dispatch(x, lambda: norm_smooth_quant_ref(x, scale, eps, smooths),
                         lambda: _launch_norm(x, scale, eps, smooths))

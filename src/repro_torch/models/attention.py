@@ -1,5 +1,5 @@
-"""GQA self-attention with a contiguous KV cache — port of the contiguous,
-non-ring path of ``repro/models/attention.py``.
+"""GQA self-attention with a contiguous KV cache, and cross-attention —
+port of the contiguous, non-ring path of ``repro/models/attention.py``.
 
 Modes: **prefill** (``read_cache=False``) writes K/V into the cache and
 attends over the chunk's own keys; **decode / verify** writes a T-token
@@ -18,6 +18,17 @@ Cache layout per layer: ``{"k","v": (B, S, Hkv, dh)}``, plus
 Unlike the reference's functional update, :func:`write_cache` writes the
 cache tensors **in place** (one buffer per layer instead of a copy per
 step) and returns the same dict.
+
+**Cross-attention** (:class:`CrossAttention`; llama-3.2-vision's cross
+layers, whisper's decoder): K/V come from the image or encoder embeddings
+at prefill and are copied into the layer's ``{"ck","cv": (B, Sa, Hkv,
+dh)}`` in place; decode reads them from there.  No RoPE, no mask: every
+query sees every key.  The read goes through the ``flash_decode`` wrapper
+with every query at position Sa - 1 over slots 0..Sa-1, which makes every
+key visible, so on the card a row's bits depend neither on the window
+(T = 1 or γ+1) nor on the batch, as the causal read's do.  The
+bidirectional encoder's self-attention (``causal=False``) runs the plain
+path, as in the reference.
 
 **Paged cache** (``block_tables`` given): the layer's cache holds
 physical pools ``(N, bs, Hkv, dh)`` (``core/paged_cache.py``) and logical
@@ -63,15 +74,19 @@ def init_attn_cache(cfg, batch: int, max_len: int, device) -> dict:
 # Core attend: q (B,T,Hq,dh) over k/v (B,S,Hkv,dh) with a position mask
 # ---------------------------------------------------------------------------
 
-def _mask(qpos, kpos, tree_mask=None, win_start=None):
+def _mask(qpos, kpos, tree_mask=None, win_start=None, causal: bool = True):
     """Causal position mask: qpos (B,T); kpos (B,S) or (S,) → (B,1,1,T,S)
-    bool, key visible iff kpos <= qpos.  With a token-tree window the slots
+    bool, key visible iff kpos <= qpos (``causal=False``: iff kpos >= 0,
+    every real slot).  With a token-tree window the slots
     [win_start, win_start + T) hold the window's nodes in packed order, and
     there the ancestor-or-self ``tree_mask`` (T, T) decides instead;
     slots past the window stay masked by position."""
     if kpos.dim() == 1:
         kpos = kpos[None, :]
-    valid = (qpos[:, :, None] - kpos[:, None, :]) >= 0
+    if causal:
+        valid = (qpos[:, :, None] - kpos[:, None, :]) >= 0
+    else:
+        valid = (kpos[:, None, :] >= 0).expand(qpos.shape[0], qpos.shape[1], kpos.shape[-1])
     if tree_mask is not None:
         valid = tree_override(valid, kpos, tree_mask, win_start)
     return valid[:, None, None, :, :]
@@ -122,27 +137,27 @@ def _attend_chunked(q, k, v, valid, k_scale=None, v_scale=None):
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, dh).to(q.dtype)
 
 
-def _flash_eligible(kpos) -> bool:
+def _flash_eligible(kpos, causal: bool = True) -> bool:
     """The flash_decode kernel covers exactly the cache-read decode/verify
     shape: causal attention over a contiguous cache whose slot index is
     the position (1-D ``kpos``).  The prefill self-window (2-D ``kpos``)
-    stays on the plain path, as in the reference.  (The port's attention
-    is causal throughout; the reference's non-causal encoder and
-    cross-attention wait for the slices that port those models.)"""
-    return kpos.dim() == 1
+    and the encoder's non-causal attention stay on the plain path, as in
+    the reference (the cross-attention read is routed to the kernel by
+    :func:`cross_attend`)."""
+    return causal and kpos.dim() == 1
 
 
 def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
-           win_start=None, tree_bits=None, plain: bool = False):
-    """Position-masked attention (tree-masked over a token-tree window).
-    Flash-eligible calls go to the ``flash_decode`` wrapper; the others —
-    and every call with ``plain=True``, the reference's ``impl="jnp"`` —
-    run the plain path."""
-    if not plain and _flash_eligible(kpos):
+           win_start=None, tree_bits=None, plain: bool = False, causal: bool = True):
+    """Position-masked attention (tree-masked over a token-tree window;
+    every key visible with ``causal=False``).  Flash-eligible calls go to
+    the ``flash_decode`` wrapper; the others — and every call with
+    ``plain=True``, the reference's ``impl="jnp"`` — run the plain path."""
+    if not plain and _flash_eligible(kpos, causal):
         return flash_decode(q, k, v, qpos, k_scale=k_scale, v_scale=v_scale,
                             tree_mask=tree_mask, win_start=win_start,
                             tree_bits=tree_bits)
-    valid = _mask(qpos, kpos, tree_mask, win_start)
+    valid = _mask(qpos, kpos, tree_mask, win_start, causal)
     S = k.shape[1]
     if S > CHUNK_THRESHOLD:
         pad = (-S) % KV_CHUNK
@@ -155,6 +170,18 @@ def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
                 v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
         return _attend_chunked(q, k, v, valid, k_scale, v_scale)
     return _attend_direct(q, k, v, valid, k_scale, v_scale)
+
+
+def cross_attend(q, k, v):
+    """q (B,T,Hq,dh) over every one of the Sa keys of k/v (B,Sa,Hkv,dh):
+    the reference's ``attend(causal=False)`` of its cross-attention.  Goes
+    to the ``flash_decode`` wrapper with every query at position Sa - 1,
+    so that ``kpos <= qpos`` holds for every slot: the kernel on the card,
+    whose rows do not depend on T or B; its plain version on the CPU.  The
+    launch counts as ``flash_decode_cross``."""
+    B, T = q.shape[:2]
+    qpos = torch.full((B, T), k.shape[1] - 1, dtype=torch.int32, device=q.device)
+    return flash_decode(q, k, v, qpos, count_as="flash_decode_cross")
 
 
 def attend_paged(q, cache: dict, bt, qpos, *, tree_mask=None, win_start=None,
@@ -265,7 +292,7 @@ class Attention(nn.Module):
 
     def forward(self, x, qpos, *, cache: dict | None = None, read_cache: bool = True,
                 collect=None, path: str = "", tree: dict | None = None,
-                block_tables=None, plain_attn: bool = False):
+                block_tables=None, plain_attn: bool = False, causal: bool = True):
         """x (B,T,D) (or its norm's ``NormedCodes``), qpos (B,T) int32 →
         (out (B,T,D), cache or None).
 
@@ -273,7 +300,9 @@ class Attention(nn.Module):
         window's K/V go, ``mask`` (T,T) and its bit words ``bits``, and
         ``win_start`` (B,), the window's first slot.  ``block_tables``
         (B, nb) int32 makes ``cache`` a paged layer pool.  ``plain_attn``
-        reads the cache through the plain path (chunked prefill)."""
+        reads the cache through the plain path (chunked prefill).
+        ``causal=False`` (the encoder, no cache) lets every position see
+        every other."""
         cfg = self.cfg
         B, T, _ = x.shape
         q = apply_linear(self.q, x, collect, f"{path}/q").reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -301,6 +330,52 @@ class Attention(nn.Module):
             else:
                 o = attend(q, k, v, qpos, qpos)
         else:
-            o = attend(q, k, v, qpos, qpos)
+            o = attend(q, k, v, qpos, qpos, causal=causal)
+        out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")
+        return out, cache
+
+
+def init_cross_cache(cfg, batch: int, frames: int, device) -> dict:
+    """A cross-attention layer's zeroed ``{"ck","cv": (B, Sa, Hkv, dh)}`` in
+    the model dtype (whatever ``kv_cache_dtype`` is, as in the reference)."""
+    shape = (batch, frames, cfg.num_kv_heads, cfg.head_dim)
+    return {"ck": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "cv": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+class CrossAttention(Attention):
+    """Cross-attention over image or encoder embeddings — the reference's
+    ``cross_attention`` (``q``, ``k``, ``v``, ``o`` at its paths): q from
+    the normed x, k and v from ``kv_embeds`` at prefill, written into the
+    layer's ``ck``/``cv`` in place (so a captured step finds the same
+    tensors), and read from there at decode.  No RoPE."""
+
+    def readers(self) -> tuple:
+        """Only q reads the norm before it: k and v read the embeddings."""
+        return (self.q,)
+
+    def forward(self, x, *, kv_embeds=None, cache: dict | None = None, collect=None,
+                path: str = ""):
+        """x (B,T,D) (or its norm's ``NormedCodes``) → (out (B,T,D), cache)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        q = apply_linear(self.q, x, collect, f"{path}/q").reshape(B, T, cfg.num_heads, cfg.head_dim)
+        if cache is not None and kv_embeds is None:
+            k, v = cache["ck"], cache["cv"]
+        else:
+            if kv_embeds is None:
+                raise ValueError("cross-attention needs kv_embeds (image or audio "
+                                 "embeddings) or a cache holding ck/cv")
+            Sa = kv_embeds.shape[1]
+            shape = (B, Sa, cfg.num_kv_heads, cfg.head_dim)
+            k = apply_linear(self.k, kv_embeds, collect, f"{path}/k").reshape(shape)
+            v = apply_linear(self.v, kv_embeds, collect, f"{path}/v").reshape(shape)
+            if cache is not None:
+                if cache["ck"].shape != k.shape:
+                    raise ValueError(f"cross cache holds {tuple(cache['ck'].shape)}, the "
+                                     f"embeddings give {tuple(k.shape)}")
+                cache["ck"].copy_(k)
+                cache["cv"].copy_(v)
+        o = cross_attend(q, k.contiguous(), v.contiguous())
         out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")
         return out, cache

@@ -33,26 +33,33 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, self.device, num_layers)
 
     # -- full forward (calibration / fidelity eval) -----------------------
-    def forward(self, params: Transformer, tokens, *, collect=None, num_layers=None):
+    def forward(self, params: Transformer, tokens, *, aux_embeds=None, collect=None,
+                num_layers=None):
         """Returns (logits (B,T,V) f32, aux loss) over positions 0..T-1: the
         MoE layers' load-balance losses summed in layer order (0 for a dense
-        stack), as the reference's forward returns them."""
+        stack), as the reference's forward returns them.  ``aux_embeds``
+        (B, Sa, D): the image or audio embeddings a cross-attention model
+        reads (it needs them here: there is no cache to read instead)."""
         start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
         aux = []
-        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers, aux=aux)
+        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers, aux=aux,
+                           aux_embeds=aux_embeds)
         total = torch.zeros((), device=tokens.device)
         for a in aux:
             total = total + a
         return logits, total
 
     # -- serving ------------------------------------------------------------
-    def prefill(self, params: Transformer, cache: dict, tokens, num_layers=None) -> dict:
+    def prefill(self, params: Transformer, cache: dict, tokens, num_layers=None, *,
+                aux_embeds=None) -> dict:
         """Process the prompt *except its last token* into the cache (the
         caller passes ``prompts[:, :-1]``); the last prompt token becomes
-        the first token of the first verify window."""
+        the first token of the first verify window.  ``aux_embeds`` (B, Sa,
+        D) fill the cross layers' ``ck``/``cv`` (whisper: through the
+        encoder); without them those keep what they hold."""
         start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
         _, cache = params(tokens, start, cache=cache, read_cache=False,
-                          need_logits=False, num_layers=num_layers)
+                          need_logits=False, num_layers=num_layers, aux_embeds=aux_embeds)
         return cache
 
     def prefill_chunk(self, params: Transformer, cache: dict, tokens, start: int,

@@ -1,16 +1,26 @@
-"""Decoder stack — port of the ``dense``, ``moe`` and ``ssm`` paths of
-``repro/models/transformer.py``: self-attention + FFN (or MoE FFN) blocks
-over a contiguous or paged KV cache, Mamba2 blocks over a recurrent SSM
-cache, and zamba2's shared attention block, with the pruned-stack
+"""Decoder stack — port of ``repro/models/transformer.py``: self-attention
++ FFN (or MoE FFN) blocks over a contiguous or paged KV cache, Mamba2
+blocks over a recurrent SSM cache, zamba2's shared attention block,
+llama-3.2-vision's gated cross-attention layers, whisper's decoder blocks
+(self + cross + FFN) and its bidirectional encoder, with the pruned-stack
 (``num_layers``) and token-tree verify windows, and both commits.
 
 The parameter tree is an ``nn.Module`` tree whose submodule paths are the
 reference pytree's paths (``embed/w``, ``layers/<i>/attn/q``,
 ``layers/<i>/ffn/up``, ``layers/<i>/moe/{router,up,gate,down,dense}``,
 ``layers/<i>/norm``, ``layers/<i>/ssm/{in_proj,out_proj,conv_w,…}``,
-``shared_attn/{attn,ffn}/…``, ``final_norm``, ``lm_head``), so calibration
-statistics, quantization and the weight bridge address linears by the same
-names.
+``layers/<i>/cross/{q,k,v,o}``, ``layers/<i>/{gate_attn,gate_ffn}``,
+``layers/<i>/cross_norm``, ``shared_attn/{attn,ffn}/…``,
+``encoder/layers/<i>/…``, ``encoder/norm``, ``final_norm``, ``lm_head``),
+so calibration statistics, quantization and the weight bridge address
+linears by the same names.
+
+A ``cross`` layer's cache is ``{"ck","cv"}`` (filled at prefill from the
+image embeddings, read at decode); an ``audio`` layer's is ``{"self":
+<attention cache>, "ck", "cv"}``, the encoder output's K/V beside the
+decoder's own.  Without ``aux_embeds`` the cross caches keep what they
+hold (zeros in a fresh cache), as in the reference, whose serve CLI passes
+none.
 
 zamba2 (``hybrid``) applies one shared attention+FFN block (a single
 parameter set) after every ``attn_every``-th SSM layer, each application
@@ -25,7 +35,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.paged_cache import physical_slots
-from repro_torch.models.attention import Attention, init_attn_cache
+from repro_torch.models.attention import (Attention, CrossAttention, init_attn_cache,
+                                          init_cross_cache)
 from repro_torch.models.common import Norm, embed_init, fixed_rows_matmul
 from repro_torch.models.ffn import FFN, apply_linear
 from repro_torch.models.linear import Linear
@@ -46,9 +57,8 @@ def tied_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def layer_kinds(cfg) -> List[str]:
-    """Each layer's kind, as the reference derives it (``dense``, ``moe`` or
-    ``ssm`` among the families the port runs; ``cross`` and ``audio`` for
-    the others)."""
+    """Each layer's kind, as the reference derives it: ``dense``, ``moe``,
+    ``ssm``, ``cross`` (every ``cross_attn_every``-th layer) or ``audio``."""
     kinds = []
     for i in range(cfg.num_layers):
         if cfg.arch_type in ("ssm", "hybrid"):
@@ -72,12 +82,12 @@ def shared_attn_positions(cfg) -> List[int]:
 
 
 def check_supported(cfg) -> None:
-    if (cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.sliding_window
-            or cfg.encoder_layers or set(layer_kinds(cfg)) - {"dense", "moe", "ssm"}):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
+    if cfg.sliding_window:
         raise NotImplementedError(
-            f"the port runs dense, MoE, SSM and hybrid full-attention decoders; "
-            f"{cfg.name} ({cfg.arch_type}, window={cfg.sliding_window}) waits "
-            "for a later slice")
+            f"{cfg.name} (window={cfg.sliding_window}) needs a sliding-window (ring) "
+            "cache, which no configuration of the reference sets and the port does not have")
     if cfg.attn_impl != "auto":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: the port dispatches "
                          "attention by device, and 'auto' is its only value")
@@ -115,18 +125,115 @@ class Block(nn.Module):
         return cls(attn_norm, attn, ffn_norm, ffn=FFN.init(generator, cfg, device))
 
     def forward(self, x, qpos, cache=None, *, read_cache=True, collect=None, path="",
-                tree=None, block_tables=None, plain_attn=False, aux=None):
+                tree=None, block_tables=None, plain_attn=False, aux=None, causal=True):
         calib = collect is not None
         h, cache = self.attn(self.attn_norm(x, () if calib else self.attn.readers()), qpos,
                              cache=cache, read_cache=read_cache, collect=collect,
                              path=f"{path}/attn", tree=tree, block_tables=block_tables,
-                             plain_attn=plain_attn)
+                             plain_attn=plain_attn, causal=causal)
         x = x + h
         if self.moe is not None:
             return x + self.moe(self.ffn_norm(x), collect, f"{path}/moe", aux), cache
         x = x + self.ffn(self.ffn_norm(x, () if calib else self.ffn.readers()), collect,
                          f"{path}/ffn")
         return x, cache
+
+
+def _gated(gate: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """tanh(gate) · h, the f32 scalar gate's tanh cast to h's dtype first, as
+    the reference applies llama-3.2's gates."""
+    return torch.tanh(gate).to(h.dtype) * h
+
+
+class CrossBlock(nn.Module):
+    """llama-3.2-vision's cross layer: x + tanh(gate_attn)·cross(norm(x)),
+    then x + tanh(gate_ffn)·ffn(norm(x)).  The gates are f32 scalars,
+    initialised to 0 as in the reference (so a fresh layer adds nothing).
+    The attention norm's one reader is the cross q (k and v read the image
+    embeddings)."""
+
+    def __init__(self, attn_norm: Norm, cross: CrossAttention, ffn_norm: Norm, ffn: FFN,
+                 gate_attn: torch.Tensor, gate_ffn: torch.Tensor):
+        super().__init__()
+        self.attn_norm, self.cross, self.ffn_norm, self.ffn = attn_norm, cross, ffn_norm, ffn
+        self.register_buffer("gate_attn", gate_attn)
+        self.register_buffer("gate_ffn", gate_ffn)
+
+    @classmethod
+    def init(cls, generator, cfg, device):
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=device)  # noqa: E731
+        return cls(Norm(cfg, cfg.d_model, device), CrossAttention.init(generator, cfg, device),
+                   Norm(cfg, cfg.d_model, device), FFN.init(generator, cfg, device),
+                   zero(), zero())
+
+    def forward(self, x, cache=None, *, enc_out=None, collect=None, path=""):
+        calib = collect is not None
+        h, cache = self.cross(self.attn_norm(x, () if calib else self.cross.readers()),
+                              kv_embeds=enc_out, cache=cache, collect=collect,
+                              path=f"{path}/cross")
+        x = x + _gated(self.gate_attn, h)
+        h = self.ffn(self.ffn_norm(x, () if calib else self.ffn.readers()), collect,
+                     f"{path}/ffn")
+        return x + _gated(self.gate_ffn, h), cache
+
+
+class AudioBlock(nn.Module):
+    """whisper's decoder block: x + attn(norm(x)) over the decoder's own
+    cache (``cache["self"]``), x + cross(norm(x)) over the encoder output
+    (``cache["ck"]``/``["cv"]``), x + ffn(norm(x))."""
+
+    def __init__(self, attn_norm: Norm, attn: Attention, cross_norm: Norm,
+                 cross: CrossAttention, ffn_norm: Norm, ffn: FFN):
+        super().__init__()
+        self.attn_norm, self.attn, self.cross_norm = attn_norm, attn, cross_norm
+        self.cross, self.ffn_norm, self.ffn = cross, ffn_norm, ffn
+
+    @classmethod
+    def init(cls, generator, cfg, device):
+        return cls(Norm(cfg, cfg.d_model, device), Attention.init(generator, cfg, device),
+                   Norm(cfg, cfg.d_model, device), CrossAttention.init(generator, cfg, device),
+                   Norm(cfg, cfg.d_model, device), FFN.init(generator, cfg, device))
+
+    def forward(self, x, qpos, cache=None, *, read_cache=True, enc_out=None, collect=None,
+                path="", tree=None, plain_attn=False):
+        calib = collect is not None
+        h, _ = self.attn(self.attn_norm(x, () if calib else self.attn.readers()), qpos,
+                         cache=cache["self"] if cache is not None else None,
+                         read_cache=read_cache, collect=collect, path=f"{path}/attn",
+                         tree=tree, plain_attn=plain_attn)
+        x = x + h
+        h, _ = self.cross(self.cross_norm(x, () if calib else self.cross.readers()),
+                          kv_embeds=enc_out, cache=cache, collect=collect,
+                          path=f"{path}/cross")
+        x = x + h
+        x = x + self.ffn(self.ffn_norm(x, () if calib else self.ffn.readers()), collect,
+                         f"{path}/ffn")
+        return x, cache
+
+
+class Encoder(nn.Module):
+    """whisper's bidirectional encoder: dense blocks with non-causal
+    attention over the frame embeddings (no cache), then a final norm.  Run
+    once, at prefill."""
+
+    def __init__(self, cfg, layers, norm: Norm):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(layers)
+        self.norm = norm
+
+    @classmethod
+    def init(cls, generator, cfg, device):
+        return cls(cfg, [Block.init(generator, cfg, device) for _ in range(cfg.encoder_layers)],
+                   Norm(cfg, cfg.d_model, device))
+
+    def forward(self, embeds, collect=None, path: str = "encoder"):
+        B, S, _ = embeds.shape
+        pos = torch.arange(S, dtype=torch.int32, device=embeds.device).expand(B, S)
+        x = embeds.to(self.cfg.dtype)
+        for i, blk in enumerate(self.layers):
+            x, _ = blk(x, pos, collect=collect, path=f"{path}/layers/{i}", causal=False)
+        return self.norm(x)
 
 
 class SSMBlock(nn.Module):
@@ -149,44 +256,57 @@ class SSMBlock(nn.Module):
         return x + h, cache
 
 
+_LAYER_INIT = {"ssm": SSMBlock.init, "cross": CrossBlock.init, "audio": AudioBlock.init}
+
+
 class Transformer(nn.Module):
-    """The parameter tree and the forward pass of one dense, MoE, SSM or
-    hybrid decoder."""
+    """The parameter tree and the forward pass of one decoder (with
+    whisper's encoder)."""
 
     def __init__(self, cfg, embed: Embed, layers, final_norm: Norm,
-                 lm_head: Optional[nn.Module], shared_attn: Optional[Block] = None):
+                 lm_head: Optional[nn.Module], shared_attn: Optional[Block] = None,
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         check_supported(cfg)
         if bool(shared_attn_positions(cfg)) != (shared_attn is not None):
             raise ValueError("a hybrid decoder has exactly one shared attention block")
+        if bool(cfg.encoder_layers) != (encoder is not None):
+            raise ValueError(f"{cfg.name} has {cfg.encoder_layers} encoder layers")
         self.cfg = cfg
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.lm_head = lm_head
         self.shared_attn = shared_attn
+        self.encoder = encoder
 
     @classmethod
     def init(cls, cfg, generator: torch.Generator, device) -> "Transformer":
         """Seeded random weights with the reference's distributions."""
         check_supported(cfg)
-        layers = [SSMBlock.init(generator, cfg, device) if kind == "ssm"
+        layers = [_LAYER_INIT[kind](generator, cfg, device) if kind in _LAYER_INIT
                   else Block.init(generator, cfg, device, kind) for kind in layer_kinds(cfg)]
         lm_head = (None if cfg.tie_embeddings else
                    Linear.init(generator, cfg.d_model, cfg.vocab_size, False, cfg.dtype, device))
         embed = Embed(embed_init(generator, (cfg.vocab_size, cfg.d_model), cfg.dtype, device))
         shared = (Block.init(generator, cfg, device, "dense") if shared_attn_positions(cfg)
                   else None)
-        return cls(cfg, embed, layers, Norm(cfg, cfg.d_model, device), lm_head, shared)
+        encoder = Encoder.init(generator, cfg, device) if cfg.encoder_layers else None
+        return cls(cfg, embed, layers, Norm(cfg, cfg.d_model, device), lm_head, shared,
+                   encoder)
 
     def forward(self, tokens, start, *, cache: Optional[dict] = None,
                 read_cache: bool = True, collect=None, need_logits: bool = True,
                 path: str = "", num_layers: Optional[int] = None,
                 tree_depths=None, tree_mask=None, tree_bits=None,
                 plain_attn: bool = False, aux: Optional[list] = None,
-                collect_states: bool = False):
+                collect_states: bool = False, aux_embeds=None):
         """tokens (B,T) int, start (B,) first position →
-        (logits (B,T,V) f32 or None, cache or None).  ``aux``: a list each
+        (logits (B,T,V) f32 or None, cache or None).  ``aux_embeds`` (B, Sa,
+        D): the image embeddings a cross layer reads, or the audio frames
+        whisper's encoder turns into what its decoder blocks read; the cross
+        layers write their K/V into the cache (prefill) and read them from
+        there when none are given (decode).  ``aux``: a list each
         MoE layer appends its load-balance loss to (``Model.forward``); the
         decode and verify steps pass none and compute none.
         ``collect_states`` (the speculative verify window) makes each SSM
@@ -223,6 +343,10 @@ class Transformer(nn.Module):
         else:
             qpos = (start[:, None] + arange).to(torch.int32)
         x = self.embed.w[tokens.long()].to(cfg.dtype)
+        enc_out = None
+        if aux_embeds is not None:
+            enc_out = (self.encoder(aux_embeds, collect, f"{path}encoder")
+                       if self.encoder is not None else aux_embeds.to(cfg.dtype))
         shared_pos = shared_attn_positions(cfg)
         shared_caches = (cache.get("shared") or []) if cache is not None else []
         new_layers, shared_i = [], 0
@@ -231,6 +355,13 @@ class Transformer(nn.Module):
             if isinstance(blk, SSMBlock):
                 x, lcache = blk(x, lcache, collect_states=collect_states, collect=collect,
                                 path=f"{path}layers/{i}")
+            elif isinstance(blk, CrossBlock):
+                x, lcache = blk(x, lcache, enc_out=enc_out, collect=collect,
+                                path=f"{path}layers/{i}")
+            elif isinstance(blk, AudioBlock):
+                x, lcache = blk(x, qpos, lcache, read_cache=read_cache, enc_out=enc_out,
+                                collect=collect, path=f"{path}layers/{i}", tree=tree,
+                                plain_attn=plain_attn)
             else:
                 x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
                                 path=f"{path}layers/{i}", tree=tree,
@@ -270,25 +401,49 @@ def with_config(params: Transformer, cfg) -> Transformer:
 def init_cache(cfg, batch: int, max_len: int, device,
                num_layers: Optional[int] = None) -> dict:
     """Allocate the serving cache (of the first ``num_layers`` layers): an
-    attention cache or an SSM cache per layer, and for a hybrid decoder one
-    attention cache per shared-block application among them (``"shared"``).
-    ``max_len`` is rounded up so the chunked attention path (multiples of
-    1024) always applies to big buffers."""
+    attention cache, an SSM cache, a cross layer's ``{"ck","cv"}`` or an
+    audio layer's ``{"self", "ck", "cv"}`` per layer, and for a hybrid
+    decoder one attention cache per shared-block application among them
+    (``"shared"``).  ``max_len`` is rounded up so the chunked attention path
+    (multiples of 1024) always applies to big buffers."""
     check_supported(cfg)
     max_len = -(-max_len // 1024) * 1024 if max_len > 4096 else -(-max_len // 128) * 128
     kinds = layer_kinds(cfg)[:num_layers or cfg.num_layers]
-    cache = {"layers": [init_ssm_cache(cfg, batch, device) if kind == "ssm"
-                        else init_attn_cache(cfg, batch, max_len, device) for kind in kinds]}
+
+    def layer(kind):
+        if kind == "ssm":
+            return init_ssm_cache(cfg, batch, device)
+        if kind == "cross":
+            return init_cross_cache(cfg, batch, cfg.num_image_tokens, device)
+        if kind == "audio":
+            return {"self": init_attn_cache(cfg, batch, max_len, device),
+                    **init_cross_cache(cfg, batch, cfg.num_audio_frames, device)}
+        return init_attn_cache(cfg, batch, max_len, device)
+
+    cache = {"layers": [layer(kind) for kind in kinds]}
     shared = [i for i in shared_attn_positions(cfg) if num_layers is None or i < num_layers]
     if shared:
         cache["shared"] = [init_attn_cache(cfg, batch, max_len, device) for _ in shared]
     return cache
 
 
+def self_kv(layer: dict) -> Optional[dict]:
+    """The self-attention K/V a verify window writes in a layer's cache: the
+    layer's own dict, an audio layer's ``"self"``, or None for a cross
+    layer (its ``ck``/``cv`` are written at prefill only)."""
+    if "self" in layer:
+        return layer["self"]
+    return None if "ck" in layer else layer
+
+
 def cache_rows(cache: dict, row: int) -> dict:
     """Views of batch row ``row`` of every tensor of a contiguous cache
-    (``"layers"`` and ``"shared"``): writes through them land in the cache."""
-    view = lambda layer: {name: t[row:row + 1] for name, t in layer.items()}  # noqa: E731
+    (``"layers"`` and ``"shared"``, an audio layer's ``"self"`` too): writes
+    through them land in the cache."""
+    def view(layer):
+        return {name: view(t) if isinstance(t, dict) else t[row:row + 1]
+                for name, t in layer.items()}
+
     out = {"layers": [view(layer) for layer in cache["layers"]]}
     if "shared" in cache:
         out["shared"] = [view(layer) for layer in cache["shared"]]
@@ -369,9 +524,10 @@ def _compact_attn_rows_paged(lcache: dict, bt, start, path_nodes, n_accept) -> d
 
 def commit_cache_tree(cfg, cache: dict, start, path_nodes, n_accept) -> dict:
     """Resolve tree-verify candidate caches: compact the accepted
-    root-to-leaf path of every layer (see :func:`_compact_attn_rows`;
-    :func:`_compact_attn_rows_paged` for a paged cache).  Attention-family
-    layers only: recurrent and shared caches are refused, as
+    root-to-leaf path of every layer's self-attention K/V (see
+    :func:`_compact_attn_rows`; :func:`_compact_attn_rows_paged` for a
+    paged cache); cross caches stay as they are.  Attention-family layers
+    only: recurrent and shared caches are refused, as
     ``core/spec_engine.make_decode_step`` refuses their models."""
     if any("state" in layer for layer in cache["layers"]):
         raise NotImplementedError("tree speculation does not support recurrent caches")
@@ -380,8 +536,11 @@ def commit_cache_tree(cfg, cache: dict, start, path_nodes, n_accept) -> dict:
             "tree speculation does not support shared-attention caches")
     bt = cache.get("bt")
     for lcache in cache["layers"]:
+        kv = self_kv(lcache)
+        if kv is None:
+            continue
         if bt is not None:
-            _compact_attn_rows_paged(lcache, bt, start, path_nodes, n_accept)
+            _compact_attn_rows_paged(kv, bt, start, path_nodes, n_accept)
         else:
-            _compact_attn_rows(lcache, start, path_nodes, n_accept)
+            _compact_attn_rows(kv, start, path_nodes, n_accept)
     return cache

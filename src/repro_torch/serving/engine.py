@@ -74,7 +74,7 @@ from repro_torch.core.paged_cache import (
 )
 from repro_torch.core.protocols import get_drafter, get_verifier
 from repro_torch.core.spec_engine import init_state, make_decode_step
-from repro_torch.models.transformer import cache_rows
+from repro_torch.models.transformer import cache_rows, self_kv
 from repro_torch.serving.faults import NULL_FAULTS, InjectedFault, RequestFault
 from repro_torch.serving.graphs import StepPrograms
 from repro_torch.serving.metrics import AcceptanceStats
@@ -239,7 +239,7 @@ class SpecEngine:
         self._programs.forget(state)
 
     def _init_state(self, params, prompts, lengths, targets, buf, generators,
-                    draft_params=None):
+                    draft_params=None, aux_embeds=None):
         """Prefill + assemble the decode-loop state."""
         B, P = prompts.shape
         if P < 2:
@@ -250,9 +250,11 @@ class SpecEngine:
                                           device=self.model.device)
         # the cache covers committed tokens except the last, which is the
         # first token of the first verify window
-        state["cache"] = self.model.prefill(params, state["cache"], prompts[:, :-1])
+        state["cache"] = self.model.prefill(params, state["cache"], prompts[:, :-1],
+                                            aux_embeds=aux_embeds)
         state["drafter_state"] = self.drafter.init_state(
-            self.model, params, prompts, buf, draft_params=draft_params)
+            self.model, params, prompts, buf, aux_embeds=aux_embeds,
+            draft_params=draft_params)
         return state
 
     def _run(self, params, state, max_steps: int):
@@ -285,12 +287,14 @@ class SpecEngine:
     def generate(self, params, prompts: torch.Tensor,
                  max_new_tokens: Optional[int] = None, *,
                  generators: Optional[Sequence[torch.Generator]] = None,
-                 seed: int = 0, draft_params=None) -> GenResult:
+                 seed: int = 0, draft_params=None, aux_embeds=None) -> GenResult:
         """Homogeneous batch: prompts (B, P) int32 on the model's device,
         shared budget.  ``generators`` (one per row) default to request
         streams seeded ``seed, seed+1, …``.  ``draft_params``: separate
         weights for the pruned drafter's prefill (default: the prepared
-        verifier weights, as in the reference)."""
+        verifier weights, as in the reference).  ``aux_embeds`` (B, Sa, D):
+        image or audio embeddings for a cross-attention model, read at
+        prefill (into the verifier's and the pruned drafter's caches)."""
         max_new = max_new_tokens or self.scfg.max_new_tokens
         dev = self.model.device
         prompts = prompts.to(device=dev, dtype=torch.int32)
@@ -304,8 +308,10 @@ class SpecEngine:
         targets = torch.full((B,), P + max_new, dtype=torch.int32, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
+        if aux_embeds is not None:
+            aux_embeds = aux_embeds.to(dev)
         state = self._init_state(params, prompts, lengths, targets, buf, generators,
-                                 draft_params)
+                                 draft_params, aux_embeds)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         capture_s = self.capture_s
@@ -325,7 +331,8 @@ class SpecEngine:
     def prefill_into_slot(self, params, state: dict, row: int, request: GenerationRequest,
                           *, pmax: Optional[int] = None, drafter=None, draft_params=None,
                           pool: Optional[BlockPool] = None, rid: Optional[int] = None,
-                          shared_blocks: int = 0, shared_rows: int = 0) -> dict:
+                          shared_blocks: int = 0, shared_rows: int = 0,
+                          aux_embeds=None) -> dict:
         """Admit ``request`` into slot ``row`` of a live decode state, **in
         place** (returns the same dict).
 
@@ -347,9 +354,14 @@ class SpecEngine:
         (``Model.prefill_chunk``); int8 KV recomputes the whole prompt, as
         in the reference.  ``pmax`` fixes the padded prompt length (the
         group's maximum); ``params`` must already be prepared.
+        ``aux_embeds`` (1, Sa, D): this request's image or audio
+        embeddings; the prefill writes the row's cross caches with the rest
+        of its row.
         """
         drafter = drafter if drafter is not None else self.drafter
         dev = self.model.device
+        if aux_embeds is not None:
+            aux_embeds = aux_embeds.to(dev)
         P = request.prompt.size
         buf = state["tokens"].shape[1]
         pmax = P if pmax is None else pmax
@@ -387,7 +399,7 @@ class SpecEngine:
             if P - 1 > c:
                 self.model.prefill_chunk(params, row_cache, prompt[:, c:P - 1], c)
         else:
-            self.model.prefill(params, row_cache, prompt[:, :-1])
+            self.model.prefill(params, row_cache, prompt[:, :-1], aux_embeds=aux_embeds)
         if paged:
             n_shared = int(shared_blocks)
             fork = n_shared > 0 and int(shared_rows) % pool.block_size != 0
@@ -412,7 +424,8 @@ class SpecEngine:
         # the drafter gets the UNPADDED prompt (see Drafter.prefill_row)
         state["drafter_state"] = drafter.prefill_row(
             self.model, params, state["drafter_state"], row,
-            torch.tensor(request.prompt, device=dev)[None], buf, draft_params=draft_params)
+            torch.tensor(request.prompt, device=dev)[None], buf, aux_embeds=aux_embeds,
+            draft_params=draft_params)
         return state
 
     def _check_paged_supported(self):
@@ -473,13 +486,16 @@ class SpecEngine:
     def serving_group(self, params, batch: Sequence[GenerationRequest], *,
                       temperature: Optional[float] = None,
                       batch_slots: Optional[int] = None, draft_params=None, tracer=None,
-                      trace_tid: int = 0) -> "ServingGroup":
+                      trace_tid: int = 0, aux_embeds=None) -> "ServingGroup":
         """Set up one temperature group's serving loop over ``batch``: the
         cache (contiguous, or the paged pool sized by ``plan_group``), the
         all-idle state and the scheduler hooks.  ``generate_requests`` runs
         it with ``Scheduler.run``; an open-loop caller ticks it, submitting
         ``batch[i]`` as scheduler index ``i``.  ``params`` must be
-        prepared."""
+        prepared.  ``aux_embeds`` (len(batch), Sa, D): each request's image
+        or audio embeddings, in ``batch`` order."""
+        row_aux = (lambda j: None) if aux_embeds is None else (  # noqa: E731
+            lambda j: aux_embeds[j:j + 1])
         t = self.scfg.temperature if temperature is None else float(temperature)
         step, drafter = self._step_for_temperature(t)
         dev = self.model.device
@@ -505,7 +521,7 @@ class SpecEngine:
             ctx = self.paged_group(num_blocks=plan.num_blocks, block_size=plan.block_size,
                                    gamma=drafter.gamma, tracer=tracer, trace_tid=trace_tid)
             for j, r in enumerate(batch):
-                ctx.register(j, r)
+                ctx.register(j, r, aux_embeds=row_aux(j))
             cache = init_paged_cache(self.model.cfg, slots, plan.max_blocks, plan.num_blocks,
                                      plan.block_size, device=dev)
         else:
@@ -533,7 +549,7 @@ class SpecEngine:
             hooks = dict(
                 admit=lambda st, slot, j: self.prefill_into_slot(
                     params, st, slot, batch[j], pmax=pmax, drafter=drafter,
-                    draft_params=draft_params),
+                    draft_params=draft_params, aux_embeds=row_aux(j)),
                 step=lambda st: step(params, st))
         return ServingGroup(state, hooks, ctx, f"{drafter.name}:{self.verifier.name}", stats)
 
@@ -541,7 +557,7 @@ class SpecEngine:
     def generate_requests(self, params, requests: Sequence[GenerationRequest], *,
                           batch_slots: Optional[int] = None, draft_params=None,
                           admission: str = "fifo", on_tokens=None,
-                          tracer=None) -> List[RequestResult]:
+                          tracer=None, aux_embeds=None) -> List[RequestResult]:
         """Serve requests with heterogeneous prompt lengths, budgets, seeds
         and temperatures; returns results in request order.
 
@@ -563,9 +579,14 @@ class SpecEngine:
         ``admission="edf"`` orders admissions earliest-deadline-first
         within a priority class; ``on_tokens(request_index, tokens)``
         streams each request's newly committed tokens after every step.
+        ``aux_embeds`` (len(requests), Sa, D): each request's image or audio
+        embeddings, in request order (a request that carries them is never
+        prefix-shared: its prompt alone does not determine its K/V).
         """
         if not requests:
             return []
+        if aux_embeds is not None:
+            aux_embeds = torch.as_tensor(aux_embeds, device=self.model.device)
         t_arrival = time.perf_counter()
         self.group_stats = []
         params = self._prepare_cached(params)
@@ -578,9 +599,10 @@ class SpecEngine:
         for gi, (t, idxs) in enumerate(groups.items()):
             tr.thread_name(gi, f"group{gi} T={t:g}")
             batch = [requests[i] for i in idxs]
-            group = self.serving_group(params, batch, temperature=t, batch_slots=batch_slots,
-                                       draft_params=draft_params, tracer=tracer,
-                                       trace_tid=gi)
+            group = self.serving_group(
+                params, batch, temperature=t, batch_slots=batch_slots,
+                draft_params=draft_params, tracer=tracer, trace_tid=gi,
+                aux_embeds=None if aux_embeds is None else aux_embeds[list(idxs)])
             self.group_stats.append(group.stats)
             group_on_tokens = None
             if on_tokens is not None:
@@ -721,7 +743,8 @@ class StepSnapshot:
         for cache in caches:
             bt = cache.get("bt")
             for layer in cache["layers"]:
-                for t in layer.values():
+                kv = self_kv(layer)          # cross caches: written at prefill only
+                for t in (kv or {}).values():
                     if bt is not None:
                         flat = t.view((-1,) + tuple(t.shape[2:]))
                         out.append((flat, (physical_slots(bt, slots, t.shape[1]),)))
@@ -803,6 +826,7 @@ class PagedGroup:
         self.live: dict = {}       # slot -> (rid, demand_tokens)
         self.swap: dict = {}       # rid  -> host snapshot
         self._reqs: dict = {}      # rid  -> request
+        self._aux: dict = {}       # rid  -> its (1, Sa, D) aux embeddings, or None
         self._tr = tracer if tracer is not None else NULL_TRACER
         self.trace_tid = int(trace_tid)
         self.shared_blocks = 0     # prefix-cache block hits
@@ -820,9 +844,11 @@ class PagedGroup:
         self.swapped_in_blocks = 0
 
     # -- registration --------------------------------------------------
-    def register(self, rid: int, request: GenerationRequest) -> None:
-        """Associate ``rid`` with its request before any hook runs."""
+    def register(self, rid: int, request: GenerationRequest, aux_embeds=None) -> None:
+        """Associate ``rid`` with its request (and its (1, Sa, D) image or
+        audio embeddings, if it has them) before any hook runs."""
         self._reqs[rid] = request
+        self._aux[rid] = aux_embeds
 
     def demand_tokens(self, rid: int) -> int:
         r = self._reqs[rid]
@@ -833,8 +859,10 @@ class PagedGroup:
 
     def _probe(self, rid: int):
         """(shared block ids, prompt rows they cover, cached-free count);
-        empty with sharing off or on a cold index."""
-        if self.index is None:
+        empty with sharing off, on a cold index, or when the request
+        carries aux embeddings (its prompt tokens alone do not determine
+        its K/V, so its blocks can neither be shared nor reused)."""
+        if self.index is None or self._aux.get(rid) is not None:
             return [], 0, 0
         ids, rows = self.index.lookup(self._reqs[rid].prompt)
         return ids, rows, sum(1 for b in ids if self.pool.ref(b) == 0)
@@ -866,20 +894,21 @@ class PagedGroup:
               draft_params=None) -> dict:
         if rid in self.swap:
             return self._resume(state, slot, rid)
-        r = self._reqs[rid]
+        r, aux = self._reqs[rid], self._aux.get(rid)
+        sharing = self.index is not None and aux is None
         need, (ids, rows, n_res) = self._admission_need(rid)
         P = r.prompt.size
         bs = self.pool.block_size
         # +1 COW headroom lets us *donate* our partially-filled boundary
         # block to the index; skipped — not failed — when the pool is tight
-        head = 1 if (self.index is not None and (P - 1) % bs != 0) else 0
+        head = 1 if (sharing and (P - 1) % bs != 0) else 0
         donate = bool(head) and self.pool.can_reserve(need + n_res + head)
         self.pool.reserve(rid, need + (head if donate else 0))
         if ids:
             self.pool.share(rid, ids)
             self.shared_blocks += len(ids)
             self.shared_rows += rows
-        if self.index is not None:
+        if sharing:
             if ids:
                 self.prefix_hits += 1
             else:
@@ -895,8 +924,8 @@ class PagedGroup:
             state = self.engine.prefill_into_slot(
                 params, state, slot, r, pmax=pmax, drafter=drafter,
                 draft_params=draft_params, pool=self.pool, rid=rid,
-                shared_blocks=len(ids), shared_rows=rows)
-        if self.index is not None:
+                shared_blocks=len(ids), shared_rows=rows, aux_embeds=aux)
+        if sharing:
             self.index.register(r.prompt, self.pool.owned(rid), include_boundary=donate)
         return state
 
