@@ -143,7 +143,23 @@
    every kernel of its path launched, the W8A8 chain step's launches
    (``ssm_launches_per_chain_step``), greedy spec and pruned ≡ vanilla and
    the scheduled requests ≡ the spec run's rows.
-10. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+10. Families phase (:func:`families_phase`): codeqwen1.5-7b, stablelm-12b,
+    llama-3.2-vision-90b (20 of 100 layers) and whisper-small at full
+    width, their kernels at their shapes, every run through graphs and
+    again eagerly, spec ≡ vanilla.
+11. Train phase (:func:`train_phase`, ``repro_torch/train``): the
+    gradients of ``ssd_update`` and of the cross read against their plain
+    versions' (f32, within 1e-4 of each tensor's max) and a wrapper with no
+    backward refusing a gradient; the kernels of smollm-135m's served path
+    at its full-width shapes against their plain versions; smollm-135m and
+    mamba2-370m trained at full width and depth through the train CLI
+    (bf16 weights, f32 moments, remat, each step a CUDA graph) on the
+    Markov corpus, the loss down at least 1 nat, a graph replay profiled;
+    each saved as the reference's ``.npz`` and loaded back bit for bit, then
+    served from the checkpoint by the serve CLI (W8A8, ngram against
+    vanilla: equal tokens; the path's kernels launched), L beside the
+    random init's.
+12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -153,6 +169,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -248,6 +265,14 @@ FAMILY_ARCHS = ("codeqwen1.5-7b", "stablelm-12b", "llama-3.2-vision-90b", "whisp
 FAMILY_VISION_LAYERS = 20          # of 100: the weights' reckoning in PERF.md §4
 FAMILY_TAGS = {"codeqwen1.5-7b": "codeqwen", "stablelm-12b": "stablelm",
                "llama-3.2-vision-90b": "vision", "whisper-small": "whisper"}
+TRAIN_RUNS = {                     # the train phase, full configs: steps, batch, seq, peak lr,
+    "smollm-135m": (400, 16, 256, 6e-3, 20),           # warm-up steps (PERF.md §4, §6)
+    "mamba2-370m": (800, 32, 64, 1.5e-3, 50),
+}
+TRAIN_ALPHA = 0.97                 # lm_batches' chance of following the chain
+TRAIN_LOG_EVERY, TRAIN_DROP = 25, 1.0   # the gate: last 10 losses' mean >= 1 nat under step 1's
+TRAIN_PROMPT, TRAIN_NEW = 192, 64       # served prompts + new tokens fill the trained length
+GRAD_RTOL = 1e-4                        # f32 gradients against the plain version's
 
 
 def log(msg: str) -> None:
@@ -420,11 +445,12 @@ def int4_matmul_rows(torch, dev, g, flush, shapes, **tag) -> list:
 
 
 def flash_chain_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, s_len: int,
-                     int8: bool, **tag) -> list:
+                     int8: bool, pos: int = PROMPT - 1 + 17, **tag) -> list:
     """Chain ``flash_decode`` (int8 K/V with ``int8``) at the verify window
-    (T = γ+1) and the vanilla one (T = 1) over an ``s_len``-slot cache:
-    within one bf16 rounding step of its plain version, timed beside it and
-    (bf16 K/V) beside SDPA with a boolean mask."""
+    (T = γ+1) and the vanilla one (T = 1), its first query at ``pos``, over
+    an ``s_len``-slot cache: within one bf16 rounding step of its plain
+    version, timed beside it and (bf16 K/V) beside SDPA with a boolean
+    mask."""
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     from repro_torch.models.attention import _quant_kv
 
@@ -435,7 +461,7 @@ def flash_chain_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, s_len: in
         q = torch.randn(B, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
         k = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn(B, s_len, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
-        qpos = (torch.arange(t, device=dev) + PROMPT - 1 + 17).expand(B, t)
+        qpos = (torch.arange(t, device=dev) + pos).expand(B, t)
         qpos = qpos.to(torch.int32).contiguous()
         kw = {}
         if int8:
@@ -2719,6 +2745,337 @@ def families_phase(torch, dev, flush):
     return out, kern
 
 
+def train_grad_holds(torch, dev) -> dict:
+    """The kernels the bf16 forward reaches in training, under autograd:
+    ``ssd_update`` at mamba2's head shapes (32 heads, P 64, N 128; batch 4,
+    T 1, 6 and 16) and the cross read (``flash_decode_cross``) at
+    whisper-small's (Sa 1500, 12/12 heads, dh 64) and
+    llama-3.2-vision's (Sa 1600, 64/8 heads, dh 128) cross shapes (batch 2,
+    T 32), f32: each launches its kernel once forward, and its gradients
+    must equal the plain version's within GRAD_RTOL of each tensor's max.
+    A wrapper with no backward (``smooth_quant``) must raise under grad.
+    Returns the worst relative error of each hold."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode_cross, flash_decode_ref
+    from repro_torch.kernels.smooth_quant import smooth_quant
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+    from repro_torch.models.ssm import softplus
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+
+    def grads(fn, inputs):
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        proj = torch.Generator(device=dev).manual_seed(1)
+        loss = sum((o * torch.randn(o.shape, generator=proj, device=dev)).sum() for o in outs)
+        return torch.autograd.grad(loss, xs)
+
+    def hold(name, kernel, plain, inputs, counter):
+        ops.reset_launch_counts()
+        got = grads(kernel, inputs)
+        if ops.launch_counts() != {counter: 1}:
+            raise AssertionError(f"{name}: launches {ops.launch_counts()}, expected one "
+                                 f"{counter}")
+        want = grads(plain, inputs)
+        err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(got, want))
+        if not err <= GRAD_RTOL:
+            raise AssertionError(f"{name}: gradients differ from the plain version's by "
+                                 f"{err:.3g} of their max (tolerance {GRAD_RTOL})")
+        log(f"  grad hold {name}: max error {err:.3g} of each tensor's max")
+        return err
+
+    out = {}
+    H, P, N = 32, 64, 128
+    for t in (1, 6, 16):
+        args = (rand(4, t, H, P), rand(4, t, N), rand(4, t, N),
+                softplus(rand(4, t, H) - 4.0), torch.linspace(1.0, 16.0, H, device=dev),
+                rand(4, H, P, N) * 0.5)
+        out[f"ssd_update_t{t}"] = hold(f"ssd_update T {t}",
+                                       lambda *a: ssd_update(*a, False),
+                                       lambda *a: ssd_update_ref(*a, False), args,
+                                       "ssd_update")
+    for name, (hq, hkv, sa, dh) in {"whisper": (12, 12, 1500, 64),
+                                    "vision": (64, 8, 1600, 128)}.items():
+        q, k, v = rand(2, 32, hq, dh), rand(2, sa, hkv, dh), rand(2, sa, hkv, dh)
+        qpos = torch.full((2, 32), sa - 1, dtype=torch.int32, device=dev)
+        out[f"cross_{name}"] = hold(f"cross read {name}", flash_decode_cross,
+                                    lambda q, k, v: flash_decode_ref(q, k, v, qpos),
+                                    (q, k, v), "flash_decode_cross")
+    x = rand(4, 64).requires_grad_(True)
+    try:
+        smooth_quant(x, torch.ones(64, device=dev))
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+    else:
+        raise AssertionError("smooth_quant took an input that needs a gradient")
+    return out
+
+
+def train_kernel_rows(torch, dev, flush) -> dict:
+    """Every kernel of smollm-135m's served W8A8 path at its full-width
+    shapes, against its plain version (mamba2-370m's are the SSM phase's
+    rows): ``flash_decode`` at 9/3 heads of 64 (G 3), the chain window and
+    the vanilla one, over the cache the served run allocates, the window
+    at the middle of the new tokens; ``int8_matmul`` at q/o (576 → 576),
+    k/v (576 → 192), gate/up (576 → 1536), down (1536 → 576) and the tied
+    ``lm_head`` (576 → 49152) at the chain window's rows (24), gate/up at
+    the vanilla window's (4) and at the prefill's (4 × 191);
+    ``norm_smooth_quant`` at d 576 with 3 readers (q/k/v), 2 (gate/up) and
+    1 (the final norm before ``lm_head``); ``smooth_quant`` at the o and
+    down inputs (576, 1536)."""
+    from repro_torch.configs import get_config
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    cfg = get_config("smollm-135m")
+    D, FF, V, KV = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.kv_dim
+    M = B * (GAMMA + 1)
+    S = -(-(TRAIN_PROMPT + TRAIN_NEW + GAMMA + 2) // 128) * 128      # transformer.init_cache
+    tag = dict(phase="train", arch=cfg.name)
+    out = {"flash_decode_g3_dh64": flash_chain_rows(
+        torch, dev, g, flush, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, S, False,
+        pos=TRAIN_PROMPT + TRAIN_NEW // 2, **tag)}
+    out["int8_matmul"] = int8_matmul_rows(
+        torch, dev, g, flush,
+        ((M, D, cfg.q_dim), (M, D, KV), (M, D, FF), (M, FF, D), (M, D, V), (B, D, FF),
+         (B * (TRAIN_PROMPT - 1), D, FF)), **tag)
+    out["norm_smooth_quant"] = [r for readers in (3, 2, 1) for r in norm_smooth_quant_rows(
+        torch, dev, g, flush, (B, M), D, readers, cfg.norm_eps, **tag)]
+    out["smooth_quant"] = smooth_quant_rows(torch, dev, g, flush, ((M, cfg.q_dim), (M, FF)),
+                                            **tag)
+    for name, rows in out.items():
+        for r in rows:
+            log(f"  {name:22s} {str(r['shape']):32s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']}")
+    return out
+
+
+def train_breakdown(torch, run, cfg, batch) -> dict:
+    """Where a train step's time goes (``run``: the train CLI's
+    ``TrainRun``).  Each part run eagerly and timed alone with CUDA events
+    (median of 3, after one warm-up; eager, the host sets the pace): the
+    forward (loss under no_grad, no remat), the forward and backward with
+    per-layer remat (``value_and_grad``), the optimizer update
+    (``adamw_update``, its result dropped), and, for a tied embedding, the
+    tied logits' product forward and backward at the step's rows (one GEMM
+    in training).  Then torch.profiler over one eager step (its device busy
+    ms, wall and idle share) and over one replay of the run's captured step
+    (``run.step``, a ``CapturedTrainStep``): its device busy ms and top
+    kernels, its profiled wall, and its idle share against the run's
+    unprofiled median step.  The replay is a real step: it trains the
+    model one step further."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import tied_logits
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.trainer import loss_fn, train_leaves, value_and_grad
+
+    params, opt_cfg, opt = run.params, run.opt_cfg, run.opt_state
+    dev = params.embed.w.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+
+    def ev_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def fwd():
+        with torch.no_grad():
+            loss_fn(params, cfg, tokens, labels)
+
+    holder = {}
+
+    def fwd_bwd():
+        holder["grads"] = value_and_grad(params, cfg, batch, remat=True)[1]
+
+    out = dict(forward_ms=ev_ms(fwd), forward_backward_remat_ms=ev_ms(fwd_bwd))
+    leaves = train_leaves(params)
+    out["optimizer_ms"] = ev_ms(lambda: adamw_update(opt_cfg, leaves, holder["grads"], opt))
+    if cfg.tie_embeddings:
+        w = params.embed.w.detach().requires_grad_(True)
+        x = torch.randn(tokens.numel(), cfg.d_model, device=dev,
+                        dtype=cfg.dtype).requires_grad_(True)
+
+        def logits():
+            with torch.enable_grad():
+                torch.autograd.grad(tied_logits(x, w).sum(), (x, w))
+
+        out["tied_logits_fwd_bwd_ms"] = ev_ms(logits)
+    del holder
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(params, cfg, batch, remat=True)
+        adamw_update(opt_cfg, leaves, grads, opt)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy, _ = device_time(torch, prof)
+    del grads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(params, opt, batch)
+        torch.cuda.synchronize()
+        replay_wall_ms = 1e3 * (time.perf_counter() - t0)
+    replay_busy, top = device_time(torch, prof)
+    out.update(profiled_eager_step_ms=wall_ms, eager_device_busy_ms=busy,
+               eager_idle_share=(1 - busy / wall_ms) if busy else None,
+               graph_step_ms=run.step_ms, profiled_replay_ms=replay_wall_ms,
+               replay_device_busy_ms=replay_busy,
+               graph_idle_share=(1 - replay_busy / run.step_ms) if replay_busy else None,
+               replay_top_kernels_ms=top)
+    return out
+
+
+def train_phase(torch, dev, smi: str, flush) -> tuple:
+    """Training on the card through the port's train CLI
+    (``launch/train.py``), then serving what it trained.  First the
+    gradient holds (:func:`train_grad_holds`) and the served path's
+    kernels at smollm-135m's shapes (:func:`train_kernel_rows`).  Then for
+    each of TRAIN_RUNS' models at full width and depth, bf16 weights from
+    the CLI's seed (the serve CLI's too), f32 moments: ``train.main`` with
+    its steps, batch, sequence length, peak lr and warm-up (cosine to 0,
+    clip 1.0, per-layer remat) on ``lm_batches(seed=0,
+    markov_alpha=TRAIN_ALPHA)``, each step a CUDA graph and timed on the
+    host clock after a synchronize, saving the ``.npz`` (``--ckpt``, the
+    reference's format).  Gates: every loss finite; the mean of the last
+    10 at least TRAIN_DROP nat under step 1's.  Records the median step ms
+    after the warm-up, training tokens/s, peak memory, the largest
+    gradient norm (before the clip), the loss curve every TRAIN_LOG_EVERY
+    steps and the step's breakdown (:func:`train_breakdown`).  The
+    checkpoint is loaded back: every leaf bit-equal to the trained
+    model's.  Then ``serve.main`` with ``--ckpt`` serves it: W8A8 with the
+    ngram drafter (γ 5) and with the vanilla drafter, batch 4, gsm8k-preset
+    prompts of TRAIN_PROMPT tokens from the training chain
+    (``task_prompts``' successor table is ``lm_batches(seed=0)``'s),
+    TRAIN_NEW new tokens, greedy, through graphs, launch counters zeroed
+    before each run; and, beside them, the spec run on the random init.
+    Gates: spec ≡ vanilla token for token, no non-finite row, and every
+    kernel of the served path launched.  Returns (info, runs, kernel
+    rows)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.bridge import from_jax_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.train.checkpoint import load_checkpoint
+    from repro_torch.train.trainer import train_leaves
+
+    info = dict(card=smi, grad_holds=train_grad_holds(torch, dev))
+    kern = train_kernel_rows(torch, dev, flush)
+    runs = {}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    for arch, (steps, batch_rows, seq, lr, warmup) in TRAIN_RUNS.items():
+        t_arch = time.perf_counter()
+        tag = arch.split("-")[0]
+        cfg = get_config(arch)
+        path = f"{ckpt_dir}/{tag}.npz"
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run = train.main(["--arch", arch, "--steps", str(steps), "--batch", str(batch_rows),
+                          "--seq-len", str(seq), "--lr", str(lr), "--warmup", str(warmup),
+                          "--markov-alpha", str(TRAIN_ALPHA), "--ckpt", path])
+        train_s = time.perf_counter() - t0
+        losses = torch.tensor(run.losses)
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{arch}: non-finite training loss")
+        first, last10 = run.losses[0], run.last10
+        if not last10 <= first - TRAIN_DROP:
+            raise AssertionError(f"{arch}: the loss fell from {first:.4f} to {last10:.4f} "
+                                 f"(last 10), less than {TRAIN_DROP} nat")
+        tinfo = dict(arch=arch, num_layers=cfg.num_layers, steps=steps, batch=batch_rows,
+                     seq_len=seq, lr=lr, warmup=warmup, first_loss=first, last10_loss=last10,
+                     loss_curve=[[i + 1, run.losses[i]] for i in range(steps)
+                                 if (i + 1) % TRAIN_LOG_EVERY == 0 or i == 0],
+                     max_grad_norm=max(run.grad_norms),
+                     grad_norm_curve=[[i + 1, run.grad_norms[i]] for i in range(steps)
+                                      if (i + 1) % TRAIN_LOG_EVERY == 0 or i == 0],
+                     step_ms=run.step_ms, first_step_ms=1e3 * run.step_s[0],
+                     train_tok_s=batch_rows * seq / (run.step_ms / 1e3),
+                     train_s=sum(run.step_s), cli_s=train_s, peak_mem_gb=run.peak_gb,
+                     params_gb=sum(t.numel() * t.element_size()
+                                   for t in run.params.buffers()) / 1e9)
+
+        t0 = time.perf_counter()
+        back = from_jax_params(load_checkpoint(path)["params"], cfg, device=dev)
+        want, got = train_leaves(run.params), train_leaves(back)
+        if list(want) != list(got) or not all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"{arch}: the checkpoint does not give back its leaves")
+        tinfo["checkpoint_load_s"] = time.perf_counter() - t0
+        del back, want, got
+        data = lm_batches(batch_rows, seq, cfg.vocab_size, seed=1, markov_alpha=TRAIN_ALPHA)
+        tinfo["breakdown"] = train_breakdown(torch, run, cfg, next(data))
+        log(f"  {tag}: trained {steps} steps, loss {first:.4f} -> {last10:.4f} (last 10), "
+            f"largest gradient norm {tinfo['max_grad_norm']:.2f}, step "
+            f"{tinfo['step_ms']:.1f} ms, {tinfo['train_tok_s']:.0f} tokens/s, peak "
+            f"{tinfo['peak_mem_gb']:.2f} GB; {json.dumps(tinfo['breakdown'])} ({smi})")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        need = ("norm_smooth_quant", "int8_matmul") + (
+            ("ssd_update",) if cfg.arch_type == "ssm" else ("flash_decode",))
+        base = ["--arch", arch, "--verifier", "w8a8", "--gamma", str(GAMMA), "--batch", str(B),
+                "--prompt-len", str(TRAIN_PROMPT), "--new-tokens", str(TRAIN_NEW)]
+        served = {}
+        for name, flags in ((f"{tag}_trained_spec_w8a8", ["--ckpt", path, "--drafter", "ngram"]),
+                            (f"{tag}_trained_vanilla_w8a8", ["--ckpt", path,
+                                                             "--drafter", "vanilla"]),
+                            (f"{tag}_random_spec_w8a8", ["--drafter", "ngram"])):
+            gc.collect()
+            ops.reset_launch_counts()
+            r = serve.main(base + flags)
+            torch.cuda.synchronize()
+            rec = dict(launches=ops.launch_counts(), L=r.mean_accept_len, tok_s=r.tokens_per_s,
+                       steps=r.steps, new_tokens=r.new_tokens, bad_rows=int(r.bad.sum()),
+                       capture_ms=1e3 * r.capture_s, card=smi)
+            missing = [k for k in need if rec["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
+            if rec["bad_rows"] or r.new_tokens != B * TRAIN_NEW:
+                raise AssertionError(f"{name}: {rec['bad_rows']} non-finite rows, "
+                                     f"{r.new_tokens} new tokens")
+            served[name] = r.tokens[:, :TRAIN_PROMPT + TRAIN_NEW].cpu()
+            runs[name] = rec
+            log(f"  {name}: L={rec['L']:.3f} steps={rec['steps']} tok/s={rec['tok_s']:.1f} "
+                f"launches={rec['launches']} ({smi})")
+            del r
+        spec, vanilla = served[f"{tag}_trained_spec_w8a8"], served[f"{tag}_trained_vanilla_w8a8"]
+        if not torch.equal(spec, vanilla):
+            share = (spec == vanilla).float().mean().item()
+            raise AssertionError(f"{arch}: greedy spec tokens differ from vanilla's "
+                                 f"({share:.4f} shared)")
+        gen = spec[:, TRAIN_PROMPT:].numpy()
+        tinfo.update(L_trained=runs[f"{tag}_trained_spec_w8a8"]["L"],
+                     L_random=runs[f"{tag}_random_spec_w8a8"]["L"],
+                     distinct_new_tokens_per_row=float(np.mean([len(set(row)) for row in gen])),
+                     phase_s=time.perf_counter() - t_arch)
+        os.remove(path)
+        info[tag] = tinfo
+    os.rmdir(ckpt_dir)
+    return info, runs, kern
+
+
 def main() -> int:
     import torch
 
@@ -2751,6 +3108,17 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "arning", "serialized")):
                 log(f"  {src}: {line.strip()}")
 
+    if sys.argv[1:] == ["--train-only"]:       # the train phase alone, for its own runs
+        log("train phase")
+        t0 = time.perf_counter()
+        flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+        train_out, _, train_kern = train_phase(torch, dev, smi, flush)
+        log(f"  train phase: {time.perf_counter() - t0:.1f} s")
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_train.json").write_text(json.dumps(
+            dict(train=train_out, kernels=train_kern), indent=1))
+        return 0
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     log("kernel phase")
     from repro_torch.configs import get_config
@@ -2816,6 +3184,16 @@ def main() -> int:
     for kname, rows in fam_kern.items():        # the families' rows after the others
         kern.setdefault(kname, []).extend(rows)
     runs.update(fam_out.pop("runs"))
+    log("train phase")
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    train_out, train_runs, train_kern = train_phase(torch, dev, smi, flush)
+    del flush
+    train_out["phase_s"] = time.perf_counter() - t0
+    log(f"  train phase: {train_out['phase_s']:.1f} s")
+    for kname, rows in train_kern.items():       # the train phase's rows after the others
+        kern.setdefault(kname, []).extend(rows)
+    runs.update(train_runs)
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -2871,13 +3249,17 @@ def main() -> int:
         # the port reads ck/cv through flash_decode for row invariance
         "flash_decode_cross": ("src/repro_torch/csrc/flash_decode.cu",
                                "src/repro/models/attention.py:459", "vision_spec_w8a8"),
+        # smollm-135m served from its trained checkpoint: 9/3 heads of 64 (G 3)
+        "flash_decode_g3_dh64": ("src/repro_torch/csrc/flash_decode.cu",
+                                 "src/repro/kernels/flash_decode.py:117",
+                                 "smollm_trained_spec_w8a8"),
     }
     counter = {"flash_decode_dh80": "flash_decode", "flash_decode_int8_dh80": "flash_decode_int8",
                "flash_decode_dh160": "flash_decode", "flash_decode_int8_dh160": "flash_decode_int8",
                "flash_decode_tree_dh160": "flash_decode_tree",
                "flash_decode_tree_int8_dh160": "flash_decode_tree_int8",
                "flash_decode_paged_dh160": "flash_decode_paged",
-               "flash_decode_g1_kv32": "flash_decode"}
+               "flash_decode_g1_kv32": "flash_decode", "flash_decode_g3_dh64": "flash_decode"}
     # the representative main-path shape of each kernel in the summary line
     pick = {"smooth_quant": 0, "norm_smooth_quant": 1, "int8_matmul": 2, "flash_decode": 0, "flash_decode_int8": 0,
             "int4_matmul": 2, "flash_decode_tree": 0, "flash_decode_tree_int8": 0,
@@ -2886,6 +3268,7 @@ def main() -> int:
             "flash_decode_dh160": 0, "flash_decode_int8_dh160": 0, "flash_decode_tree_dh160": 0,
             "flash_decode_tree_int8_dh160": 0, "flash_decode_paged_dh160": 0,
             "flash_decode_g1_kv32": 0, "flash_decode_cross": 0,     # chain window, vision
+            "flash_decode_g3_dh64": 0,                              # chain window, smollm
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
@@ -2909,7 +3292,8 @@ def main() -> int:
         dict(device=device_name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph, server=server, moe=moe_out, ssm=ssm_out, families=fam_out),
+             graph=graph, server=server, moe=moe_out, ssm=ssm_out, families=fam_out,
+             train=train_out),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -49,9 +49,10 @@ from repro_torch.models.transformer import (AudioBlock, Block, CrossBlock, Embed
 
 
 def tensor(a, device) -> torch.Tensor:
-    """numpy (incl. ``ml_dtypes.bfloat16``) → torch tensor on ``device``."""
+    """numpy (incl. ``ml_dtypes.bfloat16``, and the ``|V2`` bf16 bytes of a
+    ``.npz`` checkpoint) → torch tensor on ``device``."""
     a = np.array(a)          # a writable copy: JAX hands out read-only arrays
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
@@ -162,90 +163,104 @@ def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
                        _norm(cfg, tree["final_norm"], dev), lm_head, shared, encoder)
 
 
-def _linear_np(m) -> dict:
+def _linear_tree(m) -> dict:
     if isinstance(m, W8A8ExpertLinear):
-        return {"w_int8": array(m.w_int8.transpose(1, 2)), "w_scale": array(m.w_scale),
-                "smooth": array(m.smooth)}
+        return {"w_int8": m.w_int8.transpose(1, 2), "w_scale": m.w_scale,
+                "smooth": m.smooth}
     if isinstance(m, ExpertLinear):
-        return {"w": array(m.w)}
+        return {"w": m.w}
     if isinstance(m, (W8A8Linear, W4A8Linear)):
         name = "w_int8" if isinstance(m, W8A8Linear) else "w_int4"
-        out = {name: array(getattr(m, name).T), "w_scale": array(m.w_scale),
-               "smooth": array(m.smooth)}
+        out = {name: getattr(m, name).T, "w_scale": m.w_scale,
+               "smooth": m.smooth}
     else:
-        out = {"w": array(m.w)}
+        out = {"w": m.w}
     if m.b is not None:
-        out["b"] = array(m.b)
+        out["b"] = m.b
     return out
 
 
-def _ffn_np(f: FFN) -> dict:
-    out = {"up": _linear_np(f.up), "down": _linear_np(f.down)}
+def _ffn_tree(f: FFN) -> dict:
+    out = {"up": _linear_tree(f.up), "down": _linear_tree(f.down)}
     if f.gate is not None:
-        out["gate"] = _linear_np(f.gate)
+        out["gate"] = _linear_tree(f.gate)
     return out
 
 
-def _norm_np(n: Norm) -> dict:
-    out = {"scale": array(n.scale)}
+def _norm_tree(n: Norm) -> dict:
+    out = {"scale": n.scale}
     if n.bias is not None:
-        out["bias"] = array(n.bias)
+        out["bias"] = n.bias
     return out
 
 
-def _attention_np(a) -> dict:
-    return {n: _linear_np(getattr(a, n)) for n in ("q", "k", "v", "o")}
+def _attention_tree(a) -> dict:
+    return {n: _linear_tree(getattr(a, n)) for n in ("q", "k", "v", "o")}
 
 
-def _layer_np(blk) -> dict:
+def _layer_tree(blk) -> dict:
     if isinstance(blk, SSMBlock):
-        return _ssm_block_np(blk)
+        return _ssm_block_tree(blk)
     if isinstance(blk, CrossBlock):
-        return {"attn_norm": _norm_np(blk.attn_norm), "cross": _attention_np(blk.cross),
-                "gate_attn": array(blk.gate_attn), "ffn_norm": _norm_np(blk.ffn_norm),
-                "ffn": _ffn_np(blk.ffn), "gate_ffn": array(blk.gate_ffn)}
+        return {"attn_norm": _norm_tree(blk.attn_norm), "cross": _attention_tree(blk.cross),
+                "gate_attn": blk.gate_attn, "ffn_norm": _norm_tree(blk.ffn_norm),
+                "ffn": _ffn_tree(blk.ffn), "gate_ffn": blk.gate_ffn}
     if isinstance(blk, AudioBlock):
-        return {"attn_norm": _norm_np(blk.attn_norm), "attn": _attention_np(blk.attn),
-                "cross_norm": _norm_np(blk.cross_norm), "cross": _attention_np(blk.cross),
-                "ffn_norm": _norm_np(blk.ffn_norm), "ffn": _ffn_np(blk.ffn)}
-    return _block_np(blk)
+        return {"attn_norm": _norm_tree(blk.attn_norm), "attn": _attention_tree(blk.attn),
+                "cross_norm": _norm_tree(blk.cross_norm), "cross": _attention_tree(blk.cross),
+                "ffn_norm": _norm_tree(blk.ffn_norm), "ffn": _ffn_tree(blk.ffn)}
+    return _block_tree(blk)
 
 
-def _block_np(blk: Block) -> dict:
-    layer = {"attn_norm": _norm_np(blk.attn_norm), "attn": _attention_np(blk.attn),
-             "ffn_norm": _norm_np(blk.ffn_norm)}
+def _block_tree(blk: Block) -> dict:
+    layer = {"attn_norm": _norm_tree(blk.attn_norm), "attn": _attention_tree(blk.attn),
+             "ffn_norm": _norm_tree(blk.ffn_norm)}
     if blk.moe is not None:
-        moe = {n: _linear_np(getattr(blk.moe, n)) for n in ("router", "up", "down")}
+        moe = {n: _linear_tree(getattr(blk.moe, n)) for n in ("router", "up", "down")}
         if blk.moe.gate is not None:
-            moe["gate"] = _linear_np(blk.moe.gate)
+            moe["gate"] = _linear_tree(blk.moe.gate)
         if blk.moe.dense is not None:
-            moe["dense"] = _ffn_np(blk.moe.dense)
+            moe["dense"] = _ffn_tree(blk.moe.dense)
         layer["moe"] = moe
     else:
-        layer["ffn"] = _ffn_np(blk.ffn)
+        layer["ffn"] = _ffn_tree(blk.ffn)
     return layer
 
 
-def _ssm_block_np(blk: SSMBlock) -> dict:
-    ssm = {"in_proj": _linear_np(blk.ssm.in_proj), "out_proj": _linear_np(blk.ssm.out_proj),
-           **{n: array(getattr(blk.ssm, n)) for n in _SSM_BUFFERS},
-           "norm": _norm_np(blk.ssm.norm)}
-    return {"norm": _norm_np(blk.norm), "ssm": ssm}
+def _ssm_block_tree(blk: SSMBlock) -> dict:
+    ssm = {"in_proj": _linear_tree(blk.ssm.in_proj), "out_proj": _linear_tree(blk.ssm.out_proj),
+           **{n: getattr(blk.ssm, n) for n in _SSM_BUFFERS},
+           "norm": _norm_tree(blk.ssm.norm)}
+    return {"norm": _norm_tree(blk.norm), "ssm": ssm}
+
+
+def to_tree(params: Transformer) -> dict:
+    """The port's parameters → the reference's pytree layout with the
+    port's tensors as leaves (the int8/int4 weights as transposed views):
+    what ``train/checkpoint.save_checkpoint`` writes."""
+    tree = {"embed": {"w": params.embed.w},
+            "layers": [_layer_tree(blk) for blk in params.layers],
+            "final_norm": _norm_tree(params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = _linear_tree(params.lm_head)
+    if params.shared_attn is not None:
+        tree["shared_attn"] = _block_tree(params.shared_attn)
+    if params.encoder is not None:
+        tree["encoder"] = {"layers": [_block_tree(blk) for blk in params.encoder.layers],
+                           "norm": _norm_tree(params.encoder.norm)}
+    return tree
 
 
 def to_numpy(params: Transformer) -> dict:
     """The port's parameters → the reference's pytree layout (numpy)."""
-    tree = {"embed": {"w": array(params.embed.w)},
-            "layers": [_layer_np(blk) for blk in params.layers],
-            "final_norm": _norm_np(params.final_norm)}
-    if params.lm_head is not None:
-        tree["lm_head"] = _linear_np(params.lm_head)
-    if params.shared_attn is not None:
-        tree["shared_attn"] = _block_np(params.shared_attn)
-    if params.encoder is not None:
-        tree["encoder"] = {"layers": [_block_np(blk) for blk in params.encoder.layers],
-                           "norm": _norm_np(params.encoder.norm)}
-    return tree
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return array(node)
+
+    return walk(to_tree(params))
 
 
 def cache_from_numpy(tree: dict, device="cuda") -> dict:

@@ -1,6 +1,7 @@
-"""Synthetic data pipeline — a copy of the host-side (numpy) prompt
-helpers of ``repro/data/synthetic.py`` (``task_prompts`` and what it
-uses), kept in the port so that it never imports ``repro``.
+"""Synthetic data pipeline — a copy of the host-side (numpy) helpers of
+``repro/data/synthetic.py`` (``task_prompts``, ``ambiguous_prompts``,
+``lm_batches`` and what they use), kept in the port so that it never
+imports ``repro``.
 
 Two needs:
 
@@ -19,7 +20,7 @@ acceptance behave like the paper's real-LLM setting.
 from __future__ import annotations
 
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -93,3 +94,75 @@ def task_prompts(
                          markov=(succ, markov_alpha))
         for _ in range(batch)
     ])
+
+
+def ambiguous_prompts(
+    batch: int,
+    prompt_len: int,
+    vocab: int,
+    depth: int = 4,
+    seed: int = 0,
+    data_seed: int = 0,
+) -> np.ndarray:
+    """Repetition workload with *ambiguous* trailing-gram continuations —
+    the case tree drafting exists for.
+
+    Each row ends in an anchor bigram ``(a, b)`` whose earlier
+    occurrences continue differently: the older copies each follow one of
+    the Markov chain's likely successors of ``b`` (the distribution the
+    stand-in models are trained on), while the **most recent** copy
+    continues with junk.  Chain prompt-lookup must propose the junk
+    continuation (most-recent-match rule) and get rejected; a tree
+    drafter's sibling branches cover the successor continuations, one of
+    which is the trained model's greedy pick — so sibling rescue is
+    exercised at the very first verify step of every row.  Tokens < 2·len
+    are filler drawn from the same chain.
+    """
+    succ = succ_table(vocab, data_seed)
+    out = np.empty((batch, prompt_len), np.int32)
+    for r in range(batch):
+        rng = np.random.default_rng(seed * 1009 + r)
+        a, b = rng.integers(0, vocab, 2)
+        branches = list(dict.fromkeys(succ[b].tolist()))[:3]
+        blocks = []
+        for s in branches:                 # older copies: successor walks
+            walk, t = [s], s
+            for _ in range(depth - 1):
+                t = succ[t, 0]
+                walk.append(t)
+            blocks.append([a, b] + walk + [int(rng.integers(0, vocab))])
+        junk = [t for t in rng.permutation(vocab)[: depth + 2]
+                if t not in set(succ[b].tolist())][:depth]
+        blocks.append([a, b] + junk)       # most recent copy: junk
+        tail = sum(blocks, []) + [a, b]
+        fill_len = prompt_len - len(tail)
+        if fill_len < 0:
+            raise ValueError(f"prompt_len {prompt_len} too short for "
+                             f"{len(tail)} structured tokens")
+        fill = synthetic_corpus(rng, fill_len, vocab, 0.0,
+                                markov=(succ, 0.97)) if fill_len else []
+        out[r] = np.concatenate([np.asarray(fill, np.int32),
+                                 np.asarray(tail, np.int32)])
+    return out
+
+
+def lm_batches(
+    batch: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+    markov_alpha: float = 0.9,
+) -> Iterator[dict]:
+    """Infinite iterator of {"tokens", "labels"} with learnable structure:
+    a random sparse first-order Markov chain over the vocab."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab, size=(vocab, N_SUCC))  # == succ_table(vocab, seed)
+    while True:
+        toks = np.empty((batch, seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        for t in range(seq_len):
+            follow = rng.random(batch) < markov_alpha
+            pick = succ[toks[:, t], rng.integers(0, N_SUCC, batch)]
+            rand = rng.integers(0, vocab, batch)
+            toks[:, t + 1] = np.where(follow, pick, rand)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32)}

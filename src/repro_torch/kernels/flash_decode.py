@@ -278,17 +278,33 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
 
 
 def flash_decode(q, k, v, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
-                 win_start=None, tree_bits=None, count_as=None):
+                 win_start=None, tree_bits=None):
     """q (B,T,Hq,dh), k/v (B,S,Hkv,dh) of q's dtype or int8 with k_scale /
     v_scale (B,S,Hkv) f32, qpos (B,T) int32 → (B,T,Hq,dh) in q's dtype.
     A token-tree window adds ``tree_mask`` (T,T) bool and ``win_start``
-    (B,) int32 (and optionally the mask's bit words ``tree_bits``).
-    ``count_as`` names the launch counter (default: the variant's name)."""
+    (B,) int32 (and optionally the mask's bit words ``tree_bits``)."""
     _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits)
     return ops.dispatch(
         q, lambda: flash_decode_ref(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start),
-        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
-                        count_as=count_as))
+        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits),
+        (k, v, k_scale, v_scale))
+
+
+def flash_decode_cross(q, k, v):
+    """q (B,T,Hq,dh) over every one of the S keys of k/v (B,S,Hkv,dh) of
+    q's dtype: :func:`flash_decode` with every query at position S - 1,
+    counted as ``flash_decode_cross`` (the cross-attention read,
+    ``models/attention.cross_attend``).  Training reaches it: on the card a
+    call that needs a gradient launches the kernel forward and takes
+    :func:`flash_decode_ref`'s vector-Jacobian product backward
+    (``ops.dispatch_differentiable``)."""
+    B, T = q.shape[:2]
+    qpos = torch.full((B, T), k.shape[1] - 1, dtype=torch.int32, device=q.device)
+    _check(q, k, v, qpos, None, None, None, None, None)
+    return ops.dispatch_differentiable(
+        lambda q, k, v: flash_decode_ref(q, k, v, qpos),
+        lambda q, k, v: _launch(q, k, v, qpos, None, None, None, None, None,
+                                count_as="flash_decode_cross"), q, k, v)
 
 
 def flash_decode_paged(q, k, v, bt, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
@@ -305,4 +321,4 @@ def flash_decode_paged(q, k, v, bt, qpos, *, k_scale=None, v_scale=None, tree_ma
         q, lambda: flash_decode_paged_ref(q, k, v, bt, qpos, k_scale, v_scale, tree_mask,
                                           win_start),
         lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
-                        bt=bt))
+                        bt=bt), (k, v, k_scale, v_scale))

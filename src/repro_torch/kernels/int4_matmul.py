@@ -117,4 +117,4 @@ def int4_matmul(x_int8, w_packed, dx, dw, *, out_dtype=torch.bfloat16):
     _check(x_int8, w_packed, dx, dw, out_dtype)
     return ops.dispatch(
         x_int8, lambda: int4_matmul_ref(x_int8, w_packed, dx, dw, out_dtype),
-        lambda: _launch(x_int8, w_packed, dx, dw, out_dtype))
+        lambda: _launch(x_int8, w_packed, dx, dw, out_dtype), (dx, dw))

@@ -190,7 +190,7 @@ def int8_matmul(x_int8, w_nk, dx, dw, *, out_dtype=torch.bfloat16):
     _check(x_int8, w_nk, dx, dw, out_dtype)
     return ops.dispatch(
         x_int8, lambda: int8_matmul_ref(x_int8, w_nk, dx, dw, out_dtype),
-        lambda: _launch(x_int8[None], w_nk[None], dx, dw, out_dtype)[0])
+        lambda: _launch(x_int8[None], w_nk[None], dx, dw, out_dtype)[0], (dx, dw))
 
 
 def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16):
@@ -212,4 +212,5 @@ def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16):
            dw.view(-1), out_dtype)
     return ops.dispatch(
         x_int8, lambda: int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype),
-        lambda: _launch(x_int8, w_enk, dx, dw, out_dtype, "int8_matmul_batched"))
+        lambda: _launch(x_int8, w_enk, dx, dw, out_dtype, "int8_matmul_batched"),
+        (dx, dw))

@@ -28,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable, TypeVar
+from typing import Callable, Dict, Iterable, Sequence, TypeVar
 
 import torch
 
@@ -71,14 +71,71 @@ def add_launches(counts) -> None:
     LAUNCHES.update(counts)
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def dispatch(x: torch.Tensor, plain: Callable[[], T],
-             kernel: Callable[[], T]) -> T:
-    """Run ``plain()`` for a CPU tensor, ``kernel()`` for a CUDA tensor."""
+             kernel: Callable[[], T], inputs: Sequence = ()) -> T:
+    """Run ``plain()`` for a CPU tensor, ``kernel()`` for a CUDA tensor.
+
+    A kernel launched through ``ctypes`` returns tensors with no autograd
+    history, so on the card a call whose ``x`` or ``inputs`` need a
+    gradient raises instead of cutting it silently (the CPU's plain version
+    is differentiable as it is).  :func:`dispatch_differentiable` is the
+    route for a kernel that has a backward."""
     if x.device.type == "cpu":
         return plain()
     if x.device.type == "cuda":
+        if _needs_grad((x, *inputs)):
+            raise RuntimeError(
+                "this kernel has no backward: call it under torch.no_grad() or "
+                "torch.inference_mode(), or on tensors that need no gradient")
         return kernel()
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+class _PlainGrad(torch.autograd.Function):
+    """Forward: the hand-written kernel.  Backward: the vector-Jacobian
+    product of the kernel's plain version, recomputed from the saved inputs
+    (the reference differentiates its plain code; it has no backward
+    kernel)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        saved = ctx.saved_tensors
+        wants = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wants)]
+            outs = ctx.plain(*inputs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grad_outs) if o.requires_grad]
+            wanted = [t for t, w in zip(inputs, wants) if w]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True))
+        return (None, None, *(next(grads) if w else None for w in wants))
+
+
+def dispatch_differentiable(plain: Callable[..., T], kernel: Callable[..., T],
+                            *inputs: torch.Tensor) -> T:
+    """``plain(*inputs)`` for CPU tensors, ``kernel(*inputs)`` for CUDA
+    tensors; on the card a call that needs a gradient launches the kernel
+    forward and takes the plain version's vector-Jacobian product backward
+    (:class:`_PlainGrad`)."""
+    if inputs[0].device.type == "cpu":
+        return plain(*inputs)
+    if inputs[0].device.type == "cuda":
+        if _needs_grad(inputs):
+            return _PlainGrad.apply(kernel, plain, *inputs)
+        return kernel(*inputs)
+    raise ValueError(f"no kernel or plain version for device {inputs[0].device}")
 
 
 # ---------------------------------------------------------------------------

@@ -145,7 +145,7 @@ def smooth_quant(x: torch.Tensor, smooth: torch.Tensor):
     (x̂ int8 (M, K), Δx f32 (M,))."""
     _check(x, smooth)
     return ops.dispatch(x, lambda: smooth_quant_ref(x, smooth),
-                        lambda: _launch(x, smooth))
+                        lambda: _launch(x, smooth), (smooth,))
 
 
 def _launch_norm(x, scale, eps, smooths):
@@ -178,4 +178,4 @@ def norm_smooth_quant(x: torch.Tensor, scale: torch.Tensor, eps: float, smooths)
     for s in (scale, *smooths):
         _check(x, s, "norm_smooth_quant", max_width)
     return ops.dispatch(x, lambda: norm_smooth_quant_ref(x, scale, eps, smooths),
-                        lambda: _launch_norm(x, scale, eps, smooths))
+                        lambda: _launch_norm(x, scale, eps, smooths), (scale, *smooths))

@@ -6,7 +6,10 @@ sequential path of ``repro/models/ssm.py`` (``_ssd_sequential``, a
 
 ``ssd_update`` checks its inputs, then runs :func:`ssd_update_ref` (the
 token loop, the reference's order of operations) for CPU tensors and the
-CUDA kernel (``csrc/ssd_update.cu``) for CUDA tensors.  On the card the
+CUDA kernel (``csrc/ssd_update.cu``) for CUDA tensors.  Training reaches
+it at T ≤ 16: on the card a call that needs a gradient launches the kernel
+forward and takes ``ssd_update_ref``'s vector-Jacobian product backward
+(``kernels/ops.dispatch_differentiable``).  On the card the
 kernel's states are bit-equal to the plain version's (the same IEEE steps,
 never contracted into an FMA); its y sums over N in another fixed order,
 so y agrees to f32 rounding.  A row's y and states depend on neither the
@@ -85,5 +88,6 @@ def ssd_update(x, Bm, Cm, dt, A, h0, collect_states: bool = False):
     h0 (B,H,P,N), all f32 contiguous → (y (B,T,H,P), states (B,T,H,P,N)
     with ``collect_states`` else the last state (B,H,P,N))."""
     _check(x, Bm, Cm, dt, A, h0)
-    return ops.dispatch(x, lambda: ssd_update_ref(x, Bm, Cm, dt, A, h0, collect_states),
-                        lambda: _launch(x, Bm, Cm, dt, A, h0, collect_states))
+    return ops.dispatch_differentiable(
+        lambda *t: ssd_update_ref(*t, collect_states),
+        lambda *t: _launch(*t, collect_states), x, Bm, Cm, dt, A, h0)

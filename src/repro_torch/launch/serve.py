@@ -1,11 +1,12 @@
 """Serving launcher — port of ``repro/launch/serve.py``.
 
-Serves synthetic prompts with seeded random weights and prints throughput
-and acceptance length.  ``--kv-layout contiguous`` (the default) runs
-``SpecEngine.generate``; ``--kv-layout paged`` routes the batch through
-the continuous-batching scheduler as per-request generations
-(``SpecEngine.generate_requests``) over the paged, prefix-shared KV cache,
-as the reference does.  ``--serve`` runs the async front-end instead: a
+Serves synthetic prompts with seeded random weights, or with the weights
+of an ``.npz`` checkpoint (``--ckpt``: one the port's or the reference's
+train CLI wrote), and prints throughput and acceptance length.
+``--kv-layout contiguous`` (the default) runs ``SpecEngine.generate``;
+``--kv-layout paged`` routes the batch through the continuous-batching
+scheduler as per-request generations (``SpecEngine.generate_requests``)
+over the paged, prefix-shared KV cache, as the reference does.  ``--serve`` runs the async front-end instead: a
 ``StreamingServer`` on the wall clock takes a Poisson stream of
 ``--requests`` requests, streams each one's tokens, and prints the
 ``ServerMetrics`` summary (TTFT, ITL, deadlines, the robustness counters);
@@ -48,6 +49,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_config
 from repro_torch.core.config import SpecConfig
 from repro_torch.core.protocols import available_drafters, available_verifiers
@@ -59,6 +61,7 @@ from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.request import GenerationRequest, RequestResult
 from repro_torch.serving.server import ServerConfig, StreamingServer
 from repro_torch.serving.trace import Tracer
+from repro_torch.train.checkpoint import load_checkpoint
 
 WEIGHT_SEED = 0
 TASK = "gsm8k"
@@ -138,6 +141,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "swap pool; denied admissions wait for capacity instead")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the card is required) or cpu")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint (.npz, the reference's format: "
+                         "repro_torch.launch.train or repro.launch.train) to serve")
     ap.add_argument("--serve", action="store_true",
                     help="async front-end: run a StreamingServer on the wall clock, "
                          "submit a Poisson arrival stream, stream tokens per request, "
@@ -279,6 +285,7 @@ def dump_observability(args, engine: SpecEngine, tracer: Optional[Tracer],
         print(f"prometheus: {args.prom_out}")
 
 
+@torch.no_grad()
 def main(argv=None) -> GenResult | ScheduledResult | ServedResult:
     args = parse_args(argv)
     cfg = get_config(args.arch)
@@ -287,10 +294,15 @@ def main(argv=None) -> GenResult | ScheduledResult | ServedResult:
     cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache)
     dev = args.device
     model = Model(cfg, device=dev)
-    print("no checkpoint: serving seeded random-init weights")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(WEIGHT_SEED)
-    params = model.init_params(gen)
+    if args.ckpt:
+        tree = load_checkpoint(args.ckpt)
+        params = from_jax_params(tree.get("params", tree), cfg, device=dev)
+        print(f"serving {args.ckpt}")
+    else:
+        print("no checkpoint: serving seeded random-init weights")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(WEIGHT_SEED)
+        params = model.init_params(gen)
 
     scfg = SpecConfig(gamma=args.gamma, temperature=args.temperature,
                       drafter=args.drafter, verifier=args.verifier,

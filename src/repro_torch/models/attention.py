@@ -45,7 +45,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.paged_cache import physical_slots
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged, tree_override
+from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_cross,
+                                              flash_decode_paged, tree_override)
 from repro_torch.kernels.smooth_quant import INV_INT8_MAX
 from repro_torch.models.common import apply_rope
 from repro_torch.models.ffn import apply_linear
@@ -175,13 +176,11 @@ def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
 def cross_attend(q, k, v):
     """q (B,T,Hq,dh) over every one of the Sa keys of k/v (B,Sa,Hkv,dh):
     the reference's ``attend(causal=False)`` of its cross-attention.  Goes
-    to the ``flash_decode`` wrapper with every query at position Sa - 1,
+    to the ``flash_decode_cross`` wrapper, every query at position Sa - 1,
     so that ``kpos <= qpos`` holds for every slot: the kernel on the card,
-    whose rows do not depend on T or B; its plain version on the CPU.  The
-    launch counts as ``flash_decode_cross``."""
-    B, T = q.shape[:2]
-    qpos = torch.full((B, T), k.shape[1] - 1, dtype=torch.int32, device=q.device)
-    return flash_decode(q, k, v, qpos, count_as="flash_decode_cross")
+    whose rows do not depend on T or B, with the plain version's gradient
+    when training; its plain version on the CPU."""
+    return flash_decode_cross(q, k, v)
 
 
 def attend_paged(q, cache: dict, bt, qpos, *, tree_mask=None, win_start=None,

@@ -1,8 +1,10 @@
-"""Model facade: the public API the engine and the launcher use — port of
-``repro/models/model.py`` (canonical per-layer layout; the reference's
-stacked "scan" layout exists to shrink XLA programs and has no eager
-counterpart)."""
+"""Model facade: the public API the engine, the trainer and the launchers
+use — port of ``repro/models/model.py`` (canonical per-layer layout; the
+reference's stacked "scan" layout exists to shrink XLA programs and has no
+eager counterpart: its per-layer remat is the ``remat`` option here)."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,6 +18,28 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Transformer:
     (``models/common.py`` initializers); the generator must live on
     ``device``."""
     return Transformer.init(cfg, generator, resolve_device(device))
+
+
+def forward(params: Transformer, tokens, *, aux_embeds=None, collect=None, num_layers=None,
+            remat=False):
+    """Returns (logits (B,T,V) f32, aux loss) over positions 0..T-1: the
+    MoE layers' load-balance losses summed in layer order (0 for a dense
+    stack), as the reference's forward returns them.  ``aux_embeds`` (B,
+    Sa, D): the image or audio embeddings a cross-attention model reads (it
+    needs them here: there is no cache to read instead).  ``remat``
+    recomputes each layer's activations in the backward pass (training;
+    the reference's scan-layout option).  A calibration pass (``collect``)
+    runs under ``torch.no_grad``: it records statistics and trains
+    nothing."""
+    start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+    aux = []
+    with torch.no_grad() if collect is not None else contextlib.nullcontext():
+        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers, aux=aux,
+                           aux_embeds=aux_embeds, remat=remat)
+    total = torch.zeros((), device=tokens.device)
+    for a in aux:
+        total = total + a
+    return logits, total
 
 
 class Model:
@@ -32,22 +56,12 @@ class Model:
     def init_cache(self, batch: int, max_len: int, num_layers=None) -> dict:
         return transformer.init_cache(self.cfg, batch, max_len, self.device, num_layers)
 
-    # -- full forward (calibration / fidelity eval) -----------------------
+    # -- full forward (train / calibration / fidelity eval) -----------------
     def forward(self, params: Transformer, tokens, *, aux_embeds=None, collect=None,
-                num_layers=None):
-        """Returns (logits (B,T,V) f32, aux loss) over positions 0..T-1: the
-        MoE layers' load-balance losses summed in layer order (0 for a dense
-        stack), as the reference's forward returns them.  ``aux_embeds``
-        (B, Sa, D): the image or audio embeddings a cross-attention model
-        reads (it needs them here: there is no cache to read instead)."""
-        start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
-        aux = []
-        logits, _ = params(tokens, start, collect=collect, num_layers=num_layers, aux=aux,
-                           aux_embeds=aux_embeds)
-        total = torch.zeros((), device=tokens.device)
-        for a in aux:
-            total = total + a
-        return logits, total
+                num_layers=None, remat=False):
+        """:func:`forward` of this model."""
+        return forward(params, tokens, aux_embeds=aux_embeds, collect=collect,
+                       num_layers=num_layers, remat=remat)
 
     # -- serving ------------------------------------------------------------
     def prefill(self, params: Transformer, cache: dict, tokens, num_layers=None, *,

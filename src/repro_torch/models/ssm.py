@@ -78,10 +78,14 @@ def ssd_chunked(x, Bm, Cm, dt, A, h0, chunk: int):
     dtc = dt.reshape(B, nc, Q, H)
     cs = torch.cumsum(dtc * (-A), dim=2)                                  # ℓ_t (inclusive)
 
-    # intra-chunk (quadratic, attention-like)
+    # intra-chunk (quadratic, attention-like).  Above the diagonal ℓ_t − ℓ_s
+    # > 0 overflows exp once a chunk's Σ dt·A passes ~88, and the reference's
+    # where(tri, exp(decay), 0) then has a NaN gradient (0 · ∞); exp of the
+    # masked decay gives the same values and a finite gradient
     decay = cs[:, :, :, None, :] - cs[:, :, None, :, :]                   # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    att = torch.where(tri[None, None, :, :, None], torch.exp(decay), 0.0)
+    tri = tri[None, None, :, :, None]
+    att = torch.where(tri, torch.exp(torch.where(tri, decay, 0.0)), 0.0)
     cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
     w = att * cb[..., None] * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bctsh,bcshp->bcthp", w, xc)

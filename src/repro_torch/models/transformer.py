@@ -33,6 +33,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.paged_cache import physical_slots
 from repro_torch.models.attention import (Attention, CrossAttention, init_attn_cache,
@@ -51,8 +52,15 @@ def tied_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(…, D) × the tied embedding (V, D) → (…, V) f32 logits, the
     reference's ``x.f32 @ embed.f32.T``, taken in fixed chunks of TIED_ROWS
     rows on the card so that a row's logits do not depend on the window
-    or batch it came in (vanilla's 4 rows against a verify window's 24)."""
-    out = fixed_rows_matmul(x.float().reshape(-1, x.shape[-1]), w.float().T, TIED_ROWS)
+    or batch it came in (vanilla's 4 rows against a verify window's 24).
+    Training takes one product: row invariance is a serving property, and
+    in a train step the chunks multiply the launches and the gradient
+    sums of the largest product."""
+    x32 = x.float().reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = x32 @ w.float().T
+    else:
+        out = fixed_rows_matmul(x32, w.float().T, TIED_ROWS)
     return out.reshape(*x.shape[:-1], w.shape[0])
 
 
@@ -91,6 +99,34 @@ def check_supported(cfg) -> None:
     if cfg.attn_impl != "auto":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: the port dispatches "
                          "attention by device, and 'auto' is its only value")
+
+
+def _call(blk: nn.Module, *args, **kw):
+    return blk(*args, **kw)
+
+
+def _remat_call(blk: nn.Module, *args, aux: Optional[list] = None, **kw):
+    """``blk(*args, **kw)`` with its activations recomputed in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant): per layer, the remat
+    policy of the reference's scanned layer body.  Training only (no
+    cache).  The recomputation reads the block's tensors as they are when
+    the backward runs, so a caller that swaps tensors into the model keeps
+    them there until then (``train/trainer.value_and_grad`` takes the
+    gradients inside its ``functional_call``).  An MoE block's aux losses
+    come back as outputs, so a recomputation appends nothing to ``aux``."""
+    def run(*a):
+        local = [] if aux is not None else None
+        out, cache = blk(*a, **kw, **({} if local is None else {"aux": local}))
+        if cache is not None:
+            raise ValueError("remat recomputes a layer: it takes no cache")
+        return (out, *(local or ()))
+
+    # the forward draws no random numbers: no RNG state to stash (a step
+    # captured as a CUDA graph could not read it)
+    out, *losses = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    if aux is not None:
+        aux.extend(losses)
+    return out, None
 
 
 class Embed(nn.Module):
@@ -227,12 +263,13 @@ class Encoder(nn.Module):
         return cls(cfg, [Block.init(generator, cfg, device) for _ in range(cfg.encoder_layers)],
                    Norm(cfg, cfg.d_model, device))
 
-    def forward(self, embeds, collect=None, path: str = "encoder"):
+    def forward(self, embeds, collect=None, path: str = "encoder", remat: bool = False):
         B, S, _ = embeds.shape
         pos = torch.arange(S, dtype=torch.int32, device=embeds.device).expand(B, S)
         x = embeds.to(self.cfg.dtype)
+        call = _remat_call if remat else _call
         for i, blk in enumerate(self.layers):
-            x, _ = blk(x, pos, collect=collect, path=f"{path}/layers/{i}", causal=False)
+            x, _ = call(blk, x, pos, collect=collect, path=f"{path}/layers/{i}", causal=False)
         return self.norm(x)
 
 
@@ -300,7 +337,7 @@ class Transformer(nn.Module):
                 path: str = "", num_layers: Optional[int] = None,
                 tree_depths=None, tree_mask=None, tree_bits=None,
                 plain_attn: bool = False, aux: Optional[list] = None,
-                collect_states: bool = False, aux_embeds=None):
+                collect_states: bool = False, aux_embeds=None, remat: bool = False):
         """tokens (B,T) int, start (B,) first position →
         (logits (B,T,V) f32 or None, cache or None).  ``aux_embeds`` (B, Sa,
         D): the image embeddings a cross layer reads, or the audio frames
@@ -326,7 +363,9 @@ class Transformer(nn.Module):
         (``core/paged_cache.py``): decode/verify only, since admission
         prefills a contiguous row and scatters it into blocks.
         ``plain_attn`` reads the cache through the plain attention path
-        (``Model.prefill_chunk``)."""
+        (``Model.prefill_chunk``).  ``remat`` (training, no cache)
+        recomputes each layer's activations in the backward pass
+        (:func:`_remat_call`)."""
         cfg = self.cfg
         block_tables = cache.get("bt") if cache is not None else None
         if block_tables is not None and not read_cache:
@@ -345,33 +384,34 @@ class Transformer(nn.Module):
         x = self.embed.w[tokens.long()].to(cfg.dtype)
         enc_out = None
         if aux_embeds is not None:
-            enc_out = (self.encoder(aux_embeds, collect, f"{path}encoder")
+            enc_out = (self.encoder(aux_embeds, collect, f"{path}encoder", remat)
                        if self.encoder is not None else aux_embeds.to(cfg.dtype))
         shared_pos = shared_attn_positions(cfg)
         shared_caches = (cache.get("shared") or []) if cache is not None else []
+        call = _remat_call if remat else _call
         new_layers, shared_i = [], 0
         for i, blk in enumerate(self.layers[:num_layers or cfg.num_layers]):
             lcache = cache["layers"][i] if cache is not None else None
             if isinstance(blk, SSMBlock):
-                x, lcache = blk(x, lcache, collect_states=collect_states, collect=collect,
-                                path=f"{path}layers/{i}")
+                x, lcache = call(blk, x, lcache, collect_states=collect_states,
+                                 collect=collect, path=f"{path}layers/{i}")
             elif isinstance(blk, CrossBlock):
-                x, lcache = blk(x, lcache, enc_out=enc_out, collect=collect,
-                                path=f"{path}layers/{i}")
+                x, lcache = call(blk, x, lcache, enc_out=enc_out, collect=collect,
+                                 path=f"{path}layers/{i}")
             elif isinstance(blk, AudioBlock):
-                x, lcache = blk(x, qpos, lcache, read_cache=read_cache, enc_out=enc_out,
-                                collect=collect, path=f"{path}layers/{i}", tree=tree,
-                                plain_attn=plain_attn)
+                x, lcache = call(blk, x, qpos, lcache, read_cache=read_cache, enc_out=enc_out,
+                                 collect=collect, path=f"{path}layers/{i}", tree=tree,
+                                 plain_attn=plain_attn)
             else:
-                x, lcache = blk(x, qpos, lcache, read_cache=read_cache, collect=collect,
-                                path=f"{path}layers/{i}", tree=tree,
-                                block_tables=block_tables, plain_attn=plain_attn, aux=aux)
+                x, lcache = call(blk, x, qpos, lcache, read_cache=read_cache, collect=collect,
+                                 path=f"{path}layers/{i}", tree=tree,
+                                 block_tables=block_tables, plain_attn=plain_attn, aux=aux)
             new_layers.append(lcache)
             if i in shared_pos:        # zamba2: the shared block, its own KV cache
                 scache = shared_caches[shared_i] if shared_caches else None
-                x, _ = self.shared_attn(x, qpos, scache, read_cache=read_cache,
-                                        collect=collect, path=f"{path}shared_attn",
-                                        plain_attn=plain_attn)
+                x, _ = call(self.shared_attn, x, qpos, scache, read_cache=read_cache,
+                            collect=collect, path=f"{path}shared_attn",
+                            plain_attn=plain_attn)
                 shared_i += 1
         if cache is not None and any(a is not b for a, b in zip(new_layers, cache["layers"])):
             cache = {**cache, "layers": new_layers}     # SSM verify candidates
@@ -396,6 +436,26 @@ def with_config(params: Transformer, cfg) -> Transformer:
         if hasattr(mod, "cfg"):
             mod.cfg = cfg
     return out
+
+
+def param_leaves(mod: nn.Module, path: str = ""):
+    """``(path, owner module, buffer name, tensor)`` of every buffer of a
+    parameter tree in the reference pytree's flatten order: keys sorted at
+    each level, layer lists by index.  The trainer differentiates the
+    floating-point ones (``train/trainer.train_leaves``);
+    ``serving/faults.poison_params`` overwrites the largest."""
+    items = {name: t for name, t in mod.named_buffers(recurse=False)}
+    items.update(mod.named_children())
+    if isinstance(mod, nn.ModuleList):
+        keys = sorted(items, key=int)
+    else:
+        keys = sorted(items)
+    for k in keys:
+        v = items[k]
+        if isinstance(v, nn.Module):
+            yield from param_leaves(v, f"{path}{k}/")
+        else:
+            yield f"{path}{k}", mod, k, v
 
 
 def init_cache(cfg, batch: int, max_len: int, device,

@@ -30,6 +30,7 @@ def _excluded(path: str, qcfg: QuantConfig) -> bool:
     return any(tag in path for tag in _EXCLUDE)
 
 
+@torch.no_grad()
 def quantize_params(params: nn.Module,
                     act_stats: Optional[Dict[str, torch.Tensor]] = None,
                     qcfg: QuantConfig = QuantConfig()) -> nn.Module:

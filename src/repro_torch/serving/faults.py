@@ -43,6 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.transformer import param_leaves
+
 #: Every seam a plan may target, in a fixed order (the order seeds the
 #: per-seam RNG streams — do not reorder, append only).
 SEAMS = ("submit", "admit", "step", "poll", "nan_verify", "quant_corrupt",
@@ -229,24 +231,6 @@ class FaultPlan:
 # Injection helpers
 # ---------------------------------------------------------------------------
 
-def _leaves(mod: nn.Module, path: str = ""):
-    """``(path, owner module, buffer name, tensor)`` of every buffer of a
-    parameter tree in the reference pytree's flatten order: keys sorted at
-    each level, layer lists by index."""
-    items = {name: t for name, t in mod.named_buffers(recurse=False)}
-    items.update(mod.named_children())
-    if isinstance(mod, nn.ModuleList):
-        keys = sorted(items, key=int)
-    else:
-        keys = sorted(items)
-    for k in keys:
-        v = items[k]
-        if isinstance(v, nn.Module):
-            yield from _leaves(v, f"{path}{k}/")
-        else:
-            yield f"{path}{k}", mod, k, v
-
-
 def poison_params(params: nn.Module) -> nn.Module:
     """Copy of ``params`` with its largest floating-point buffer (the
     first of the largest, in the reference's pytree order) overwritten
@@ -259,14 +243,14 @@ def poison_params(params: nn.Module) -> nn.Module:
     for it where the reference's ``jit`` reuses its trace.
     """
     best, best_size = None, -1
-    for path, _, _, t in _leaves(params):
+    for path, _, _, t in param_leaves(params):
         if t.is_floating_point() and t.numel() > best_size:
             best, best_size = path, t.numel()
     if best is None:
         raise ValueError("params tree has no floating-point leaf to poison")
     memo = {id(t): t for t in params.buffers()}     # share, never copy, tensors
     out = copy.deepcopy(params, memo)
-    for path, owner, name, t in _leaves(out):
+    for path, owner, name, t in param_leaves(out):
         if path == best:
             setattr(owner, name, torch.full_like(t, float("nan")))
     return out

@@ -23,7 +23,11 @@ batch), the gated norm's and the tied logits' rows against the row count,
 and the SSM and hybrid decode steps through graphs; the cross-attention
 read's rows against the window and the batch at llama-3.2-vision's and
 whisper's shapes, head size 160 (stablelm-12b) through every variant, and
-the vision and whisper decode steps through graphs.
+the vision and whisper decode steps through graphs; training: the
+gradients of ``ssd_update`` and of the cross read against their plain
+versions', the other wrappers' refusal of a gradient, a bf16 train step,
+a bf16 checkpoint written and read on the card, and a trained checkpoint
+served through graphs.
 """
 import copy
 import dataclasses
@@ -1754,3 +1758,223 @@ def test_family_graph_replay_equals_eager_on_card(dev, arch, drafter):
                                                                         aux_embeds=aux)
     n = prompts.shape[1] + 16
     assert torch.equal(graph.tokens[:, :n], vanilla.tokens[:, :n])
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: the kernels the bf16 forward reaches carry the plain
+# version's gradient; every other kernel refuses a gradient
+# ---------------------------------------------------------------------------
+
+def _grads_of(fn, inputs, seed=0):
+    """Gradients of a fixed random projection of ``fn(*inputs)``'s outputs
+    with respect to every input."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = _gen(xs[0].device, seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g, device=o.device)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, xs)
+
+
+def _close_to_max(got, want, rtol=1e-4):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rtol * b.float().abs().max().item() + 1e-30, err
+
+
+@pytest.mark.parametrize("collect", [False, True])
+@pytest.mark.parametrize("t", [1, 6, 16])
+def test_ssd_update_grad_equals_plain_on_card(dev, t, collect):
+    """At mamba2's head shapes (32 heads, P 64, N 128), the autograd route of
+    ``ssd_update`` (the kernel forward, counted once; ``ssd_update_ref``'s
+    vector-Jacobian product backward) gives the plain version's gradients
+    for x, B, C, dt, A and h0 within 1e-4 of each tensor's max."""
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+
+    args = _ssd_inputs(dev, 2, t, 32, 64, 128, seed=t)
+    ops.reset_launch_counts()
+    got = _grads_of(lambda *a: ssd_update(*a, collect), args)
+    assert ops.launch_counts() == {"ssd_update": 1}
+    _close_to_max(got, _grads_of(lambda *a: ssd_update_ref(*a, collect), args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sa,dh", [(64, 8, 1600, 128),    # llama-3.2-vision
+                                          (12, 12, 1500, 64)])   # whisper-small
+def test_cross_read_grad_equals_plain_on_card(dev, hq, hkv, sa, dh, dtype):
+    """The cross read under autograd: the kernel forward (within one bf16
+    rounding step of ``flash_decode_ref``), ``flash_decode_ref``'s
+    gradients for q, k and v (within 1e-4 of each tensor's max)."""
+    from repro_torch.kernels.flash_decode import flash_decode_cross
+
+    g = _gen(dev, sa + hq)
+    q = torch.randn(2, 6, hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, sa, hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, sa, hkv, dh, generator=g, device=dev).to(dtype)
+    qpos = torch.full((2, 6), sa - 1, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    with torch.enable_grad():
+        out = flash_decode_cross(q.requires_grad_(), k, v)
+    assert out.requires_grad and ops.launch_counts() == {"flash_decode_cross": 1}
+    torch.testing.assert_close(out.detach().float(),
+                               flash_decode_ref(q, k, v, qpos).detach().float(),
+                               rtol=2 ** -7, atol=1e-5)
+    _close_to_max(_grads_of(flash_decode_cross, (q, k, v)),
+                  _grads_of(lambda q, k, v: flash_decode_ref(q, k, v, qpos), (q, k, v)))
+
+
+def test_guarded_wrappers_raise_under_grad_on_card(dev):
+    """A kernel with no backward raises when grad mode is on and an input
+    needs a gradient (a ctypes launch would cut it silently); the same call
+    runs under no_grad."""
+    from repro_torch.kernels.smooth_quant import norm_smooth_quant
+
+    g = _gen(dev, 11)
+    x = torch.randn(4, 64, generator=g, device=dev)
+    s = torch.ones(64, device=dev)
+    xq, dx = smooth_quant(x, s)
+    w = torch.randint(-127, 128, (32, 64), dtype=torch.int8, device=dev)
+    we = torch.randint(-127, 128, (2, 32, 64), dtype=torch.int8, device=dev)
+    w4 = torch.randint(-128, 128, (32, 32), dtype=torch.int8, device=dev)
+    dw, dwe = torch.ones(32, device=dev), torch.ones(2, 32, device=dev)
+    q = torch.randn(1, 2, 4, 64, generator=g, device=dev)
+    kv = torch.randn(1, 128, 2, 64, generator=g, device=dev)
+    qpos = torch.full((1, 2), 100, dtype=torch.int32, device=dev)
+    pool = torch.randn(2, 128, 2, 64, generator=g, device=dev)
+    bt = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    need = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    calls = {
+        "smooth_quant": lambda: smooth_quant(need(x), s),
+        "norm_smooth_quant": lambda: norm_smooth_quant(x, need(s), 1e-5, [s]),
+        "int8_matmul": lambda: int8_matmul(xq, w, need(dx), dw),
+        "int8_matmul_batched": lambda: int8_matmul_batched(
+            xq.view(2, 2, 64), we, need(dx).view(2, 2), dwe),
+        "int4_matmul": lambda: int4_matmul(xq, w4, dx, need(dw)),
+        "flash_decode": lambda: flash_decode(need(q), kv, kv, qpos),
+        "flash_decode_paged": lambda: flash_decode_paged(q, need(pool), pool, bt, qpos),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def _train_reduced(dev, steps=40, arch="smollm-135m"):
+    """A reduced config in bf16 trained ``steps`` steps on the card →
+    (model, params, history)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=torch.bfloat16)
+    model = Model(cfg, device=dev)
+    tr = Trainer(model, AdamWConfig(lr=3e-3, warmup_steps=3, total_steps=steps), remat=True)
+    params, opt = tr.init(_gen(dev, 0))
+    params, opt, hist = tr.fit(params, opt, lm_batches(8, 64, cfg.vocab_size, seed=0,
+                                                      markov_alpha=0.97),
+                               steps=steps, log_every=5, log_fn=None)
+    return model, params, hist
+
+
+def test_bf16_train_step_lowers_the_loss_on_card(dev):
+    """bf16 params, f32 moments, per-layer remat: the loss falls and every
+    step's numbers are finite; the trained leaves stay bf16 buffers with no
+    gradient attached."""
+    model, params, hist = _train_reduced(dev)
+    assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist)
+    assert hist[-1]["loss"] < hist[0]["loss"] - 0.3, [h["loss"] for h in hist]
+    assert params.embed.w.dtype == torch.bfloat16
+    assert not any(t.requires_grad for t in params.buffers())
+
+
+def test_bf16_checkpoint_round_trip_without_ml_dtypes_on_card(dev, tmp_path, monkeypatch):
+    """A bf16 tree written from the card and read back, with ``ml_dtypes``
+    unimportable: every leaf bit-equal."""
+    import sys
+
+    from repro_torch.bridge import from_jax_params, to_tree
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.trainer import train_leaves
+
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    model, params, _ = _train_reduced(dev, steps=3)
+    path = str(tmp_path / "bf16.npz")
+    save_checkpoint(path, {"params": to_tree(params), "step": 3})
+    back = load_checkpoint(path)
+    assert back["params"]["embed"]["w"].dtype == np.dtype("V2") and int(back["step"]) == 3
+    again = from_jax_params(back["params"], model.cfg, device=dev)
+    want, got = train_leaves(params), train_leaves(again)
+    assert list(want) == list(got)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_served_trained_checkpoint_replay_equals_eager_on_card(dev, tmp_path):
+    """A checkpoint trained on the card, served W8A8 (ngram) through the
+    serve CLI's loader: the captured decode step gives the eager step's
+    tokens bit for bit, and speculation gives vanilla's."""
+    from repro_torch.bridge import from_jax_params, to_tree
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    model, params, _ = _train_reduced(dev)
+    path = str(tmp_path / "trained.npz")
+    save_checkpoint(path, {"params": to_tree(params), "step": 40})
+    raw = from_jax_params(load_checkpoint(path)["params"], model.cfg, device=dev)
+    prompts = torch.as_tensor(task_prompts("gsm8k", 4, 48, model.cfg.vocab_size),
+                              device=dev)
+    scfg = SpecConfig(temperature=0.0, verifier="w8a8", drafter="ngram")
+    out = _eager_and_graph(model, scfg, lambda eng: eng.generate(raw, prompts, 16))
+    (eager, n_eager, _), (graph, n_graph, g_eng) = out[False], out[True]
+    assert torch.equal(graph.tokens, eager.tokens) and n_graph == n_eager
+    assert not graph.bad.any() and g_eng.step_traces == 1
+    vanilla = SpecEngine(model, SpecConfig(temperature=0.0, verifier="w8a8",
+                                           drafter="vanilla")).generate(raw, prompts, 16)
+    n = prompts.shape[1] + 16
+    assert torch.equal(graph.tokens[:, :n], vanilla.tokens[:, :n])
+
+
+@pytest.mark.parametrize("arch,seq", [("smollm-135m", 64), ("mamba2-370m", 16),
+                                      ("whisper-small", 32)])
+def test_captured_train_step_equals_eager_on_card(dev, arch, seq):
+    """The train step as a CUDA graph (``make_train_step(graphs=True)``):
+    losses, gradient norms, leaves and moments equal the eager step's bit
+    for bit over six steps (the first eager, the second captured), bf16
+    weights with remat; mamba2 at T 16 runs ``ssd_update`` and whisper the
+    cross read through their gradient route inside the graph, each launch
+    counted once per replay."""
+    from repro_torch.data import lm_batches
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step, train_leaves
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=torch.bfloat16)
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=6)
+    n = cfg.num_audio_frames
+    aux = (torch.randn(2, n, cfg.d_model, generator=_gen(dev, 9), device=dev)
+           if n else None)
+    runs = {}
+    for graphs in (False, True):
+        params = Model(cfg, device=dev).init_params(_gen(dev, 0))
+        opt = adamw_init(train_leaves(params))
+        step = make_train_step(cfg, opt_cfg, remat=True, graphs=graphs)
+        data = lm_batches(2, seq, cfg.vocab_size, seed=0, markov_alpha=0.97)
+        ops.reset_launch_counts()
+        metrics = []
+        for _ in range(6):
+            params, opt, m = step(params, opt, {**next(data), "aux_embeds": aux})
+            metrics.append(torch.stack([m["loss"], m["grad_norm"]]).float())
+        torch.cuda.synchronize()
+        runs[graphs] = (torch.stack(metrics), train_leaves(params), opt, ops.launch_counts())
+    (m0, p0, o0, n0), (m1, p1, o1, n1) = runs[False], runs[True]
+    assert torch.isfinite(m0).all() and torch.equal(m0, m1)
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+        assert torch.equal(o0["mu"][k], o1["mu"][k]) and torch.equal(o0["nu"][k], o1["nu"][k])
+    assert o0["step"] == o1["step"] == 6
+    want = {"mamba2-370m": "ssd_update", "whisper-small": "flash_decode_cross"}.get(arch)
+    assert n0 == n1 and (want is None or n0.get(want, 0) > 0)
