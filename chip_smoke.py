@@ -159,7 +159,24 @@
     served from the checkpoint by the serve CLI (W8A8, ngram against
     vanilla: equal tokens; the path's kernels launched), L beside the
     random init's.
-12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+12. Launch phase (:func:`launch_phase`, ``repro_torch/launch``): (a) the
+    dry-run of every arch × shape on the meta device for one card and for
+    four (bytes per card, fits one card, roofline terms; the sliding-window
+    ``long_500k`` combos refused as needing the ring cache, any other
+    exception a failure); (b) the 7B W8A8 ngram chain step (batch 4,
+    1024-token prompts, 64 new tokens, through graphs): ``step_bound_ms``
+    and what bounds it beside the step window's device-busy and graph step
+    ms, and the dry-run's predicted resident bytes (raw + prepared weights
+    + engine state) beside ``torch.cuda.max_memory_allocated()`` over the
+    generate run, within 10%; (c) ``examples/torch/quickstart.py --full``
+    (smollm-135m trained, calibrated, quantized, served): lossless, with
+    the norm/quantize, ``int8_matmul`` and ``flash_decode`` kernels
+    launched; (d) the serve CLI at 7B with ``--mode spec`` (its tokens
+    those of ``--drafter ngram``), then ``--mode spec --task humaneval
+    --attn-impl pallas``; (e) the quickstart's trained smollm saved in the
+    loop and in the scan layout (``Model.to_scan``) and served from each
+    through ``--ckpt``: equal tokens.  ``--launch-only`` runs it alone.
+13. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, before the last line, on any failure — and at once when no
 CUDA card is visible or the port's sources are not beside this script.
@@ -179,8 +196,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}   # f32: outside the tensor cores
 B, GAMMA, PROMPT, NEW = 4, 5, 1024, 64
 ARCH = "quasar-paper-7b"
 FLASH_TOL = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step
@@ -273,6 +288,10 @@ TRAIN_ALPHA = 0.97                 # lm_batches' chance of following the chain
 TRAIN_LOG_EVERY, TRAIN_DROP = 25, 1.0   # the gate: last 10 losses' mean >= 1 nat under step 1's
 TRAIN_PROMPT, TRAIN_NEW = 192, 64       # served prompts + new tokens fill the trained length
 GRAD_RTOL = 1e-4                        # f32 gradients against the plain version's
+LAUNCH_CARDS = (1, 4)              # (a): the dry-run's plan on one card and on four
+MEM_TOL = 0.10                     # (b): predicted resident bytes against the peak
+QUICKSTART_NEEDS = (("norm_smooth_quant", "smooth_quant"), ("int8_matmul",),
+                    ("flash_decode",))   # (c): one of each group must launch
 
 
 def log(msg: str) -> None:
@@ -280,9 +299,11 @@ def log(msg: str) -> None:
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    """The card's least time for the work (``repro_torch.launch.roofline``
+    holds the H100's peaks)."""
+    from repro_torch.launch.roofline import bound_ms as card_bound_ms
+
+    return card_bound_ms(nbytes, ops, kind)
 
 
 def time_ms(torch, fn, iters: int, flush, host: list | None = None) -> float:
@@ -3076,6 +3097,168 @@ def train_phase(torch, dev, smi: str, flush) -> tuple:
     return info, runs, kern
 
 
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_phase(torch, dev, smi: str) -> tuple:
+    """The launch tooling (``repro_torch/launch``) and the ported example,
+    (a)-(e) of the module docstring.  Returns (info, runs)."""
+    import tempfile
+
+    from repro_torch.bridge import to_tree
+    from repro_torch.configs import REGISTRY, get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline, serve, shapes
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    info, runs = {}, {}
+    # (a) the dry-run of every arch × shape, one card and four
+    t0 = time.perf_counter()
+    info["dryrun"] = {}
+    for cards in LAUNCH_CARDS:
+        rows, failures = dryrun.run(list(REGISTRY), list(shapes.SHAPES), cards, log=log)
+        if failures:
+            raise AssertionError(f"dry-run on {cards} card(s): {failures}")
+        refused = [r for r in rows if r["status"] != "ok"]
+        if any(dryrun.RING_CACHE not in r["reason"] for r in refused):
+            raise AssertionError(f"dry-run refusals other than the ring cache: {refused}")
+        info["dryrun"][f"1x{cards}"] = rows
+        log(f"  dry-run 1x{cards}: {len(rows) - len(refused)} ok, {len(refused)} refused "
+            f"(the ring cache), {sum(r.get('fits_card', False) for r in rows)} fit one card")
+    info["dryrun_s"] = time.perf_counter() - t0
+
+    # (b) the 7B W8A8 chain step: its bound, and the resident bytes predicted
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    model = Model(cfg, device=dev)
+    engine = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter="ngram", verifier="w8a8"))
+    raw = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    params = engine.prepare_params(raw)          # raw kept, as the server's fallback lane does
+    prompts = torch.as_tensor(task_prompts("gsm8k", B, PROMPT, cfg.vocab_size),
+                              device=dev, dtype=torch.int32)
+    pred = dryrun.serve_resident_bytes(cfg, "w8a8", B, PROMPT + NEW + GAMMA + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        r = engine.generate(params, prompts, NEW)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    resident = torch.cuda.memory_allocated(dev) - base      # after: no prefill transients
+    if bool(r.bad.any()) or r.new_tokens != B * NEW:
+        raise AssertionError(f"7B step run: {int(r.bad.sum())} non-finite rows, "
+                             f"{r.new_tokens} new tokens")
+    mem_err = measured / pred["resident_bytes"] - 1
+    window = step_window(torch, engine, params, prompts)
+    context = PROMPT + NEW // 2
+    bms, by = roofline.step_bound_ms(cfg, "w8a8", "bf16", B, context, GAMMA + 1)
+    busy, step = window["device_busy_ms_per_step"], window["step_ms"]
+    info["step"] = dict(
+        arch=ARCH, verifier="w8a8", drafter="ngram", batch=B, context=context,
+        window_tokens=GAMMA + 1,
+        step_bound_ms=bms, bound_by=by, device_busy_ms_per_step=busy, graph_step_ms=step,
+        bound_share_of_busy=bms / busy if busy else None, bound_share_of_step=bms / step,
+        L=r.mean_accept_len, predicted=pred, measured_peak_bytes=measured,
+        resident_after_bytes=resident,
+        mem_rel_err=mem_err, step_window=window, card=smi)
+    log(f"  7B W8A8 chain step (B {B}, context {context}, window {GAMMA + 1}): step_bound_ms "
+        f"{bms:.4f} ({by}); device busy {busy:.3f} ms/step, share {bms / busy:.3f}; graph "
+        f"step {step:.3f} ms, share {bms / step:.3f} ({smi})")
+    log(f"  resident bytes: predicted {pred['resident_bytes'] / 1e9:.3f} GB (raw "
+        f"{pred['raw_bytes'] / 1e9:.3f} + prepared {pred['prepared_new_bytes'] / 1e9:.3f} + "
+        f"state {pred['state_bytes'] / 1e9:.3f}), measured peak {measured / 1e9:.3f} GB "
+        f"over the generate run ({100 * mem_err:+.2f}%), {resident / 1e9:.3f} GB held after it")
+    if abs(mem_err) > MEM_TOL:
+        raise AssertionError(f"resident bytes: measured {measured} vs predicted "
+                             f"{pred['resident_bytes']} ({100 * mem_err:+.2f}%)")
+    del model, engine, raw, params, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the quickstart at smollm-135m's full width
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    qs = load_example("quickstart").main(["--full"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    missing = [group for group in QUICKSTART_NEEDS if not any(counts.get(k, 0) for k in group)]
+    if not qs["lossless"] or missing:
+        raise AssertionError(f"quickstart: lossless {qs['lossless']}, never launched {missing}")
+    runs["quickstart_full"] = dict(launches=counts, L=qs["L"], steps=qs["steps"],
+                                   vanilla_steps=qs["vanilla_steps"],
+                                   run_s=time.perf_counter() - t0, card=smi)
+    log(f"  quickstart --full: lossless, L={qs['L']:.3f}, steps {qs['steps']} (vanilla "
+        f"{qs['vanilla_steps']}), launches {counts}")
+
+    # (d) the serve CLI's --mode, --task and --attn-impl at 7B
+    base_argv = ["--arch", ARCH, "--batch", str(B), "--prompt-len", str(PROMPT),
+                 "--new-tokens", str(NEW)]
+    toks = {}
+    for name, flags in (("cli_mode_spec", ["--mode", "spec"]),
+                        ("cli_drafter_ngram", ["--drafter", "ngram"]),
+                        ("cli_humaneval_pallas", ["--mode", "spec", "--task", "humaneval",
+                                                  "--attn-impl", "pallas"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        r = serve.main(base_argv + flags)
+        torch.cuda.synchronize()
+        rec = dict(flags=flags, launches=ops.launch_counts(), L=r.mean_accept_len,
+                   steps=r.steps, tok_s=r.tokens_per_s, bad_rows=int(r.bad.sum()), card=smi)
+        missing = [k for k in ("norm_smooth_quant", "int8_matmul", "flash_decode")
+                   if rec["launches"].get(k, 0) <= 0]
+        if missing or rec["bad_rows"] or r.new_tokens != B * NEW:
+            raise AssertionError(f"{name}: never launched {missing}, {rec['bad_rows']} "
+                                 f"non-finite rows, {r.new_tokens} new tokens")
+        toks[name] = r.tokens[:, :PROMPT + NEW].cpu()
+        runs[name] = rec
+        log(f"  {name}: L={rec['L']:.3f} steps={rec['steps']} tok/s={rec['tok_s']:.1f}")
+        del r
+    if not torch.equal(toks["cli_mode_spec"], toks["cli_drafter_ngram"]):
+        raise AssertionError("--mode spec gives other tokens than --drafter ngram")
+
+    # (e) the trained smollm in the scan layout through --ckpt
+    cfg = get_config("smollm-135m")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    served = {}
+    for layout in ("loop", "scan"):
+        path = f"{ckpt_dir}/{layout}.npz"
+        tree = (Model(cfg, device=dev).to_scan(qs["params"]) if layout == "scan"
+                else to_tree(qs["params"]))
+        save_checkpoint(path, {"params": tree, "step": 120})
+        if ("scan" in load_checkpoint(path)["params"]) != (layout == "scan"):
+            raise AssertionError(f"the {layout} checkpoint holds the wrong layout")
+        r = serve.main(["--arch", "smollm-135m", "--ckpt", path, "--verifier", "w8a8",
+                        "--batch", str(B), "--prompt-len", str(TRAIN_PROMPT),
+                        "--new-tokens", str(TRAIN_NEW)])
+        served[layout] = r.tokens[:, :TRAIN_PROMPT + TRAIN_NEW].cpu()
+        os.remove(path)
+        del r, tree
+    os.rmdir(ckpt_dir)
+    if not torch.equal(served["scan"], served["loop"]):
+        raise AssertionError("the scan-layout checkpoint serves other tokens than the loop's")
+    info["scan_ckpt_tokens_equal"] = True
+    log("  smollm trained: the scan-layout checkpoint serves the loop layout's tokens")
+    del qs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info, runs
+
+
 def main() -> int:
     import torch
 
@@ -3108,6 +3291,17 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "arning", "serialized")):
                 log(f"  {src}: {line.strip()}")
 
+    if sys.argv[1:] == ["--launch-only"]:      # the launch phase alone, for its own runs
+        log("launch phase")
+        t0 = time.perf_counter()
+        launch_out, launch_runs = launch_phase(torch, dev, smi)
+        launch_out["phase_s"] = time.perf_counter() - t0
+        log(f"  launch phase: {launch_out['phase_s']:.1f} s")
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_launch.json").write_text(json.dumps(
+            dict(launch=launch_out, runs=launch_runs), indent=1))
+        return 0
     if sys.argv[1:] == ["--train-only"]:       # the train phase alone, for its own runs
         log("train phase")
         t0 = time.perf_counter()
@@ -3194,6 +3388,12 @@ def main() -> int:
     for kname, rows in train_kern.items():       # the train phase's rows after the others
         kern.setdefault(kname, []).extend(rows)
     runs.update(train_runs)
+    log("launch phase")
+    t0 = time.perf_counter()
+    launch_out, launch_runs = launch_phase(torch, dev, smi)
+    launch_out["phase_s"] = time.perf_counter() - t0
+    log(f"  launch phase: {launch_out['phase_s']:.1f} s")
+    runs.update(launch_runs)
 
     meta = {
         "smooth_quant": ("src/repro_torch/csrc/smooth_quant.cu",
@@ -3293,7 +3493,7 @@ def main() -> int:
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
              graph=graph, server=server, moe=moe_out, ssm=ssm_out, families=fam_out,
-             train=train_out),
+             train=train_out, launch=launch_out),
         indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

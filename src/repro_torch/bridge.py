@@ -43,6 +43,7 @@ from repro_torch.models.ffn import FFN
 from repro_torch.models.linear import (ExpertLinear, Linear, W4A8Linear, W8A8ExpertLinear,
                                        W8A8Linear)
 from repro_torch.models.moe import MoE
+from repro_torch.models.scan import unstack_params
 from repro_torch.models.ssm import SSM
 from repro_torch.models.transformer import (AudioBlock, Block, CrossBlock, Embed, Encoder,
                                             SSMBlock, Transformer)
@@ -149,8 +150,13 @@ def _ssm_block(cfg, lp: dict, dev) -> SSMBlock:
 
 
 def from_jax_params(tree: dict, cfg, device="cuda") -> Transformer:
-    """Reference parameter pytree (numpy leaves) → the port's parameters."""
+    """Reference parameter pytree (numpy leaves) → the port's parameters.
+    A tree in the reference's scan layout (``"scan"``: stacked layer
+    groups, what its train CLI saves for more than 8 layers) is taken apart
+    into the per-layer layout first (``models/scan.unstack_params``)."""
     dev = resolve_device(device)
+    if "scan" in tree:
+        tree = unstack_params(tree, cfg)
     layers = [_layer(cfg, lp, dev) for lp in tree["layers"]]
     lm_head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     shared = _block(cfg, tree["shared_attn"], dev) if "shared_attn" in tree else None

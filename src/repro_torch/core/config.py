@@ -78,8 +78,9 @@ class ModelConfig:
     # "int8": KV cache stored int8 with per-(token, head) f32 scales folded
     # into the attention scores / probabilities.
     kv_cache_dtype: str = "bf16"
-    # The port dispatches flash-eligible cache reads by device (kernel on
-    # CUDA, plain version on the CPU); "auto" is the only value it takes.
+    # The cache reads' path: "auto" (the hand-written flash_decode kernels
+    # on the card, their plain version on the CPU), "pallas" (the kernels;
+    # refused off the card) or "jnp" (the plain PyTorch attention).
     attn_impl: str = "auto"
     source: str = ""
 
@@ -131,6 +132,14 @@ class ModelConfig:
                      + n_cross * attn + n_moe * moe_ffn + n_ssm * ssm)
         enc = self.encoder_layers * (attn + per_ffn) if self.encoder_layers else 0
         return emb + per_layer + enc
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k experts count)."""
+        if not self.is_moe:
+            return self.param_count()
+        e_ffn = (3 if self.glu else 2) * self.d_model * self.moe_d_ff
+        _, _, _, n_moe, _ = self._layer_census()
+        return self.param_count() - n_moe * (self.num_experts - self.experts_per_token) * e_ffn
 
     def _layer_census(self) -> Tuple[int, int, int, int, int]:
         """(n_self_attn, n_cross_attn, n_ssm, n_moe_ffn, n_dense_ffn) decoder layers."""

@@ -157,3 +157,28 @@ def make_decode_step(model, drafter, verifier, scfg):
         return state
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Deprecated shims (legacy mode-string API)
+# ---------------------------------------------------------------------------
+
+def make_serve_step(model, scfg):
+    """Deprecated: ``make_decode_step(model, "ngram", "bf16", scfg)``."""
+    return make_decode_step(model, "ngram", "bf16", scfg)
+
+
+def make_vanilla_step(model, temperature: float = 0.0):
+    """Deprecated: ``make_decode_step(model, "vanilla", "bf16", scfg)``."""
+    from repro_torch.core.config import SpecConfig
+
+    return make_decode_step(model, "vanilla", "bf16",
+                            SpecConfig(gamma=0, temperature=temperature))
+
+
+def make_pruned_step(model, scfg, retention: float):
+    """Deprecated: ``make_decode_step(model, "pruned", "bf16", scfg)``."""
+    import dataclasses
+
+    return make_decode_step(model, "pruned", "bf16",
+                            dataclasses.replace(scfg, pruned_retention=retention))

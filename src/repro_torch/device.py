@@ -3,6 +3,8 @@
 Every entry point takes an explicit ``device`` whose default is
 ``"cuda"``: the port runs on the card unless its caller asks for the CPU.
 With no card and no explicit CPU request it raises — it never falls back.
+``"meta"`` builds shapes and dtypes only, with nothing allocated (the
+launch tooling's dry-run, ``launch/shapes.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,6 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA card is available to this process; the port runs on "
             "the card by default — pass device='cpu' (--device cpu) to run "
             "its plain CPU path instead")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}; expected cuda or cpu")
     return dev

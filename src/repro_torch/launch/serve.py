@@ -29,6 +29,16 @@ falling back.  On the card the decode step is a CUDA graph
       --batch 12 --prompt-len 1024 --new-tokens 64
   python -m repro_torch.launch.serve --arch zamba2-2.7b --verifier w8a8 \
       --drafter ngram --batch 4 --prompt-len 1024 --new-tokens 64
+  python -m repro_torch.launch.serve --arch smollm-135m --reduced --device cpu \
+      --mode spec --task humaneval --attn-impl jnp
+
+``--task`` picks the prompts' repetition preset (``data.task_prompts``);
+``--mode`` is the reference's deprecated alias for ``--drafter``
+(``spec`` → ngram); ``--attn-impl`` picks the cache reads' path: ``auto``
+is the hand-written ``flash_decode`` kernels on the card (``attn=pallas``)
+and their plain versions on the CPU (``attn=ref``), ``pallas`` the kernels
+(refused on the CPU), ``jnp`` the plain PyTorch attention, chosen only by
+the flag; the header's ``attn=`` names the path taken.
 
 The SSM and hybrid models (``mamba2-370m``, ``zamba2-2.7b``) run on the
 contiguous cache; the engine refuses token trees, ``--kv-layout paged`` and
@@ -54,9 +64,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.config import SpecConfig
 from repro_torch.core.protocols import available_drafters, available_verifiers
 from repro_torch.data import task_prompts
+from repro_torch.data.synthetic import TASK_REPETITION
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
-from repro_torch.serving.engine import GenResult, SpecEngine
+from repro_torch.serving.engine import LEGACY_MODES, GenResult, SpecEngine
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.request import GenerationRequest, RequestResult
 from repro_torch.serving.server import ServerConfig, StreamingServer
@@ -64,7 +75,12 @@ from repro_torch.serving.trace import Tracer
 from repro_torch.train.checkpoint import load_checkpoint
 
 WEIGHT_SEED = 0
-TASK = "gsm8k"
+TASK = "gsm8k"                     # --task's default
+# the cache reads' attention path (models/attention.py) that --attn-impl
+# picks: auto is pallas on the card and ref on the CPU
+ATTN_PATHS = {"pallas": "the hand-written flash_decode kernels (CUDA)",
+              "ref": "the flash_decode kernels' plain versions",
+              "jnp": "the plain PyTorch attention"}
 
 
 @dataclass
@@ -115,6 +131,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--verifier", default="w8a8", choices=list(available_verifiers()))
     ap.add_argument("--drafter", default=None, choices=list(available_drafters()),
                     help="default: ngram, or ngram-tree with --tree-branches")
+    ap.add_argument("--mode", default=None, choices=list(LEGACY_MODES),
+                    help="deprecated alias: spec|vanilla|pruned -> --drafter")
+    ap.add_argument("--attn-impl", default="auto", choices=["auto", "jnp", "pallas"],
+                    help="cache-read attention: auto = the flash_decode kernels on the "
+                         "card, their plain version on the CPU; pallas = the kernels "
+                         "(refused on the CPU); jnp = the plain PyTorch attention")
     ap.add_argument("--kv-cache", default="bf16", choices=["bf16", "int8"])
     ap.add_argument("--gamma", type=int, default=None,
                     help="draft tokens per step (default 5); a tree template "
@@ -127,6 +149,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=48)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--task", default=TASK,
+                    help=f"prompt repetition preset ({', '.join(TASK_REPETITION)}; "
+                         "another name takes the default 0.3)")
     ap.add_argument("--kv-layout", default="contiguous", choices=["contiguous", "paged"],
                     help="serving-path cache layout; 'paged' routes the batch through "
                          "the continuous-batching scheduler with block-granular KV "
@@ -194,7 +219,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.tree_branches = (tuple(int(b) for b in args.tree_branches.split(","))
                           if args.tree_branches else None)
     if args.drafter is None:
-        args.drafter = "ngram-tree" if args.tree_branches is not None else "ngram"
+        args.drafter = LEGACY_MODES.get(args.mode) or (
+            "ngram-tree" if args.tree_branches is not None else "ngram")
     if args.tree_branches is not None:
         if args.gamma is not None:
             ap.error("--gamma conflicts with --tree-branches: the template "
@@ -212,6 +238,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.device = resolve_device(args.device)
     except (RuntimeError, ValueError) as exc:
         ap.error(str(exc))
+    if args.attn_impl == "pallas" and args.device.type != "cuda":
+        ap.error("--attn-impl pallas runs the hand-written flash_decode kernels, which "
+                 "need the card; on the CPU take auto or jnp")
     return args
 
 
@@ -291,7 +320,7 @@ def main(argv=None) -> GenResult | ScheduledResult | ServedResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_cache, attn_impl=args.attn_impl)
     dev = args.device
     model = Model(cfg, device=dev)
     if args.ckpt:
@@ -315,12 +344,14 @@ def main(argv=None) -> GenResult | ScheduledResult | ServedResult:
     if not args.serve:
         # the server keeps the raw params for its bf16 fallback lane
         params = engine.prepare_params(params)     # the original is dropped here
-    prompts = torch.as_tensor(task_prompts(TASK, args.batch, args.prompt_len,
+    prompts = torch.as_tensor(task_prompts(args.task, args.batch, args.prompt_len,
                                            cfg.vocab_size), device=dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+    attn = args.attn_impl if args.attn_impl != "auto" else (
+        "pallas" if dev.type == "cuda" else "ref")
     print(f"arch={cfg.name} verifier={engine.verifier.name} "
           f"drafter={engine.drafter.name} kv_cache={cfg.kv_cache_dtype} "
-          f"kv_layout={args.kv_layout} device={where}")
+          f"kv_layout={args.kv_layout} attn={attn} ({ATTN_PATHS[attn]}) device={where}")
     tracer = Tracer() if args.trace_out else None
     if args.serve:
         served = serve_stream(engine, params, prompts.cpu().numpy(), args, tracer)

@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.paged_cache import physical_slots
+from repro_torch.core.paged_cache import gather_block_rows, physical_slots
 from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_cross,
                                               flash_decode_paged, tree_override)
 from repro_torch.kernels.smooth_quant import INV_INT8_MAX
@@ -173,24 +173,38 @@ def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
     return _attend_direct(q, k, v, valid, k_scale, v_scale)
 
 
-def cross_attend(q, k, v):
+def cross_attend(q, k, v, plain: bool = False):
     """q (B,T,Hq,dh) over every one of the Sa keys of k/v (B,Sa,Hkv,dh):
     the reference's ``attend(causal=False)`` of its cross-attention.  Goes
     to the ``flash_decode_cross`` wrapper, every query at position Sa - 1,
     so that ``kpos <= qpos`` holds for every slot: the kernel on the card,
     whose rows do not depend on T or B, with the plain version's gradient
-    when training; its plain version on the CPU."""
+    when training; its plain version on the CPU.  ``plain=True`` (the
+    ``jnp`` attention impl) runs the plain attention path instead."""
+    if plain:
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        qpos = torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
+        return attend(q, k, v, qpos, kpos, plain=True, causal=False)
     return flash_decode_cross(q, k, v)
 
 
 def attend_paged(q, cache: dict, bt, qpos, *, tree_mask=None, win_start=None,
-                 tree_bits=None):
+                 tree_bits=None, plain: bool = False):
     """Position-masked attention over a **paged** cache layer: ``cache``
     holds the pools ``k``/``v`` (N, bs, Hkv, dh) (+ int8 scale pools) and
-    ``bt`` is the (B, nb) block table.  Always the ``flash_decode_paged``
+    ``bt`` is the (B, nb) block table.  The ``flash_decode_paged``
     wrapper: its kernel on a CUDA tensor (never a gather followed by the
     contiguous kernel), its plain version (gather + ``flash_decode_ref``)
-    on a CPU tensor."""
+    on a CPU tensor.  ``plain=True`` (the ``jnp`` attention impl) gathers
+    the logical view and runs the plain attention path, as the reference's
+    ``impl="jnp"``."""
+    if plain:
+        g = lambda pool: None if pool is None else gather_block_rows(pool, bt)  # noqa: E731
+        k = g(cache["k"])
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        return attend(q, k, g(cache["v"]), qpos, kpos, k_scale=g(cache.get("k_scale")),
+                      v_scale=g(cache.get("v_scale")), tree_mask=tree_mask,
+                      win_start=win_start, plain=True)
     return flash_decode_paged(q, cache["k"], cache["v"], bt, qpos,
                               k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                               tree_mask=tree_mask, win_start=win_start, tree_bits=tree_bits)
@@ -310,6 +324,7 @@ class Attention(nn.Module):
         if cfg.use_rope:
             q = apply_rope(q, qpos, cfg.rope_theta)
             k = apply_rope(k, qpos, cfg.rope_theta)
+        plain_attn = plain_attn or cfg.attn_impl == "jnp"
         tree = tree or {}
         slots = tree.get("slots", qpos)
         masks = dict(tree_mask=tree.get("mask"), win_start=tree.get("win_start"),
@@ -318,7 +333,7 @@ class Attention(nn.Module):
             cache = write_cache_paged(cache, k, v, slots, block_tables,
                                       last_wins=cfg.is_moe and
                                       cfg.moe_capacity_factor < cfg.num_experts)
-            o = attend_paged(q, cache, block_tables, qpos, **masks)
+            o = attend_paged(q, cache, block_tables, qpos, plain=plain_attn, **masks)
         elif cache is not None:
             cache = write_cache(cache, k, v, slots)
             if read_cache:
@@ -375,6 +390,6 @@ class CrossAttention(Attention):
                                      f"embeddings give {tuple(k.shape)}")
                 cache["ck"].copy_(k)
                 cache["cv"].copy_(v)
-        o = cross_attend(q, k.contiguous(), v.contiguous())
+        o = cross_attend(q, k.contiguous(), v.contiguous(), plain=cfg.attn_impl == "jnp")
         out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")
         return out, cache

@@ -1,7 +1,14 @@
 """Model facade: the public API the engine, the trainer and the launchers
-use — port of ``repro/models/model.py`` (canonical per-layer layout; the
-reference's stacked "scan" layout exists to shrink XLA programs and has no
-eager counterpart: its per-layer remat is the ``remat`` option here)."""
+use — port of ``repro/models/model.py``.
+
+The port runs the canonical per-layer layout.  The reference's stacked
+"scan" layout (``models/scan.py``) exists to shrink XLA programs; the
+port's counterpart of its compiled scan is the CUDA graph of the decode
+step, and of its per-layer remat the ``remat`` option here.  The layout
+still crosses: :meth:`Model.to_scan` stacks a tree as the reference does,
+:meth:`Model.params_from_tree` reads a reference tree in either layout, and
+a cache with a ``"scan"`` entry is taken apart into per-layer views of its
+stacked tensors, so the serving calls write into them in place."""
 from __future__ import annotations
 
 import contextlib
@@ -9,6 +16,7 @@ import contextlib
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import scan as S
 from repro_torch.models import transformer
 from repro_torch.models.transformer import Transformer
 
@@ -49,12 +57,40 @@ class Model:
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.attn_impl == "pallas" and self.device.type not in ("cuda", "meta"):
+            raise ValueError("attn_impl 'pallas' runs the hand-written flash_decode kernels, "
+                             "which need a CUDA card; on the CPU take 'auto' or 'jnp'")
 
     def init_params(self, generator: torch.Generator) -> Transformer:
         return init_params(self.cfg, generator, self.device)
 
-    def init_cache(self, batch: int, max_len: int, num_layers=None) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_len, self.device, num_layers)
+    def init_cache(self, batch: int, max_len: int, num_layers=None, scan: bool = False) -> dict:
+        cache = transformer.init_cache(self.cfg, batch, max_len, self.device, num_layers)
+        return S.stack_cache(cache, self.cfg) if scan else cache
+
+    def to_scan(self, params_or_cache) -> dict:
+        """The reference's scan layout of a parameter tree (a
+        ``Transformer`` or a reference-layout dict) or of a cache, as the
+        reference's ``Model.to_scan`` picks: a tree with ``"layers"`` is
+        stacked as params."""
+        if isinstance(params_or_cache, Transformer):
+            from repro_torch.bridge import to_tree
+
+            params_or_cache = to_tree(params_or_cache)
+        if "layers" in params_or_cache:
+            return S.stack_params(params_or_cache, self.cfg)
+        return S.stack_cache(params_or_cache, self.cfg)
+
+    def params_from_tree(self, tree: dict) -> Transformer:
+        """A reference parameter tree (numpy leaves, as a checkpoint loads;
+        per-layer or scan layout) → this model's parameters on its device."""
+        from repro_torch.bridge import from_jax_params
+
+        return from_jax_params(tree, self.cfg, device=self.device)
+
+    def _layers(self, cache):
+        return S.unstack_cache(cache, self.cfg) if cache is not None and "scan" in cache \
+            else cache
 
     # -- full forward (train / calibration / fidelity eval) -----------------
     def forward(self, params: Transformer, tokens, *, aux_embeds=None, collect=None,
@@ -72,7 +108,7 @@ class Model:
         D) fill the cross layers' ``ck``/``cv`` (whisper: through the
         encoder); without them those keep what they hold."""
         start = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
-        _, cache = params(tokens, start, cache=cache, read_cache=False,
+        _, cache = params(tokens, start, cache=self._layers(cache), read_cache=False,
                           need_logits=False, num_layers=num_layers, aux_embeds=aux_embeds)
         return cache
 
@@ -87,8 +123,8 @@ class Model:
         full-prompt prefill does over its own rows."""
         st = torch.full((tokens.shape[0],), int(start), dtype=torch.int32,
                         device=tokens.device)
-        _, cache = params(tokens, st, cache=cache, read_cache=True, need_logits=False,
-                          num_layers=num_layers, plain_attn=True)
+        _, cache = params(tokens, st, cache=self._layers(cache), read_cache=True,
+                          need_logits=False, num_layers=num_layers, plain_attn=True)
         return cache
 
     def verify_step(self, params: Transformer, cache: dict, window_tokens, start,
@@ -102,14 +138,14 @@ class Model:
         resolve with :meth:`commit` (chain) or :meth:`commit_tree`.  SSM
         layers keep every window position's state for the commit
         (``collect_states``)."""
-        return params(window_tokens, start, cache=cache, num_layers=num_layers,
+        return params(window_tokens, start, cache=self._layers(cache), num_layers=num_layers,
                       tree_depths=tree_depths, tree_mask=tree_mask, tree_bits=tree_bits,
                       collect_states=True)
 
     def decode_step(self, params: Transformer, cache: dict, token, start,
                     num_layers=None):
         """Vanilla single-token decode: (B,1) → (logits (B,1,V), cache)."""
-        return params(token, start, cache=cache, num_layers=num_layers)
+        return params(token, start, cache=self._layers(cache), num_layers=num_layers)
 
     def commit(self, cache: dict, n_last) -> dict:
         """Chain commit: SSM layers keep the state after window token

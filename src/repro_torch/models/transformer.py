@@ -89,6 +89,9 @@ def shared_attn_positions(cfg) -> List[int]:
     return [i for i in range(cfg.num_layers) if (i + 1) % cfg.attn_every == 0]
 
 
+ATTN_IMPLS = ("auto", "jnp", "pallas")
+
+
 def check_supported(cfg) -> None:
     if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
         raise NotImplementedError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
@@ -96,9 +99,8 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name} (window={cfg.sliding_window}) needs a sliding-window (ring) "
             "cache, which no configuration of the reference sets and the port does not have")
-    if cfg.attn_impl != "auto":
-        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: the port dispatches "
-                         "attention by device, and 'auto' is its only value")
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
 
 
 def _call(blk: nn.Module, *args, **kw):

@@ -82,6 +82,9 @@ from repro_torch.serving.request import GenerationRequest, RequestResult, pad_pr
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.trace import NULL_TRACER
 
+# deprecated mode-string → drafter-registry-name mapping (public: the serve
+# CLI builds its --mode choices from it)
+LEGACY_MODES = {"spec": "ngram", "vanilla": "vanilla", "pruned": "pruned"}
 _MAX_TEMP_STEPS = 8        # bound on the per-temperature decode-step cache
 DEFAULT_BATCH_SLOTS = 8    # decode rows per scheduler loop (memory bound)
 
@@ -145,13 +148,19 @@ def _write_table_row(bt: torch.Tensor, row: int, ids: Sequence[int]) -> None:
 class SpecEngine:
     """Drafter × Verifier serving engine."""
 
-    def __init__(self, model, scfg: SpecConfig = SpecConfig(), *,
+    def __init__(self, model, scfg: SpecConfig = SpecConfig(), mode: Optional[str] = None, *,
                  drafter=None, verifier=None, graphs: bool = True):
         if scfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {scfg.kv_layout!r}; "
                              "expected 'contiguous' or 'paged'")
         self.model = model
         self.scfg = scfg
+        if mode is not None:                       # deprecated shim
+            if mode not in LEGACY_MODES:
+                raise ValueError(mode)
+            drafter = drafter if drafter is not None else LEGACY_MODES[mode]
+            # legacy callers quantize params themselves: passthrough prepare
+            verifier = verifier if verifier is not None else "bf16"
         self.drafter = get_drafter(drafter if drafter is not None else scfg.drafter, scfg)
         self.verifier = get_verifier(
             verifier if verifier is not None else scfg.verifier, scfg)

@@ -52,6 +52,21 @@ from repro_torch.serving.trace import Tracer
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test module.  The port's plain CPU
+    paths run many small ops; with torch's default of a thread per core in
+    each of the suite's workers, the workers' threads outnumber the cores
+    and wait on one another (the paged, families-engine and SSM-engine
+    files took 723 s of summed worker time over three workers with the
+    default and 204 s with one thread).  The other ``test_torch_*`` files
+    import this fixture, so it applies there too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SPEC = ((5, 6, 11), (4, 9, 22), (3, 7, 33), (2, 5, 44), (4, 3, 55))
 
 

@@ -34,6 +34,7 @@ from repro_torch.core.drafting import draft_tokens
 from repro_torch.core.verification import verify
 from repro_torch.models import Model
 from repro_torch.serving.engine import SpecEngine
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 N_NEW, GAMMA = 12, 4

@@ -42,6 +42,7 @@ from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core.config import QuantConfig
 from repro_torch.models import Model, attention, transformer
 from repro_torch.quant.apply import quantize_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["codeqwen1.5-7b", "stablelm-12b", "llama-3.2-vision-90b", "whisper-small"]
 MODALITY = ["llama-3.2-vision-90b", "whisper-small"]

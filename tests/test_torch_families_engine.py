@@ -32,6 +32,7 @@ from repro_torch.models import Model
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from test_torch_families import ARCHS, MODALITY, _aux, _cfgs, _jax_tree, _port_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 N_NEW, GAMMA = 10, 4
 SPEC_KW = {"ngram": dict(drafter="ngram"), "vanilla": dict(drafter="vanilla"),

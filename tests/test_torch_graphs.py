@@ -34,7 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.serving import graphs
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
-from test_torch_batching import JSCFG, _state_pointers, jax_setup, port_setup, request_mix
+from test_torch_batching import (JSCFG, _state_pointers, jax_setup,  # noqa: F401
+                                 one_torch_thread, port_setup, request_mix)
 from test_torch_paged import Harness
 
 # a queue 3x the two slots, as the reference's admission test

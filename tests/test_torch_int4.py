@@ -37,6 +37,7 @@ from repro_torch.models.linear import W4A8Linear, W8A8Linear
 from repro_torch.quant import int4
 from repro_torch.quant.apply import quantize_params
 from repro_torch.serving.engine import SpecEngine
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 N_NEW, GAMMA = 12, 4

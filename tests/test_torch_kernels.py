@@ -26,6 +26,7 @@ from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, int32_
 from repro_torch.kernels.ref import w8a8_matmul_ref
 from repro_torch.kernels.smooth_quant import smooth_quant, smooth_quant_ref
 from repro_torch.models.attention import _quant_kv
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

@@ -24,6 +24,7 @@ from repro_torch.bridge import (array, cache_from_numpy, cache_to_numpy,
 from repro_torch.configs import get_config
 from repro_torch.models import Model
 from repro_torch.quant.apply import quantize_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 
@@ -185,12 +186,16 @@ def test_long_prefill_attention_matches_jax(int8):
 
 
 def test_model_rejects_unknown_attn_impl():
-    """Attention dispatches by device; any attn_impl but "auto" is refused
-    once, when the Model is built."""
+    """attn_impl takes the reference's "auto", "jnp" and "pallas"; "pallas"
+    (the CUDA kernels) off the card and any other value are refused once,
+    when the Model is built."""
     _, pcfg = _configs()
     Model(pcfg, device="cpu")
+    Model(dataclasses.replace(pcfg, attn_impl="jnp"), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         Model(dataclasses.replace(pcfg, attn_impl="pallas"), device="cpu")
+    with pytest.raises(ValueError, match="attn_impl"):
+        Model(dataclasses.replace(pcfg, attn_impl="flash"), device="cpu")
 
 
 @pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (576, torch.float32)])

@@ -37,6 +37,7 @@ from repro_torch.models.linear import W4A8Linear, W8A8ExpertLinear, W8A8Linear
 from repro_torch.quant.apply import quantize_params
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.faults import poison_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "arctic-480b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

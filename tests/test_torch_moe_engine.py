@@ -22,6 +22,7 @@ from repro_torch.models import Model
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from test_torch_moe import _cfgs, _jax_params, _port_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 N_NEW, GAMMA = 10, 4
 

@@ -31,6 +31,7 @@ from repro_torch.kernels.smooth_quant import (THREADS, chunk, max_width, norm_sm
                                               row_sum_squares, smooth_quant_ref)
 from repro_torch.models.common import Norm, rms_norm
 from repro_torch.models.linear import Linear, W4A8Linear, W8A8Linear
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CODE_SHARE = 1e-4

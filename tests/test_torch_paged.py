@@ -43,8 +43,8 @@ from repro_torch.models.attention import last_writer, write_cache_paged
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from repro_torch.serving.scheduler import Scheduler
-from test_torch_batching import (JSCFG, jax_scheduled_tokens, port_scheduled, port_setup,
-                                 request_mix)
+from test_torch_batching import (JSCFG, jax_scheduled_tokens, one_torch_thread,  # noqa: F401
+                                 port_scheduled, port_setup, request_mix)
 
 
 def _table(rng, B, nb, used):

@@ -30,6 +30,7 @@ from repro_torch.core.drafters import PrunedDrafter
 from repro_torch.core.protocols import get_drafter
 from repro_torch.models import Model
 from repro_torch.serving.engine import SpecEngine
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 N_NEW, GAMMA = 12, 3
 

@@ -36,7 +36,7 @@ from repro_torch.core.config import SpecConfig
 from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from repro_torch.serving.server import ServerConfig, ServingLoop, StreamingServer
-from test_torch_batching import jax_setup, port_setup
+from test_torch_batching import jax_setup, one_torch_thread, port_setup  # noqa: F401
 
 COMBOS = [("ngram", "w8a8"), ("ngram-tree", "w8a8"), ("ngram", "bf16")]
 SCFG = dict(temperature=0.0, gamma=3, tree_branches=(2, 1, 1), kv_block_size=8)

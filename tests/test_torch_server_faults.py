@@ -45,7 +45,7 @@ from repro_torch.serving.faults import (
 )
 from repro_torch.serving.request import GenerationRequest
 from repro_torch.serving.server import ServerConfig, ServingLoop, StreamingServer
-from test_torch_batching import jax_setup, port_setup
+from test_torch_batching import jax_setup, one_torch_thread, port_setup  # noqa: F401
 
 COMBOS = [("ngram", "bf16"), ("ngram", "w8a8"), ("ngram-tree", "w8a8")]
 SCENARIOS = {                        # the reference's matrix (tests/test_faults.py)

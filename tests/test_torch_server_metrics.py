@@ -33,7 +33,7 @@ from repro_torch.serving.engine import SpecEngine, StepSnapshot, merge_state_row
 from repro_torch.serving.faults import poison_params
 from repro_torch.serving.metrics import RequestTimeline, ServerMetrics, percentile
 from repro_torch.serving.sampling import sample
-from test_torch_batching import jax_setup
+from test_torch_batching import jax_setup, one_torch_thread  # noqa: F401
 
 
 def feed(m, rng):

@@ -34,6 +34,7 @@ from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
 from repro_torch.models import Model, ssm, transformer
 from repro_torch.models.linear import Linear, W4A8Linear, W8A8Linear
 from repro_torch.quant.apply import quantize_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["mamba2-370m", "zamba2-2.7b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

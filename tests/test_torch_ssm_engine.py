@@ -28,6 +28,7 @@ from repro_torch.serving.engine import SpecEngine
 from repro_torch.serving.request import GenerationRequest
 from repro_torch.serving.server import ServingLoop
 from test_torch_ssm import ARCHS, _cfgs, _jax_params, _port_params
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 N_NEW, GAMMA = 10, 4
 SPEC_KW = {"ngram": dict(drafter="ngram"), "vanilla": dict(drafter="vanilla"),

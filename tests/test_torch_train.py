@@ -60,6 +60,7 @@ from repro_torch.models import Model
 from repro_torch.models.model import forward
 from repro_torch.train import checkpoint, optimizer
 from repro_torch.train.trainer import Trainer, train_leaves, value_and_grad
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 GRAD_RTOL, GRAD_FLOOR, LOSS_RTOL = 2e-5, 1e-6, 1e-5

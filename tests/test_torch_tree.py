@@ -44,6 +44,7 @@ from repro_torch.kernels.flash_decode import flash_decode, tree_mask_bits
 from repro_torch.models import Model
 from repro_torch.models import transformer
 from repro_torch.serving.engine import SpecEngine
+from test_torch_batching import one_torch_thread  # noqa: F401  (autouse)
 
 TEMPLATES = [(), (1, 1, 1), (2, 2), (3, 1, 2), (3, 2, 1, 1), (4, 4, 4), (64,)]
 N_NEW = 12
