@@ -51,6 +51,15 @@
    own lossless gate on the reduced config on the card: greedy tokens equal
    to vanilla's for ngram, ngram-tree (3,2,1,1), pruned and
    ChainTreeAdapter(ngram), with W8A8 and W4A8, KV bf16 and int8.
+5b. Ring phase (:func:`ring_phase`, the sliding-window ring cache): on
+   the graph phase's weights, ``quasar-paper-7b`` at full depth with
+   ``long_500k``'s window of 4096 (rings of 4224 slots): the ring variant
+   of ``flash_decode`` against its plain version (7B windows, bf16 and
+   int8 KV, dh 80 and 160) beside SDPA; greedy ngram ≡ vanilla on 2 ×
+   5120-token prompts, 384 new tokens, bf16 and W8A8 × KV bf16 and int8,
+   through graphs; replay ≡ eager; the ring's logits against the windowed
+   no-cache forward; the long_500k verify step as a graph beside its
+   roofline bound.  ``--ring-only`` runs it alone.
 6. Paged phase (the continuous-batching scheduler over the paged,
    prefix-shared KV cache).  Kernel part: the four ``flash_decode_paged``
    variants (chain/tree × bf16/int8 KV) at the 7B chain and (3,2,1,1) tree
@@ -162,7 +171,7 @@
 12. Launch phase (:func:`launch_phase`, ``repro_torch/launch``): (a) the
     dry-run of every arch × shape on the meta device for one card and for
     four (bytes per card, fits one card, roofline terms; the sliding-window
-    ``long_500k`` combos refused as needing the ring cache, any other
+    ``long_500k`` combos through their ring caches; 44 rows each, any
     exception a failure); (b) the 7B W8A8 ngram chain step (batch 4,
     1024-token prompts, 64 new tokens, through graphs): ``step_bound_ms``
     and what bounds it beside the step window's device-busy and graph step
@@ -290,6 +299,9 @@ TRAIN_PROMPT, TRAIN_NEW = 192, 64       # served prompts + new tokens fill the t
 GRAD_RTOL = 1e-4                        # f32 gradients against the plain version's
 LAUNCH_CARDS = (1, 4)              # (a): the dry-run's plan on one card and on four
 MEM_TOL = 0.10                     # (b): predicted resident bytes against the peak
+RING_WINDOW = 4096                 # the ring phase: shapes.shape_cfg's long_500k window
+RING_B, RING_PROMPT, RING_NEW = 2, 5120, 384   # (b): the prefill wraps the 4224-slot ring
+RING_LOGITS_TOL = 2 ** -4          # (d): bf16 ring vs no-cache logits, of the largest |logit|
 QUICKSTART_NEEDS = (("norm_smooth_quant", "smooth_quant"), ("int8_matmul",),
                     ("flash_decode",))   # (c): one of each group must launch
 
@@ -841,36 +853,46 @@ def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=Non
     return info
 
 
-def graph_phase(torch, dev):
+def seven_b(torch, dev) -> tuple:
+    """The 7B (KV bf16) with the serve CLI's seeded weights: (model, raw
+    bf16 params, {verifier: prepared params} for W8A8 and W4A8), shared by
+    the graph and ring phases."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import SpecEngine
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="bf16")
+    model = Model(cfg, device=dev)
+    raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
+    return model, raw, {v: SpecEngine(model, SpecConfig(verifier=v)).prepare_params(raw)
+                        for v in ("w8a8", "w4a8")}
+
+
+def graph_phase(torch, dev, model, prepared):
     """The decode step through CUDA graphs (the default) against the eager
-    step (``graphs=False``) at 7B: one model (KV bf16) with the serve CLI's
-    seeded weights, prepared once per verifier.  For each GRAPH_RUNS entry,
+    step (``graphs=False``) at 7B: :func:`seven_b`'s model and weights,
+    prepared once per verifier.  For each GRAPH_RUNS entry,
     eager then graph in one process: ``generate`` (B rows, NEW tokens; paged:
     ``generate_requests`` over (a)'s 12 requests), whose tokens must be
     equal bit for bit, with equal launches over the run and one program
     captured; then, for GRAPH_WINDOWS, the step (tick) window, whose
     launches per step must be equal in both modes (and W8A8_CHAIN_LAUNCHES on
     the W8A8 chain step)."""
-    import dataclasses
-
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.core.config import SpecConfig
     from repro_torch.data import task_prompts
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import Model
     from repro_torch.serving.engine import SpecEngine
     from repro_torch.serving.request import GenerationRequest
 
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(ARCH), kv_cache_dtype="bf16")
-    model = Model(cfg, device=dev)
-    raw = model.init_params(torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED))
-    prepared = {v: SpecEngine(model, SpecConfig(verifier=v)).prepare_params(raw)
-                for v in ("w8a8", "w4a8")}
-    del raw
+    cfg = model.cfg
     prompts_np = task_prompts(serve.TASK, PAGED_REQUESTS, PROMPT, cfg.vocab_size)
     prompts = torch.as_tensor(prompts_np[:B], device=dev, dtype=torch.int32)
     reqs = [GenerationRequest(p, NEW, seed=i) for i, p in enumerate(prompts_np)]
@@ -929,9 +951,260 @@ def graph_phase(torch, dev):
                 raise AssertionError(f"W8A8 chain step launches {per_step}")
         log(f"  {name}: replay tokens == eager tokens, bit for bit; launches equal")
         out[name] = modes
-    del prepared
-    torch.cuda.empty_cache()
     return out
+
+
+def ring_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, int8: bool,
+              ts=(GAMMA + 1, 1), past: int = RING_PROMPT + 100, **tag) -> list:
+    """The ring variant of ``flash_decode`` (int8 K/V with ``int8``) over a
+    RING_WINDOW-token window's ring of RING_WINDOW + 128 slots, filled as the
+    model's writes leave it — a prefill of ``past`` tokens (past one wrap:
+    the write keeps its last 4224 rows), then the query window's own rows —
+    at each T of ``ts``: within one bf16 rounding step of its plain version,
+    timed beside it and (bf16 K/V) beside SDPA with a boolean mask."""
+    import types
+
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
+    from repro_torch.models.attention import init_attn_cache, write_cache
+
+    F = torch.nn.functional
+    name = "flash_decode_ring" + "_int8" * int8
+    kvcfg = types.SimpleNamespace(num_kv_heads=hkv, head_dim=dh, dtype=torch.bfloat16,
+                                  kv_cache_dtype="int8" if int8 else "bf16")
+    rows = []
+    for t in ts:
+        cache = init_attn_cache(kvcfg, B, RING_WINDOW, dev, RING_WINDOW)
+        S = cache["k"].shape[1]
+        for start, n in ((0, past), (past, t)):
+            k, v = (torch.randn(B, n, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            pos = (start + torch.arange(n, device=dev, dtype=torch.int32)).expand(B, n)
+            write_cache(cache, k, v, pos.contiguous())
+        del k, v
+        q = torch.randn(B, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+        qpos = (past + torch.arange(t, device=dev, dtype=torch.int32)).expand(B, t).contiguous()
+        k, v = cache["k"], cache["v"]
+        kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                  kpos=cache["kpos"], window=RING_WINDOW)
+        o = flash_decode(q, k, v, qpos, **kw)
+        ro = flash_decode_ref(q, k, v, qpos, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - ro.float()).abs().max().item()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name} dh {dh} T={t}: non-finite output")
+        torch.testing.assert_close(o.float(), ro.float(), **FLASH_TOL,
+                                   msg=lambda m: f"{name} dh {dh} T={t}: {m}")
+        # the work this ring needs: K/V of the slots some query row of the
+        # batch row sees, every slot's position, q in, out; each query row
+        # scores (and sums values over) the keys it sees
+        vis = visible(qpos, S, kpos=cache["kpos"], window=RING_WINDOW)      # (B, T, S)
+        read = int(vis.any(dim=1).sum())
+        kv_bytes = 2 * read * hkv * dh * (1 if int8 else 2) + (8 * read * hkv if int8 else 0)
+        nbytes = 2 * 2 * B * t * hq * dh + kv_bytes + 4 * B * S + 4 * B * t
+        bms, by = bound_ms(nbytes, 4 * hq * int(vis.sum()) * dh, "bf16")
+        library = None
+        if not int8:       # SDPA with a boolean mask; int8 K/V has no such call
+            mask = vis[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+            lib_err = (library().float() - ro.float()).abs().max().item()
+            if lib_err > SDPA_TOL:
+                raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
+        rows.append(dict(shape=[B, t, hq, hkv, S, dh], window=RING_WINDOW, qpos0=past, **tag,
+                         max_abs_err=err, bound_ms=bms, bound_by=by, slots_read=read,
+                         **timed(torch, lambda: flash_decode(q, k, v, qpos, **kw),
+                                 lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
+                                 50, flush)))
+        del cache, k, v, kw
+    return rows
+
+
+def ring_phase(torch, dev, flush, raw, prepared) -> tuple:
+    """The sliding-window ring cache at 7B: ``quasar-paper-7b`` at full width
+    and depth with ``launch/shapes.shape_cfg(cfg, "long_500k")``'s window of
+    RING_WINDOW tokens (rings of 4224 slots), on the graph phase's seeded
+    weights (``raw`` bf16 and ``prepared`` W8A8, viewed under the windowed
+    config: nothing new is initialised).  (a) The ring variant of
+    ``flash_decode`` against its plain version at the 7B chain and vanilla
+    windows, bf16 and int8 K/V, and at head sizes 80 (zamba2) and 160
+    (stablelm-12b).  (b) ``generate`` through graphs on RING_B prompts of
+    RING_PROMPT tokens (the prefill of 5119 wraps the ring), RING_NEW new
+    tokens, greedy: ngram ≡ vanilla for the bf16 and W8A8 verifiers over
+    bf16 and int8 KV, each run launching every kernel of its path.  (c) The
+    W8A8 bf16-KV spec run again eagerly: tokens and launches equal.  (d)
+    The last verify window's logits from the ring (bf16) against a no-cache
+    forward of the whole sequence with the window mask, within
+    RING_LOGITS_TOL of the logits' largest magnitude; the unwindowed
+    forward must be further off.  (e) The long_500k step: a B 1 ring filled
+    by one forward of 4223 tokens at 520064, then the W8A8 verify forward at
+    positions 524287.. captured as a CUDA graph and timed beside
+    ``roofline.step_bound_ms`` at that shape.  Returns (record, kernel
+    rows, runs)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline, serve, shapes
+    from repro_torch.models import Model, transformer
+    from repro_torch.serving.engine import SpecEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = shapes.shape_cfg(raw.cfg, "long_500k")
+    if base.sliding_window != RING_WINDOW or base.num_layers != get_config(ARCH).num_layers:
+        raise AssertionError(f"ring phase config: {base.name} window {base.sliding_window}, "
+                             f"{base.num_layers} layers")
+    out, runs, toks = {}, {}, {}
+
+    # (a) the ring read at the 7B windows, and at head sizes 80 and 160
+    g = torch.Generator(device=dev).manual_seed(24)
+    kern = {"flash_decode_ring" + "_int8" * int8:
+            ring_rows(torch, dev, g, flush, base.num_heads, base.num_kv_heads, base.head_dim,
+                      int8, arch=ARCH) for int8 in (False, True)}
+    for arch in ("zamba2-2.7b", "stablelm-12b"):
+        c = get_config(arch)
+        kern["flash_decode_ring"] += ring_rows(torch, dev, g, flush, c.num_heads,
+                                               c.num_kv_heads, c.head_dim, False,
+                                               ts=(GAMMA + 1,), arch=arch)
+    for name, rows in kern.items():
+        for r in rows:
+            log(f"  {name:22s} {str(r['shape']):32s} ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']} max_abs_err={r['max_abs_err']}")
+    out["kernel_s"] = time.perf_counter() - t_phase
+
+    # (b) lossless gates through graphs, (c) replay ≡ eager
+    prompts = torch.as_tensor(task_prompts(serve.TASK, RING_B, RING_PROMPT, base.vocab_size),
+                              device=dev, dtype=torch.int32)
+
+    def generate_run(name, verifier, kv, drafter, graphs=True):
+        t_run = time.perf_counter()
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        model = Model(cfg, device=dev)
+        params = transformer.with_config(raw if verifier == "bf16" else prepared, cfg)
+        eng = SpecEngine(model, SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier),
+                         graphs=graphs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = eng.generate(params, prompts, RING_NEW)
+        torch.cuda.synchronize()
+        info = dict(launches=ops.launch_counts(), tok_s=r.tokens_per_s, L=r.mean_accept_len,
+                    steps=r.steps, new_tokens=r.new_tokens, decode_s=r.wall_s,
+                    prefill_s=r.prefill_s,
+                    mean_step_ms=1e3 * (r.wall_s - r.capture_s) / max(r.steps, 1),
+                    capture_ms=1e3 * r.capture_s, step_traces=eng.step_traces,
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    bad_rows=int(r.bad.sum()))
+        needed = ("flash_decode_ring" + "_int8" * (kv == "int8"),) + (
+            ("norm_smooth_quant", "smooth_quant", "int8_matmul") if verifier == "w8a8" else ())
+        missing = [k for k in needed if info["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
+        if info["bad_rows"] or r.new_tokens != RING_B * RING_NEW or info["step_traces"] != 1:
+            raise AssertionError(f"{name}: {info}")
+        toks[name] = r.tokens[:, :RING_PROMPT + RING_NEW]
+        info["run_s"] = time.perf_counter() - t_run
+        log(f"  {name}: L={info['L']:.3f} steps={info['steps']} "
+            f"step_ms={info['mean_step_ms']:.2f} prefill_s={info['prefill_s']:.2f} "
+            f"launches={info['launches']} peak_gb={info['peak_mem_gb']:.1f} "
+            f"run_s={info['run_s']:.1f}")
+        runs[name] = info
+        del eng, r
+
+    for verifier in ("bf16", "w8a8"):
+        for kv in ("bf16", "int8"):
+            tag = f"{verifier}_kv_{kv}"
+            generate_run(f"ring_vanilla_{tag}", verifier, kv, "vanilla")
+            generate_run(f"ring_spec_{tag}", verifier, kv, "ngram")
+            if not torch.equal(toks[f"ring_spec_{tag}"], toks[f"ring_vanilla_{tag}"]):
+                share = (toks[f"ring_spec_{tag}"] == toks[f"ring_vanilla_{tag}"]).float()
+                raise AssertionError(f"ring {tag}: greedy spec tokens differ from vanilla's "
+                                     f"({share.mean().item():.4f} shared)")
+            runs[f"ring_spec_{tag}"]["vs_vanilla_shared_tokens"] = 1.0
+    log(f"  ring: greedy ngram == vanilla over {RING_NEW} tokens x {RING_B} rows for "
+        "bf16 and W8A8 verifiers, KV bf16 and int8")
+    generate_run("ring_spec_w8a8_kv_bf16_eager", "w8a8", "bf16", "ngram", graphs=False)
+    eager = runs.pop("ring_spec_w8a8_kv_bf16_eager")
+    if not torch.equal(toks.pop("ring_spec_w8a8_kv_bf16_eager"), toks["ring_spec_w8a8_kv_bf16"]) \
+            or eager["launches"] != runs["ring_spec_w8a8_kv_bf16"]["launches"]:
+        raise AssertionError("ring spec W8A8: eager tokens or launches differ from replayed")
+    out["eager_spec_w8a8_kv_bf16"] = eager
+    log("  ring: replay tokens == eager tokens, bit for bit; launches equal")
+
+    # (d) the last verify window's logits against the windowed no-cache forward
+    cfg = dataclasses.replace(base, kv_cache_dtype="bf16")
+    model, params = Model(cfg, device=dev), transformer.with_config(raw, cfg)
+    seq = toks["ring_spec_bf16_kv_bf16"][:1]
+    n = seq.shape[1]
+    with torch.inference_mode():
+        cache = model.prefill(params, model.init_cache(1, n + GAMMA + 2),
+                              seq[:, :n - GAMMA - 1])
+        start = torch.full((1,), n - GAMMA - 1, dtype=torch.int32, device=dev)
+        ring, _ = model.verify_step(params, cache, seq[:, n - GAMMA - 1:], start)
+        del cache
+        want = model.forward(params, seq)[0][:, n - GAMMA - 1:].clone()
+        free = dataclasses.replace(cfg, sliding_window=None)
+        wide = Model(free, device=dev).forward(transformer.with_config(raw, free), seq)[0]
+        wide = wide[:, n - GAMMA - 1:].clone()
+    err, err_wide = ((ring - w).abs().max().item() for w in (want, wide))
+    scale = want.abs().max().item()
+    out["windowed_logits"] = dict(tokens=n, max_abs_err=err, unwindowed_max_abs_err=err_wide,
+                                  logits_max_abs=scale, tol=RING_LOGITS_TOL * scale,
+                                  argmax_equal=bool(torch.equal(ring.argmax(-1),
+                                                                want.argmax(-1))))
+    log(f"  ring: verify logits vs windowed forward {json.dumps(out['windowed_logits'])}")
+    if not err <= RING_LOGITS_TOL * scale or not err_wide > 2 * err:
+        raise AssertionError(f"ring: windowed logits {out['windowed_logits']}")
+    del ring, want, wide, params, model
+
+    # (e) the long_500k step: W8A8 verify at positions 524287.. over a B 1 ring
+    ctx = shapes.SHAPES["long_500k"]["seq_len"]
+    model, params = Model(cfg, device=dev), transformer.with_config(prepared, cfg)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    with torch.inference_mode():
+        cache = model.init_cache(1, ctx)
+        S = cache["layers"][0]["k"].shape[1]
+        fill = torch.randint(0, cfg.vocab_size, (1, S - 1), generator=gen, device=dev)
+        params(fill, torch.full((1,), ctx - S, dtype=torch.int32, device=dev), cache=cache,
+               read_cache=False, need_logits=False)
+        win = torch.randint(0, cfg.vocab_size, (1, GAMMA + 1), generator=gen, device=dev)
+        start = torch.full((1,), ctx - 1, dtype=torch.int32, device=dev)
+        ops.reset_launch_counts()
+        eager, _ = model.verify_step(params, cache, win, start)
+        launches = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = model.verify_step(params, cache, win, start)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(logits).all() and torch.equal(logits, eager)):
+            raise AssertionError("long_500k step: replayed logits non-finite or not eager's")
+        kpos = cache["layers"][0]["kpos"]
+        step_ms = time_ms(torch, graph.replay, 20, flush)
+    bound, by = roofline.step_bound_ms(cfg, "w8a8", "bf16", 1, ctx, GAMMA + 1)
+    roof = roofline.step_counts(cfg, "w8a8", "bf16", 1, ctx, GAMMA + 1)
+    out["long_500k_step"] = dict(
+        context=ctx, ring_slots=S, positions=[ctx - 1, ctx - 1 + GAMMA],
+        kpos_range=[int(kpos.min()), int(kpos.max())], verify_graph_ms=step_ms,
+        step_bound_ms=bound, bound_by=by, bound_share=bound / step_ms,
+        kv_gbytes=roof.kv_bytes / 1e9, gbytes=roof.bytes_accessed / 1e9,
+        launches_per_step=launches)
+    log(f"  ring: long_500k {json.dumps(out['long_500k_step'])}")
+    if launches.get("flash_decode_ring", 0) != cfg.num_layers:
+        raise AssertionError(f"long_500k step launches {launches}")
+    del graph, logits, eager, cache, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, kern, runs
 
 
 def lossless_gate(torch, dev):
@@ -3131,12 +3404,13 @@ def launch_phase(torch, dev, smi: str) -> tuple:
         rows, failures = dryrun.run(list(REGISTRY), list(shapes.SHAPES), cards, log=log)
         if failures:
             raise AssertionError(f"dry-run on {cards} card(s): {failures}")
-        refused = [r for r in rows if r["status"] != "ok"]
-        if any(dryrun.RING_CACHE not in r["reason"] for r in refused):
-            raise AssertionError(f"dry-run refusals other than the ring cache: {refused}")
+        if len(rows) != len(REGISTRY) * len(shapes.SHAPES) or \
+                any(r["status"] != "ok" for r in rows):
+            raise AssertionError(f"dry-run on {cards} card(s): {len(rows)} rows, not every "
+                                 "arch × shape ok")
         info["dryrun"][f"1x{cards}"] = rows
-        log(f"  dry-run 1x{cards}: {len(rows) - len(refused)} ok, {len(refused)} refused "
-            f"(the ring cache), {sum(r.get('fits_card', False) for r in rows)} fit one card")
+        log(f"  dry-run 1x{cards}: {len(rows)} ok, "
+            f"{sum(r['fits_card'] for r in rows)} fit one card")
     info["dryrun_s"] = time.perf_counter() - t0
 
     # (b) the 7B W8A8 chain step: its bound, and the resident bytes predicted
@@ -3302,6 +3576,17 @@ def main() -> int:
         (out / "chip_smoke_launch.json").write_text(json.dumps(
             dict(launch=launch_out, runs=launch_runs), indent=1))
         return 0
+    if sys.argv[1:] == ["--ring-only"]:        # the ring phase alone, for its own runs
+        log("ring phase")
+        flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+        _, raw7, prepared7 = seven_b(torch, dev)
+        ring_out, ring_kern, ring_runs = ring_phase(torch, dev, flush, raw7, prepared7["w8a8"])
+        log(f"  ring phase: {ring_out['phase_s']:.1f} s")
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_ring.json").write_text(json.dumps(
+            dict(ring=ring_out, kernels=ring_kern, runs=ring_runs), indent=1))
+        return 0
     if sys.argv[1:] == ["--train-only"]:       # the train phase alone, for its own runs
         log("train phase")
         t0 = time.perf_counter()
@@ -3332,7 +3617,17 @@ def main() -> int:
                 f"{p['device_idle_share']:.3f} of the unprofiled step; launches per step "
                 f"{p['launches_per_step']}")
     log("graph phase")
-    graph = graph_phase(torch, dev)
+    model7, raw7, prepared7 = seven_b(torch, dev)
+    graph = graph_phase(torch, dev, model7, prepared7)
+    log("ring phase")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    ring_out, ring_kern, ring_runs = ring_phase(torch, dev, flush, raw7, prepared7["w8a8"])
+    del flush, model7, raw7, prepared7
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  ring phase: {ring_out['phase_s']:.1f} s")
+    kern.update(ring_kern)
+    runs.update(ring_runs)
     log("lossless gate")
     lossless_gate(torch, dev)
     log("paged phase: kernels")
@@ -3408,6 +3703,13 @@ def main() -> int:
                               "src/repro/kernels/flash_decode.py:134", "spec_w8a8_kv_int8"),
         "int4_matmul": ("src/repro_torch/csrc/int4_matmul.cu",
                         "src/repro/kernels/int4_matmul.py:29", "spec_w4a8_kv_bf16"),
+        # not a TPU kernel: the reference reads a ring through a jnp attend;
+        # the port reads it through flash_decode for row invariance
+        "flash_decode_ring": ("src/repro_torch/csrc/flash_decode.cu",
+                              "src/repro/models/attention.py:242", "ring_spec_w8a8_kv_bf16"),
+        "flash_decode_ring_int8": ("src/repro_torch/csrc/flash_decode.cu",
+                                   "src/repro/models/attention.py:242",
+                                   "ring_spec_w8a8_kv_int8"),
         "flash_decode_tree": ("src/repro_torch/csrc/flash_decode.cu",
                               "src/repro/kernels/flash_decode.py:125", "tree_w8a8_kv_bf16"),
         "flash_decode_tree_int8": ("src/repro_torch/csrc/flash_decode.cu",
@@ -3469,6 +3771,7 @@ def main() -> int:
             "flash_decode_tree_int8_dh160": 0, "flash_decode_paged_dh160": 0,
             "flash_decode_g1_kv32": 0, "flash_decode_cross": 0,     # chain window, vision
             "flash_decode_g3_dh64": 0,                              # chain window, smollm
+            "flash_decode_ring": 0, "flash_decode_ring_int8": 0,    # 7B chain window, ring
             **{name: 0 for (_, _, name) in PAGED_RUNS.values()}}   # paged: bs 128
     kernels = []
     for kname, (source, replaces, run) in meta.items():
@@ -3492,7 +3795,7 @@ def main() -> int:
         dict(device=device_name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kernels=kern, runs=runs, profile=prof, prefix_sharing=sched["prefix_sharing"],
              profile_paged=sched["profile_paged_w8a8_kv_bf16"], preemption=preempt,
-             graph=graph, server=server, moe=moe_out, ssm=ssm_out, families=fam_out,
+             graph=graph, ring=ring_out, server=server, moe=moe_out, ssm=ssm_out, families=fam_out,
              train=train_out, launch=launch_out),
         indent=1))
     log(smi)

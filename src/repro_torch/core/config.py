@@ -11,9 +11,10 @@ The port runs every family of the reference: the dense and MoE decoders
 over a contiguous or paged KV cache, the SSM (Mamba2) and hybrid
 (zamba2) decoders over a contiguous KV/SSM cache, and the cross-attention
 (llama-3.2-vision) and encoder-decoder (whisper) models over a contiguous
-KV cache with their cross caches beside it.  ``sliding_window`` is kept
-for parity (no configuration sets it) and refused where it would be
-read.
+KV cache with their cross caches beside it.  ``sliding_window`` (no
+configuration sets it; ``launch/shapes.shape_cfg`` does for ``long_500k``)
+makes every self-attention cache a ring (``models/attention.py``); the
+paged layout and token trees refuse it, as in the reference.
 """
 from __future__ import annotations
 

@@ -175,16 +175,10 @@ class PrunedDrafter(Drafter):
         """Zero the draft cache's row ``row`` and prefill the unpadded
         ``prompt`` (1, P) (and the request's ``aux_embeds`` (1, Sa, D)) into
         it, in place (the row views write through)."""
-        from repro_torch.models.transformer import cache_rows
-
-        def zero(tree):
-            for t in tree.values():
-                zero(t) if isinstance(t, dict) else t.zero_()
+        from repro_torch.models.transformer import cache_rows, reset_cache
 
         rows = cache_rows(dstate, row)
-        for layers in rows.values():
-            for layer in layers:
-                zero(layer)
+        reset_cache(rows)
         model.prefill(draft_params if draft_params is not None else params, rows,
                       prompt[:, :-1], num_layers=self.n_keep(model), aux_embeds=aux_embeds)
         return dstate

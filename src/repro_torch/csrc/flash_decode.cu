@@ -13,6 +13,15 @@
 // ceil(T/32) bit words per node; slots below win_start keep the positional
 // rule, and slots past the window stay masked by it.
 //
+// Ring caches (kpos != nullptr, the sliding window): each slot holds the
+// absolute position kpos[b, s] of the key it stores (-2^30 while unwritten),
+// and key s is visible to the query at position p iff 0 <= p - kpos[b, s] <
+// window.  Once the ring has wrapped any slot can be live, so every split
+// is read (the live range is the whole ring); the split layout still
+// depends on S alone, so a row's bits depend on neither T nor B.  The
+// reference reads a ring through plain jnp (repro/models/attention.py:242
+// attend); this variant is the port's own, for row invariance on the card.
+//
 // Replaces the Pallas TPU kernels repro/kernels/flash_decode.py:_kernel
 // (chain, bf16/f32 KV), :_kernel_int8 (chain, int8 KV), :_kernel_tree
 // (tree, bf16/f32 KV) and :_kernel_tree_int8 (tree, int8 KV), all through
@@ -123,9 +132,11 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
 // One past the last slot any query row of batch row b can see: the
 // window's last position + 1, and for a tree window at least
 // win_start + T (its packed nodes); never past S.  Keys from there on are
-// masked for every query row of the batch row.
+// masked for every query row of the batch row.  A ring (kpos) may hold a
+// live key in any slot: S.
 __device__ __forceinline__ int live_end(const int* __restrict__ qpos, const int* win_start,
-                                        int b, int T, int S) {
+                                        const int* kpos, int b, int T, int S) {
+  if (kpos != nullptr) return S;
   int e = 0;
   for (int t = 0; t < T; ++t) e = max(e, qpos[b * T + t] + 1);
   if (win_start != nullptr) e = max(e, win_start[b] + T);
@@ -137,11 +148,18 @@ __device__ __forceinline__ int live_splits(int end, int nsplit) {
   return end <= 0 ? 0 : min(nsplit, (end - 1) / SPLIT + 1);
 }
 
-// Is slot s visible to a query row at position qp, window node t?  Inside
-// a tree window's slots the ancestor bit decides; elsewhere s <= qp.
+// Is slot s visible to a query row at position qp, window node t?  Over a
+// ring (kpos_b: batch row b's slot positions) iff 0 <= qp - kpos_b[s] <
+// window (qp < 2^30, so the difference stays in int); inside a tree
+// window's slots the ancestor bit decides; elsewhere s <= qp.
 __device__ __forceinline__ bool visible(int s, int qp, int t,
                                         const int* __restrict__ tree_bits,
-                                        int win_start, int T, int words) {
+                                        int win_start, int T, int words,
+                                        const int* __restrict__ kpos_b, int window) {
+  if (kpos_b != nullptr) {
+    const int d = qp - __ldg(kpos_b + s);
+    return d >= 0 && d < window;
+  }
   if (tree_bits != nullptr) {
     const int rel = s - win_start;
     if (rel >= 0 && rel < T)
@@ -186,6 +204,7 @@ flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
                        const float* __restrict__ vs, const Rows rows,
                        const int* __restrict__ qpos, const int* __restrict__ tree_bits,
                        const int* __restrict__ win_start, int tree_words,
+                       const int* __restrict__ kpos, int window,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int T, int Hq, int Hkv, int S,
                        int rows_per_block, float scale) {
@@ -204,7 +223,8 @@ flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
   // keys past the last live slot are masked for every query row: a split
   // that starts past it writes nothing (the merge skips it), and the last
   // live split stops there
-  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, b, T, S);
+  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, kpos, b, T, S);
+  const int* kpos_b = kpos != nullptr ? kpos + static_cast<int64_t>(b) * S : nullptr;
   const int s_begin = split * SPLIT;
   if (s_begin >= end) return;
   const int s_end = min(s_begin + SPLIT, end);
@@ -292,7 +312,7 @@ flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
           float sc = dot[i] * scale;
           if (kInt8) sc = sc * ksc_s[j];
           p_s[r * CK + j] = (s < s_end && visible(s, qpos_s[r], (row0 + r) % T, tree_bits,
-                                                  ws, T, tree_words))
+                                                  ws, T, tree_words, kpos_b, window))
                                 ? sc : MASK_VAL;
         }
       }
@@ -302,7 +322,7 @@ flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
     for (int r = warp; r < R; r += kMaxThreads / 32) {
       const int s = c0 + lane;
       const bool valid = s < s_end && visible(s, qpos_s[r], (row0 + r) % T, tree_bits, ws,
-                                              T, tree_words);
+                                              T, tree_words, kpos_b, window);
       const float sc = p_s[r * CK + lane];
       float mx = sc;
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -460,6 +480,7 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
                        const float* __restrict__ vs, const Rows rows,
                        const int* __restrict__ qpos, const int* __restrict__ tree_bits,
                        const int* __restrict__ win_start, int tree_words,
+                       const int* __restrict__ kpos, int window,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int T, int Hq, int Hkv, int S,
                        int rows_per_block, float scale) {
@@ -478,7 +499,8 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
   const int R = min(rows_per_block, Rtot - row0);
   const int tiles = (R + 15) / 16;
   const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, b, T, S);
+  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, kpos, b, T, S);
+  const int* kpos_b = kpos != nullptr ? kpos + static_cast<int64_t>(b) * S : nullptr;
   const int s_begin = split * SPLIT;
   if (s_begin >= end) return;
   const int s_end = min(s_begin + SPLIT, end);
@@ -605,7 +627,7 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
         float x = sc[n][e] * scale;
         if (kInt8) x = x * ksc_s[cb + j];
         const bool ok = live[i] && s < s_end &&
-                        visible(s, qp[i], tt[i], tree_bits, ws, T, tree_words);
+                        visible(s, qp[i], tt[i], tree_bits, ws, T, tree_words, kpos_b, window);
         okbits |= static_cast<unsigned>(ok) << (4 * n + e);
         sc[n][e] = ok ? x : MASK_VAL;
         mx[i] = fmaxf(mx[i], sc[n][e]);
@@ -695,8 +717,8 @@ template <typename QT, int DH>
 __global__ void __launch_bounds__(32 * kMergeRows)
 flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, const int* __restrict__ qpos,
-                   const int* __restrict__ win_start, QT* __restrict__ out, int T,
-                   int Hq, int Hkv, int S, int nsplit) {
+                   const int* __restrict__ win_start, const int* __restrict__ kpos,
+                   QT* __restrict__ out, int T, int Hq, int Hkv, int S, int nsplit) {
   constexpr int DPL = (DH + 31) / 32;  // output dims per lane (the last may be partial)
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
   const int G = Hq / Hkv, R = G * T, lane = threadIdx.x & 31;
@@ -706,7 +728,7 @@ flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
   if (r >= R) return;
   const int g = r / T, t = r % T;
   const int64_t base = static_cast<int64_t>(bh) * nsplit * R + r;
-  const int live = live_splits(live_end(qpos, win_start, b, T, S), nsplit);
+  const int live = live_splits(live_end(qpos, win_start, kpos, b, T, S), nsplit);
   float m = MASK_VAL;
   for (int j = lane; j < live; j += 32) m = fmaxf(m, part_m[base + j * R]);
 #pragma unroll
@@ -739,7 +761,8 @@ flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
 struct Args {
   const void *q, *k, *v;
   const float *ks, *vs;
-  const int *qpos, *tree_bits, *win_start;
+  const int *qpos, *tree_bits, *win_start, *kpos;
+  int window;
   void* out;
   float *part_m, *part_l, *part_acc;
   int B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads;
@@ -770,23 +793,23 @@ int launch(const Args& a, const Rows rows) {
     split<<<grid, a.threads, a.smem, a.st>>>(
         static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
         static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
-        a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
-        a.rows_per_block, a.scale);
+        a.tree_words, a.kpos, a.window, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv,
+        a.S, a.rows_per_block, a.scale);
   } else {
     auto split = flash_split_f32_kernel<KVT, DH, Rows>;  // strides by kMaxThreads
     if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
     split<<<grid, kMaxThreads, a.smem, a.st>>>(
         static_cast<const float*>(a.q), static_cast<const KVT*>(a.k),
         static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
-        a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
-        a.rows_per_block, a.scale);
+        a.tree_words, a.kpos, a.window, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv,
+        a.S, a.rows_per_block, a.scale);
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   flash_merge_kernel<QT, DH>
       <<<dim3(a.B * a.Hkv, (R + kMergeRows - 1) / kMergeRows), 32 * kMergeRows, 0, a.st>>>(
           a.part_m, a.part_l, a.part_acc, a.qpos,
-          a.tree_bits != nullptr ? a.win_start : nullptr, static_cast<QT*>(a.out), a.T,
-          a.Hq, a.Hkv, a.S, a.nsplit);
+          a.tree_bits != nullptr ? a.win_start : nullptr, a.kpos, static_cast<QT*>(a.out),
+          a.T, a.Hq, a.Hkv, a.S, a.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -822,7 +845,9 @@ int launch_types(int q_is_bf16, int kv_int8, int dh, const Args& a, const Rows r
 // q's type, or int8 (kv_int8 != 0), 16-byte aligned, with ks, vs: (B, S, Hkv)
 // f32; qpos: (B, T) int32; out: (B, T, Hq, dh) of q's type.  A tree window
 // passes tree_bits: (T, tree_words) int32 ancestor-or-self bit words and
-// win_start: (B,) int32; a chain passes null for both.  part_m, part_l:
+// win_start: (B,) int32; a chain passes null for both.  A ring passes kpos:
+// (B, S) int32 slot positions and window > 0 (no tree); else null and 0.
+// part_m, part_l:
 // (B*Hkv*nsplit*R) f32 and part_acc: (B*Hkv*nsplit*R*dh) f32 scratch,
 // R = (Hq/Hkv)*T, nsplit = ceil(S / 128).  rows_per_block, threads, smem:
 // the launch plan of kernels/flash_decode.py:launch_plan (query rows per
@@ -831,16 +856,17 @@ int launch_types(int q_is_bf16, int kv_int8, int dh, const Args& a, const Rows r
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const float* ks, const float* vs,
                                    const int* qpos, const int* tree_bits,
-                                   const int* win_start, int tree_words, void* out,
+                                   const int* win_start, int tree_words, const int* kpos,
+                                   int window, void* out,
                                    float* part_m, float* part_l, float* part_acc,
                                    int B, int T, int Hq, int Hkv, int S, int dh,
                                    int q_is_bf16, int kv_int8, int nsplit,
                                    int rows_per_block, int threads, long long smem,
                                    float scale, void* stream) {
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, out, part_m, part_l,
-               part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads,
-               static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, kpos, window, out, part_m,
+               part_l, part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block,
+               threads, static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, ContigRows{S});
 }
 
@@ -860,9 +886,9 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
                                          void* stream) {
   const int S = nb * bs;
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, out, part_m, part_l,
-               part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads,
-               static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, nullptr, 0, out, part_m,
+               part_l, part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block,
+               threads, static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, PagedRows{bt, nb, bs});
 }
 

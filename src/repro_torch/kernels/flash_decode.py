@@ -13,6 +13,15 @@ the mask as bit words (``tree_bits``, ⌈T/32⌉ int32 per node), which
 ``core/tree.TreeTemplate`` builds once per device; a caller without them
 gets them made from ``tree_mask``.
 
+A **ring** cache (the sliding window, ``models/attention.py``) passes
+``kpos`` (B, S) int32, each slot's absolute position, and ``window``: key
+``s`` of row ``b`` is visible to the query at position ``p`` iff
+``0 <= p - kpos[b, s] < window`` (an unwritten slot holds ``-2^30``, so
+``p - kpos`` is at least 2^30 and the slot is masked).  The reference
+reads a ring through plain jnp, not its Pallas kernel; the port reads it
+here so that on the card a row's bits depend on neither T nor B.  Token
+trees do not compose with a ring (the reference refuses them).
+
 ``flash_decode`` checks its inputs, then runs the plain version for CPU
 tensors and the CUDA kernel (``csrc/flash_decode.cu``) for CUDA tensors.
 Both accumulate in f32 but sum in different orders, so they agree to f32
@@ -58,9 +67,14 @@ def tree_override(valid, kpos, tree_mask, win_start) -> torch.Tensor:
     return torch.where(in_win[:, None, :], anc, valid)
 
 
-def visible(qpos, S: int, tree_mask=None, win_start=None) -> torch.Tensor:
+def visible(qpos, S: int, tree_mask=None, win_start=None, kpos=None,
+            window=None) -> torch.Tensor:
     """(B, T, S) bool: slot ``s`` is visible to query row ``t`` (position
-    causality; the ancestor mask over a tree window's slots)."""
+    causality; the ancestor mask over a tree window's slots; over a ring,
+    ``0 <= qpos - kpos < window``)."""
+    if kpos is not None:
+        d = qpos[:, :, None] - kpos[:, None, :]
+        return (d >= 0) & (d < window)
     kpos = torch.arange(S, device=qpos.device)
     valid = kpos[None, None, :] <= qpos[:, :, None]
     if tree_mask is not None:
@@ -80,7 +94,7 @@ def tree_mask_bits(tree_mask: torch.Tensor) -> torch.Tensor:
 
 
 def flash_decode_ref(q, k, v, qpos, k_scale=None, v_scale=None, tree_mask=None,
-                     win_start=None):
+                     win_start=None, kpos=None, window=None):
     """Plain version, in the kernel's order of operations (flash_decode.py
     :100-114 of the reference) over one block holding the whole cache."""
     B, T, Hq, dh = q.shape
@@ -90,7 +104,7 @@ def flash_decode_ref(q, k, v, qpos, k_scale=None, v_scale=None, tree_mask=None,
     s = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) * (dh ** -0.5)
     if k_scale is not None:
         s = s * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
-    valid = visible(qpos, S, tree_mask, win_start)[:, None, None]    # (B,1,1,T,S)
+    valid = visible(qpos, S, tree_mask, win_start, kpos, window)[:, None, None]  # (B,1,1,T,S)
     s = torch.where(valid, s, MASK_VAL)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
@@ -112,7 +126,7 @@ def flash_decode_paged_ref(q, k, v, bt, qpos, k_scale=None, v_scale=None,
 
 
 def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
-           paged: bool = False) -> None:
+           paged: bool = False, kpos=None, window=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_decode: need q (B,T,Hq,dh) and k, v (B,S,Hkv,dh) "
                          f"or pools (N,bs,Hkv,dh), got {tuple(q.shape)}, "
@@ -156,8 +170,18 @@ def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
                              f"int32, got {tuple(tree_bits.shape)} {tree_bits.dtype}")
     elif tree_bits is not None:
         raise ValueError("flash_decode: tree_bits is only read with tree_mask")
+    if (kpos is None) != (window is None):
+        raise ValueError("flash_decode: kpos and window must be passed together")
+    if kpos is not None:
+        if tree_mask is not None:
+            raise ValueError("flash_decode: a ring (kpos) takes no token-tree window")
+        if kpos.shape != (B, k.shape[1]) or kpos.dtype != torch.int32:
+            raise ValueError(f"flash_decode: kpos must be ({B}, {k.shape[1]}) int32, got "
+                             f"{tuple(kpos.shape)} {kpos.dtype}")
+        if not 0 < int(window) < 2 ** 30:
+            raise ValueError(f"flash_decode: window must be in [1, 2^30), got {window}")
     tensors = [t for t in (q, k, v, qpos, k_scale, v_scale, tree_mask, win_start,
-                           tree_bits) if t is not None]
+                           tree_bits, kpos) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode: inputs must be contiguous")
     if len({t.device for t in tensors}) != 1:
@@ -228,10 +252,11 @@ def _check_table(q, k, bt) -> None:
 
 
 def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None,
-            count_as=None):
-    """Launch the split and merge kernels on contiguous K/V, or on pools
-    through the block table ``bt`` (logical length nb·bs); the launch is
-    counted under ``count_as`` when given (the cross-attention read)."""
+            count_as=None, kpos=None, window=None):
+    """Launch the split and merge kernels on contiguous K/V (a ring with
+    ``kpos``/``window``), or on pools through the block table ``bt``
+    (logical length nb·bs); the launch is counted under ``count_as`` when
+    given (the cross-attention read)."""
     B, T, Hq, dh = q.shape
     paged = bt is not None
     S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
@@ -265,28 +290,35 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
                  ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, dh, *tail)
     else:
         fn = ops.c_function("flash_decode", "flash_decode_launch",
-                            [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                            [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
+                                                     ctypes.c_int] + [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 6 + tail_types)
         err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
                  ops.ptr(qpos), ops.ptr(tree_bits), ops.ptr(win_start),
-                 -(-T // 32), ops.ptr(out), ops.ptr(part_m), ops.ptr(part_l),
-                 ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, *tail)
+                 -(-T // 32), ops.ptr(kpos), int(window or 0), ops.ptr(out), ops.ptr(part_m),
+                 ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, *tail)
     ops.check("flash_decode", err)
-    ops.LAUNCHES[count_as or
-                 "flash_decode" + "_paged" * paged + "_tree" * tree + "_int8" * int8] += 1
+    ring = kpos is not None
+    ops.LAUNCHES[count_as or "flash_decode" + "_paged" * paged + "_tree" * tree
+                 + "_ring" * ring + "_int8" * int8] += 1
     return out
 
 
 def flash_decode(q, k, v, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
-                 win_start=None, tree_bits=None):
+                 win_start=None, tree_bits=None, kpos=None, window=None):
     """q (B,T,Hq,dh), k/v (B,S,Hkv,dh) of q's dtype or int8 with k_scale /
     v_scale (B,S,Hkv) f32, qpos (B,T) int32 → (B,T,Hq,dh) in q's dtype.
     A token-tree window adds ``tree_mask`` (T,T) bool and ``win_start``
-    (B,) int32 (and optionally the mask's bit words ``tree_bits``)."""
-    _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits)
+    (B,) int32 (and optionally the mask's bit words ``tree_bits``); a ring
+    cache adds ``kpos`` (B,S) int32 and ``window`` (counted as
+    ``flash_decode_ring[_int8]``)."""
+    _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
+           kpos=kpos, window=window)
     return ops.dispatch(
-        q, lambda: flash_decode_ref(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start),
-        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits),
+        q, lambda: flash_decode_ref(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start,
+                                    kpos, window),
+        lambda: _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
+                        kpos=kpos, window=window),
         (k, v, k_scale, v_scale))
 
 

@@ -28,9 +28,8 @@ compile-only lowering, so this lowers and compiles nothing: the bytes come
 from the meta tensors and the roofline from a count over shapes
 (``launch/roofline.py``).  Executing a sharded step waits for a machine
 with more than one visible card.  ``long_500k`` switches the
-full-attention archs to a 4096-token sliding window, which needs the ring
-cache the port does not have: such a combo is reported as refused, with
-that reason, and is no failure.
+full-attention archs to a 4096-token sliding window: their state holds
+ring caches of ``4096 + RING_PAD`` slots, and their step reads those.
 """
 from __future__ import annotations
 
@@ -43,9 +42,6 @@ import types
 from repro_torch.launch import roofline as rf
 from repro_torch.launch import shapes as shp
 from repro_torch.launch import sharding as shd
-
-RING_CACHE = "needs the ring cache (not ported)"
-
 
 def card_mesh(cards: int):
     """The plan's mesh: only its axis sizes are read, so no device is
@@ -98,8 +94,7 @@ def serve_resident_bytes(cfg, verifier: str, batch: int, buf_len: int) -> dict:
 
 def combo(arch: str, shape_name: str, cards: int = 1, verifier: str = "w8a8",
           kv_cache: str = "bf16", gamma: int = 5) -> dict:
-    """One (arch × shape) row; raises only on a fault (a refused sliding
-    window is a row with ``status`` ``"refused"``)."""
+    """One (arch × shape) row; raises on a fault."""
     from repro_torch.configs import get_config
 
     return combo_cfg(get_config(arch), shape_name, cards, verifier, kv_cache, gamma)
@@ -119,8 +114,7 @@ def combo_cfg(cfg, shape_name: str, cards: int = 1, verifier: str = "w8a8",
                mesh=f"1x{cards}", verifier="bf16" if kind == "train" else verifier,
                kv_cache=kv_cache)
     if cfg.sliding_window:
-        return dict(row, status="refused",
-                    reason=f"{RING_CACHE}: sliding_window={cfg.sliding_window}")
+        row["sliding_window"] = cfg.sliding_window
     raw = rf.meta_params(cfg, "bf16")
     row["param_bytes"] = _nbytes(_unique(raw))
     if kind == "train":
@@ -152,8 +146,8 @@ def combo_cfg(cfg, shape_name: str, cards: int = 1, verifier: str = "w8a8",
             row["step_bound_ms"], row["bound_by"] = rf.step_bound_ms(
                 cfg, verifier, kv_cache, B, T, gamma + 1)
             row["kv_capacity_gbytes"] = rf.kv_cache_capacity_bytes(cfg, [T] * B, T) / 1e9
-            row["kv_capacity_paged_gbytes"] = rf.kv_cache_capacity_bytes(
-                cfg, [T] * B, T, layout="paged") / 1e9
+            row["kv_capacity_paged_gbytes"] = None if cfg.sliding_window else \
+                rf.kv_cache_capacity_bytes(cfg, [T] * B, T, layout="paged") / 1e9
         row["state_bytes"] = _nbytes(shd.tree_paths(state))
         per_card = _params_bytes(leaves, mesh) + shd.bytes_per_card(
             shd.tree_paths(state), state_specs, mesh)
@@ -165,8 +159,6 @@ def combo_cfg(cfg, shape_name: str, cards: int = 1, verifier: str = "w8a8",
 
 def _line(row: dict) -> str:
     tag = f"{row['arch']} × {row['shape']} × {row['mesh']}"
-    if row["status"] != "ok":
-        return f"[refused] {tag}: {row['reason']}"
     bound = (f" step_bound={row['step_bound_ms']:.3f}ms ({row['bound_by']})"
              if "step_bound_ms" in row else "")
     return (f"[ok] {tag}: {row['bytes_per_card'] / 1e9:.2f} GB/card "
@@ -178,7 +170,7 @@ def _line(row: dict) -> str:
 def run(archs, shape_names, cards: int = 1, verifier: str = "w8a8", kv_cache: str = "bf16",
         gamma: int = 5, log=print) -> tuple:
     """(rows, failures) over archs × shapes; a combo that raises is a
-    failure, a refused one a row."""
+    failure."""
     rows, failures = [], []
     for arch in archs:
         for shape_name in shape_names:
@@ -217,8 +209,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"rows": rows, "failures": failures}, f, indent=1)
         print(f"wrote {len(rows)} rows ({len(failures)} failures) -> {args.out}")
-    refused = sum(r["status"] != "ok" for r in rows)
-    print(f"\n{len(rows) - refused} ok / {refused} refused / {len(failures)} failed")
+    fits = sum(r["fits_card"] for r in rows)
+    print(f"\n{len(rows)} ok ({fits} fit one card) / {len(failures)} failed")
     return 1 if failures else 0
 
 

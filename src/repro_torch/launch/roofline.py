@@ -19,12 +19,13 @@ on one card.  Every byte is counted once, as the least the card must move:
   of the embedding table only the window's rows, unless the table is also
   the tied ``lm_head``; of an MoE layer's experts at most as many as the
   window's slots can reach), reads the KV cache up to the committed
-  context (:func:`kv_cache_read_bytes`), the cross caches and the SSM
-  states, and writes the window's K/V (and each window position's SSM
-  state, which the rollback commit keeps);
+  context (:func:`kv_cache_read_bytes`; under a sliding window at most the
+  ring's ``window + RING_PAD`` slots, :func:`kv_slots`), the cross caches
+  and the SSM states, and writes the window's K/V (and each window
+  position's SSM state, which the rollback commit keeps);
 * its operations are 2 × active params × B·(γ+1) (:func:`model_flops_decode`)
   — in int8 for the quantized linears, bf16 for the rest — plus the
-  attention's 4·Hq·dh per query token and visible key, in bf16.
+  attention's 4·Hq·dh per query token and key read, in bf16.
 
 Hardware model (NVIDIA H100 SXM data sheet, dense rates at the 700 W
 limit): 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s f32 outside the
@@ -77,28 +78,47 @@ def kv_bytes_per_token(cfg, kv_cache_dtype: str = None) -> float:
     return per_token
 
 
+def kv_slots(cfg, context: int) -> int:
+    """Cache slots a decode/verify step reads at ``context`` committed
+    tokens: all of them, or under a sliding window at most the ring's
+    ``window + RING_PAD`` (the ring kernel reads every slot of a wrapped
+    ring, masked or not)."""
+    if not cfg.sliding_window:
+        return context
+    from repro_torch.models.attention import RING_PAD
+
+    return min(context, cfg.sliding_window + RING_PAD)
+
+
 def kv_cache_read_bytes(cfg, batch: int, context: int, kv_cache_dtype: str = None) -> float:
     """HBM bytes to stream the KV cache once for a decode/verify step at
-    ``context`` committed tokens."""
+    ``context`` committed tokens (:func:`kv_slots` of them)."""
     per_token = kv_bytes_per_token(cfg, kv_cache_dtype)
-    return float(batch) * float(context) * attn_layer_count(cfg) * per_token
+    return float(batch) * float(kv_slots(cfg, context)) * attn_layer_count(cfg) * per_token
 
 
 def kv_cache_capacity_bytes(cfg, request_tokens, max_len: int, kv_cache_dtype: str = None,
                             layout: str = "contiguous", block_size: int = None,
                             shared_prefix_tokens: int = 0) -> float:
     """HBM *footprint* of the serving group's KV cache: ``contiguous``
-    charges every slot ``max_len`` rows; ``paged`` charges each request its
-    own demand rounded up to ``block_size``, one scratch block and the
-    int32 block tables, and stores a shared prompt prefix's full blocks once
-    (``core/paged_cache.PrefixIndex``)."""
+    charges every slot ``max_len`` rows (under a sliding window the ring's
+    ``min(window, max_len) + RING_PAD``); ``paged`` (which refuses a window)
+    charges each request its own demand rounded up to ``block_size``, one
+    scratch block and the int32 block tables, and stores a shared prompt
+    prefix's full blocks once (``core/paged_cache.PrefixIndex``)."""
     from repro_torch.core.paged_cache import DEFAULT_BLOCK_SIZE, blocks_for_tokens
 
     per_token = kv_bytes_per_token(cfg, kv_cache_dtype)
     layers = attn_layer_count(cfg)
     n = len(request_tokens)
     if layout == "contiguous":
+        if cfg.sliding_window:
+            from repro_torch.models.attention import RING_PAD
+
+            max_len = min(cfg.sliding_window, max_len) + RING_PAD
         return float(n) * float(max_len) * layers * per_token
+    if cfg.sliding_window:
+        raise ValueError("kv_layout='paged' does not compose with sliding-window (ring) caches")
     if layout != "paged":
         raise ValueError(f"unknown kv layout {layout!r}")
     bs = DEFAULT_BLOCK_SIZE if block_size is None else block_size
@@ -294,7 +314,8 @@ def step_counts(cfg, verifier: str, kv_cache_dtype: str, batch: int, context: in
               + _recurrent_bytes(cfg, batch, window))
     mflops = model_flops_decode(cfg, tokens)
     coll = _all_reduce(w.row_out, tokens, cards)
-    return Roofline(flops=mflops + _attn_flops(cfg, tokens, context), bytes_accessed=nbytes,
+    return Roofline(flops=mflops + _attn_flops(cfg, tokens, kv_slots(cfg, context)),
+                    bytes_accessed=nbytes,
                     coll_bytes=sum(coll.values()), coll_breakdown=coll, chips=cards,
                     model_flops=mflops, kv_bytes=kv, int8_flops=2.0 * w.int8_params * tokens)
 

@@ -3,9 +3,9 @@ of ``repro/launch/shapes.py``.
 
 Decode shapes are one speculative iteration (γ+1-token verify window)
 against a KV cache of ``seq_len``.  ``long_500k`` switches full-attention
-archs to the sliding-window variant (window 4096); SSM archs need nothing.
-The port has no sliding-window (ring) cache, so ``Model`` refuses such a
-config, and the dry-run reports the combo as needing it.
+archs to the sliding-window variant (window 4096), whose caches are rings
+of 4096 + ``RING_PAD`` slots (``models/attention.py``); SSM archs need
+nothing.
 
 Everything here returns ``torch.empty(..., device="meta")`` stand-ins for
 the reference's ``jax.ShapeDtypeStruct``: shapes and dtypes, nothing

@@ -1,5 +1,5 @@
-"""GQA self-attention with a contiguous KV cache, and cross-attention —
-port of the contiguous, non-ring path of ``repro/models/attention.py``.
+"""GQA self-attention with a contiguous or ring KV cache, and
+cross-attention — port of ``repro/models/attention.py``.
 
 Modes: **prefill** (``read_cache=False``) writes K/V into the cache and
 attends over the chunk's own keys; **decode / verify** writes a T-token
@@ -18,6 +18,19 @@ Cache layout per layer: ``{"k","v": (B, S, Hkv, dh)}``, plus
 Unlike the reference's functional update, :func:`write_cache` writes the
 cache tensors **in place** (one buffer per layer instead of a copy per
 step) and returns the same dict.
+
+**Ring cache** (``sliding_window`` set): the same buffers with
+``S = min(window, max_len) + RING_PAD`` slots, plus ``"kpos": (B, S)``
+int32, each slot's absolute position (``NEG_POS`` while unwritten).
+Position ``p`` lives in slot ``p % S``; a prefill of ``T >= S`` tokens
+keeps only its last S rows.  Key ``s`` is visible to a query at position
+``p`` iff ``0 <= p - kpos[s] < window``.  ``RING_PAD`` exceeds any verify
+window (γ + 1), so a window never evicts a key a later query still needs,
+and a rejected window's rows hold future positions, masked until
+rewritten.  The read goes to the ``flash_decode`` wrapper with ``kpos``
+and ``window`` (:func:`ring_attend`): the reference reads a ring through
+plain jnp, but on the card the plain path's bits follow the row count,
+and the kernel's do not.
 
 **Cross-attention** (:class:`CrossAttention`; llama-3.2-vision's cross
 layers, whisper's decoder): K/V come from the image or encoder embeddings
@@ -52,22 +65,29 @@ from repro_torch.models.common import apply_rope
 from repro_torch.models.ffn import apply_linear
 from repro_torch.models.linear import Linear
 
+RING_PAD = 128          # > γ_max; also keeps buffer sizes 128-aligned
+NEG_POS = -(2 ** 30)    # "invalid slot" position marker
 MASK_VAL = -1e30
 CHUNK_THRESHOLD = 4096  # use the online-softmax path beyond this many keys
 KV_CHUNK = 1024
 
 
-def init_attn_cache(cfg, batch: int, max_len: int, device) -> dict:
-    """Zeroed cache buffers.  Zeros, never uninitialised memory: masked
-    slots still enter p·V with p = 0, and 0·NaN = NaN."""
+def init_attn_cache(cfg, batch: int, max_len: int, device, window=None) -> dict:
+    """Zeroed cache buffers (a ring of ``min(window, max_len) + RING_PAD``
+    slots with its ``kpos`` at ``NEG_POS`` under a ``window``).  Zeros,
+    never uninitialised memory: masked slots still enter p·V with p = 0,
+    and 0·NaN = NaN."""
     int8 = cfg.kv_cache_dtype == "int8"
     dt = torch.int8 if int8 else cfg.dtype
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    S = min(window + RING_PAD, max_len + RING_PAD) if window is not None else max_len
+    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
     if int8:
         cache["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
         cache["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    if window is not None:
+        cache["kpos"] = torch.full((batch, S), NEG_POS, dtype=torch.int32, device=device)
     return cache
 
 
@@ -75,17 +95,20 @@ def init_attn_cache(cfg, batch: int, max_len: int, device) -> dict:
 # Core attend: q (B,T,Hq,dh) over k/v (B,S,Hkv,dh) with a position mask
 # ---------------------------------------------------------------------------
 
-def _mask(qpos, kpos, tree_mask=None, win_start=None, causal: bool = True):
+def _mask(qpos, kpos, tree_mask=None, win_start=None, causal: bool = True, window=None):
     """Causal position mask: qpos (B,T); kpos (B,S) or (S,) → (B,1,1,T,S)
-    bool, key visible iff kpos <= qpos (``causal=False``: iff kpos >= 0,
-    every real slot).  With a token-tree window the slots
-    [win_start, win_start + T) hold the window's nodes in packed order, and
-    there the ancestor-or-self ``tree_mask`` (T, T) decides instead;
-    slots past the window stay masked by position."""
+    bool, key visible iff 0 <= qpos - kpos (< ``window`` when given;
+    ``causal=False``: iff kpos >= 0, every real slot).  With a token-tree
+    window the slots [win_start, win_start + T) hold the window's nodes in
+    packed order, and there the ancestor-or-self ``tree_mask`` (T, T)
+    decides instead; slots past the window stay masked by position."""
     if kpos.dim() == 1:
         kpos = kpos[None, :]
     if causal:
-        valid = (qpos[:, :, None] - kpos[:, None, :]) >= 0
+        d = qpos[:, :, None] - kpos[:, None, :]
+        valid = d >= 0
+        if window is not None:
+            valid &= d < window
     else:
         valid = (kpos[:, None, :] >= 0).expand(qpos.shape[0], qpos.shape[1], kpos.shape[-1])
     if tree_mask is not None:
@@ -148,17 +171,19 @@ def _flash_eligible(kpos, causal: bool = True) -> bool:
     return causal and kpos.dim() == 1
 
 
-def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
+def attend(q, k, v, qpos, kpos, *, window=None, k_scale=None, v_scale=None, tree_mask=None,
            win_start=None, tree_bits=None, plain: bool = False, causal: bool = True):
     """Position-masked attention (tree-masked over a token-tree window;
-    every key visible with ``causal=False``).  Flash-eligible calls go to
-    the ``flash_decode`` wrapper; the others — and every call with
-    ``plain=True``, the reference's ``impl="jnp"`` — run the plain path."""
-    if not plain and _flash_eligible(kpos, causal):
+    every key visible with ``causal=False``; keys at most ``window - 1``
+    positions back with a ``window``).  Flash-eligible calls go to the
+    ``flash_decode`` wrapper; the others — and every call with
+    ``plain=True``, the reference's ``impl="jnp"`` — run the plain path
+    (a ring read goes to the wrapper through :func:`ring_attend`)."""
+    if not plain and window is None and _flash_eligible(kpos, causal):
         return flash_decode(q, k, v, qpos, k_scale=k_scale, v_scale=v_scale,
                             tree_mask=tree_mask, win_start=win_start,
                             tree_bits=tree_bits)
-    valid = _mask(qpos, kpos, tree_mask, win_start, causal)
+    valid = _mask(qpos, kpos, tree_mask, win_start, causal, window)
     S = k.shape[1]
     if S > CHUNK_THRESHOLD:
         pad = (-S) % KV_CHUNK
@@ -171,6 +196,22 @@ def attend(q, k, v, qpos, kpos, *, k_scale=None, v_scale=None, tree_mask=None,
                 v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
         return _attend_chunked(q, k, v, valid, k_scale, v_scale)
     return _attend_direct(q, k, v, valid, k_scale, v_scale)
+
+
+def ring_attend(q, cache: dict, qpos, window: int, plain: bool = False):
+    """q (B,T,Hq,dh) over a ring cache layer (``k``/``v`` and their int8
+    scales, ``kpos`` (B,S) the slots' positions): key ``s`` visible iff
+    ``0 <= qpos - kpos[s] < window``.  The ``flash_decode`` wrapper with
+    ``kpos``: its ring variant on the card, whose rows do not depend on T
+    or B, its plain version on the CPU.  ``plain=True`` (the ``jnp``
+    attention impl, chunked prefill) runs the plain attention path, as the
+    reference does for every ring read."""
+    kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    if plain:
+        return attend(q, cache["k"], cache["v"], qpos, cache["kpos"], window=window,
+                      plain=True, **kw)
+    return flash_decode(q, cache["k"], cache["v"], qpos, kpos=cache["kpos"], window=window,
+                        **kw)
 
 
 def cross_attend(q, k, v, plain: bool = False):
@@ -226,8 +267,18 @@ def _quant_kv(x):
 
 def write_cache(cache: dict, k, v, slots) -> dict:
     """Scatter T new K/V rows into the cache at per-row slots (the absolute
-    positions, or a tree window's packed slots), in place."""
+    positions, or a tree window's packed slots), in place.  A ring cache
+    (``kpos``) takes position ``p`` at slot ``p % S`` and records ``p`` in
+    ``kpos``; a prefill of ``T >= S`` rows keeps only its last S, cut
+    before the scatter (repeated indices of one in-place write land in no
+    fixed order on the card)."""
     bidx = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    if "kpos" in cache:
+        S = cache["k"].shape[1]
+        if slots.shape[1] >= S:      # a long prefill wraps the ring
+            k, v, slots = k[:, -S:], v[:, -S:], slots[:, -S:]
+        pos, slots = slots, slots.long() % S
+        cache["kpos"][bidx, slots] = pos.to(torch.int32)
     slots = slots.long()
     if cache["k"].dtype == torch.int8:
         k, ks = _quant_kv(k)
@@ -315,8 +366,11 @@ class Attention(nn.Module):
         (B, nb) int32 makes ``cache`` a paged layer pool.  ``plain_attn``
         reads the cache through the plain path (chunked prefill).
         ``causal=False`` (the encoder, no cache) lets every position see
-        every other."""
+        every other; ``cfg.sliding_window`` limits every causal read to
+        that many positions back (a ring cache's read, prefill's and the
+        no-cache forward's)."""
         cfg = self.cfg
+        window = cfg.sliding_window if causal else None
         B, T, _ = x.shape
         q = apply_linear(self.q, x, collect, f"{path}/q").reshape(B, T, cfg.num_heads, cfg.head_dim)
         k = apply_linear(self.k, x, collect, f"{path}/k").reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -335,16 +389,21 @@ class Attention(nn.Module):
                                       cfg.moe_capacity_factor < cfg.num_experts)
             o = attend_paged(q, cache, block_tables, qpos, plain=plain_attn, **masks)
         elif cache is not None:
+            if "kpos" in cache and tree:
+                raise ValueError("a ring cache cannot hold a token tree's sibling nodes "
+                                 "at one position")
             cache = write_cache(cache, k, v, slots)
-            if read_cache:
+            if read_cache and "kpos" in cache:
+                o = ring_attend(q, cache, qpos, window, plain=plain_attn)
+            elif read_cache:
                 kpos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
                 o = attend(q, cache["k"], cache["v"], qpos, kpos,
                            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                            plain=plain_attn, **masks)
             else:
-                o = attend(q, k, v, qpos, qpos)
+                o = attend(q, k, v, qpos, qpos, window=window)
         else:
-            o = attend(q, k, v, qpos, qpos, causal=causal)
+            o = attend(q, k, v, qpos, qpos, causal=causal, window=window)
         out = apply_linear(self.o, o.reshape(B, T, cfg.q_dim), collect, f"{path}/o")
         return out, cache
 

@@ -76,7 +76,8 @@ def row_mean(x32: torch.Tensor) -> torch.Tensor:
 
 
 def fixed_rows_matmul(x32: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
-    """(n, D) f32 × (D, E) f32 → (n, E).  On the card in zero-padded
+    """(n, D) × (D, E) of one dtype (f32; bf16 for ``models/linear.Linear``)
+    → (n, E).  On the card in zero-padded
     chunks of ``rows`` rows, each the same GEMM shape, so a row's result
     depends neither on n nor on where the row sits (cuBLAS picks its kernel,
     and with it the reduction order, from M); the CPU takes one product."""

@@ -2,6 +2,14 @@
 port of ``repro/models/linear.py``.
 
 * :class:`Linear` — ``w`` (din, dout) in the model dtype [+ ``b`` (dout,)].
+  On the card a call of at most ``WINDOW_ROWS`` rows (every decode and
+  verify window) runs as zero-padded GEMMs of ``FIXED_ROWS`` rows each:
+  cuBLAS picks its kernel, and with it the sum order, from the row count
+  (a row of a 12-row call at (4096, 4096) differed from the same row in a
+  2-row call), so a row's bits then depend on neither the window nor the
+  batch.  One shape for every window would be 256 rows, which made the 7B
+  bf16 step compute-bound (+3 ms); 32-row chunks cost a chain window
+  nothing and read the weights once per 32 rows of a wider one.
 * :class:`W8A8Linear` — what ``repro_torch.quant.apply.quantize_params``
   produces offline (paper §3.3): ``w_int8`` (dout, din) int8, ``w_scale``
   (dout,) f32, ``smooth`` (din,) f32 [+ ``b``].  The int8 weight is stored
@@ -30,7 +38,10 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, fixed_rows_matmul
+
+FIXED_ROWS = 32    # rows of each GEMM of a bf16 linear's window on the card
+WINDOW_ROWS = 256  # calls up to this many rows (decode and verify) take them
 
 
 class Linear(nn.Module):
@@ -45,7 +56,12 @@ class Linear(nn.Module):
         return cls(dense_init(generator, (d_in, d_out), dtype, device), b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w.to(x.dtype)
+        w = self.w.to(x.dtype)
+        rows = x.numel() // x.shape[-1]
+        if x.device.type == "cuda" and 0 < rows <= WINDOW_ROWS:
+            y = fixed_rows_matmul(x.reshape(rows, -1), w, FIXED_ROWS).view(*x.shape[:-1], -1)
+        else:
+            y = x @ w
         return y + self.b.to(y.dtype) if self.b is not None else y
 
 

@@ -25,6 +25,11 @@ none.
 zamba2 (``hybrid``) applies one shared attention+FFN block (a single
 parameter set) after every ``attn_every``-th SSM layer, each application
 with its own KV cache in the cache's ``"shared"`` list.
+
+Under ``sliding_window`` every self-attention cache (dense, MoE, whisper's
+``"self"``, zamba2's ``"shared"``) is a ring (``models/attention.py``),
+and every causal self-attention, the no-cache forward's included, sees at
+most that many positions back.
 """
 from __future__ import annotations
 
@@ -36,8 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.paged_cache import physical_slots
-from repro_torch.models.attention import (Attention, CrossAttention, init_attn_cache,
-                                          init_cross_cache)
+from repro_torch.models.attention import (NEG_POS, Attention, CrossAttention,
+                                          init_attn_cache, init_cross_cache)
 from repro_torch.models.common import Norm, embed_init, fixed_rows_matmul
 from repro_torch.models.ffn import FFN, apply_linear
 from repro_torch.models.linear import Linear
@@ -95,10 +100,6 @@ ATTN_IMPLS = ("auto", "jnp", "pallas")
 def check_supported(cfg) -> None:
     if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
         raise NotImplementedError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name} (window={cfg.sliding_window}) needs a sliding-window (ring) "
-            "cache, which no configuration of the reference sets and the port does not have")
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
 
@@ -467,10 +468,13 @@ def init_cache(cfg, batch: int, max_len: int, device,
     audio layer's ``{"self", "ck", "cv"}`` per layer, and for a hybrid
     decoder one attention cache per shared-block application among them
     (``"shared"``).  ``max_len`` is rounded up so the chunked attention path
-    (multiples of 1024) always applies to big buffers."""
+    (multiples of 1024) always applies to big buffers; under a
+    ``sliding_window`` each attention cache is then a ring of
+    ``min(window, max_len) + RING_PAD`` slots."""
     check_supported(cfg)
     max_len = -(-max_len // 1024) * 1024 if max_len > 4096 else -(-max_len // 128) * 128
     kinds = layer_kinds(cfg)[:num_layers or cfg.num_layers]
+    w = cfg.sliding_window
 
     def layer(kind):
         if kind == "ssm":
@@ -478,15 +482,31 @@ def init_cache(cfg, batch: int, max_len: int, device,
         if kind == "cross":
             return init_cross_cache(cfg, batch, cfg.num_image_tokens, device)
         if kind == "audio":
-            return {"self": init_attn_cache(cfg, batch, max_len, device),
+            return {"self": init_attn_cache(cfg, batch, max_len, device, w),
                     **init_cross_cache(cfg, batch, cfg.num_audio_frames, device)}
-        return init_attn_cache(cfg, batch, max_len, device)
+        return init_attn_cache(cfg, batch, max_len, device, w)
 
     cache = {"layers": [layer(kind) for kind in kinds]}
     shared = [i for i in shared_attn_positions(cfg) if num_layers is None or i < num_layers]
     if shared:
-        cache["shared"] = [init_attn_cache(cfg, batch, max_len, device) for _ in shared]
+        cache["shared"] = [init_attn_cache(cfg, batch, max_len, device, w) for _ in shared]
     return cache
+
+
+def reset_cache(tree: dict) -> None:
+    """Empty a cache (or rows of it, :func:`cache_rows`) in place, as a
+    fresh :func:`init_cache` holds it: every buffer zero, a ring's ``kpos``
+    at ``NEG_POS``."""
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            reset_cache(t)
+        elif isinstance(t, list):
+            for layer in t:
+                reset_cache(layer)
+        elif name == "kpos":
+            t.fill_(NEG_POS)
+        else:
+            t.zero_()
 
 
 def self_kv(layer: dict) -> Optional[dict]:

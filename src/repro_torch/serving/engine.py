@@ -74,7 +74,7 @@ from repro_torch.core.paged_cache import (
 )
 from repro_torch.core.protocols import get_drafter, get_verifier
 from repro_torch.core.spec_engine import init_state, make_decode_step
-from repro_torch.models.transformer import cache_rows, self_kv
+from repro_torch.models.transformer import cache_rows, reset_cache, self_kv
 from repro_torch.serving.faults import NULL_FAULTS, InjectedFault, RequestFault
 from repro_torch.serving.graphs import StepPrograms
 from repro_torch.serving.metrics import AcceptanceStats
@@ -396,8 +396,7 @@ class SpecEngine:
             row_cache = self.model.init_cache(1, buf)
         else:          # the state's own row, as views that write through
             row_cache = cache_rows(state["cache"], row)
-            for t in _tensors(row_cache):
-                t.zero_()
+            reset_cache(row_cache)
         if paged and shared_rows > 0 and self.model.cfg.kv_cache_dtype != "int8":
             c = int(shared_rows)
             idx = torch.as_tensor(pool.owned(rid)[:int(shared_blocks)], device=dev)
@@ -694,7 +693,8 @@ class StepSnapshot:
     the rows' generator states; :meth:`restore` writes them back (all rows,
     or some).  The KV a step writes is positional: the window's rows
     ``[length - 1, length - 1 + window)`` of the verifier cache (contiguous
-    or through the block table) and of a drafter cache (``"layers"``),
+    or through the block table; a ring's at those positions modulo its
+    size, its ``kpos`` with them) and of a drafter cache (``"layers"``),
     which no committed token owns, so a rerun from restored registers
     rewrites the same places.  :meth:`take_window` keeps those rows too,
     until the next one (only on the guardrail's fallback path, where the
@@ -757,8 +757,9 @@ class StepSnapshot:
                     if bt is not None:
                         flat = t.view((-1,) + tuple(t.shape[2:]))
                         out.append((flat, (physical_slots(bt, slots, t.shape[1]),)))
-                    else:
-                        pos = slots.clamp(max=t.shape[1] - 1)
+                    else:                    # a ring holds position p at slot p % S
+                        S = t.shape[1]
+                        pos = slots % S if "kpos" in kv else slots.clamp(max=S - 1)
                         rows = torch.arange(B, device=pos.device)[:, None].expand_as(pos)
                         out.append((t, (rows, pos)))
         return out

@@ -23,7 +23,10 @@ batch), the gated norm's and the tied logits' rows against the row count,
 and the SSM and hybrid decode steps through graphs; the cross-attention
 read's rows against the window and the batch at llama-3.2-vision's and
 whisper's shapes, head size 160 (stablelm-12b) through every variant, and
-the vision and whisper decode steps through graphs; training: the
+the vision and whisper decode steps through graphs; the ring variant of
+``flash_decode`` (the sliding window) over a wrapped ring at every head
+size a windowed family reaches, its rows against the window and the batch,
+and a windowed decode step through graphs; training: the
 gradients of ``ssd_update`` and of the cross read against their plain
 versions', the other wrappers' refusal of a gradient, a bf16 train step,
 a bf16 checkpoint written and read on the card, and a trained checkpoint
@@ -366,19 +369,21 @@ def test_fused_norm_path_equals_plain_path_on_card(dev, verifier, monkeypatch):
     assert torch.equal(fused, plain)
 
 
-@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 12288), (12288, 4096)])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)])
 def test_bf16_linear_row_does_not_depend_on_m_on_card(dev, k, n):
     """The bf16 verifier's linear (``models/linear.Linear``): a row of a
-    4-row call (vanilla's step) equals the same row in 24- and 88-row calls
-    (the chain and tree windows), so greedy spec tokens can equal
-    vanilla's with the bf16 verifier too."""
+    4-row call (vanilla's step) equals the same row in 12-, 24- and 88-row
+    calls (the chain window at B 2 and 4, the tree window), so greedy spec
+    tokens can equal vanilla's with the bf16 verifier too (at M 12 cuBLAS
+    took another kernel for (4096, 4096) and (4096, 1024) before every
+    call ran one padded shape)."""
     from repro_torch.models.linear import Linear
 
     g = _gen(dev, k + n)
     lin = Linear((torch.randn(k, n, generator=g, device=dev) * k ** -0.5).to(torch.bfloat16))
     x = torch.randn(88, k, generator=g, device=dev).to(torch.bfloat16)
     four = lin(x[:4])
-    for m in (24, 88):
+    for m in (12, 24, 88):
         assert torch.equal(lin(x[:m])[:4], four), m
     assert torch.equal(lin(x[:24].view(4, 6, k))[:, 0], lin(x[:24:6])), "(B, T, K)"
 
@@ -607,6 +612,116 @@ def test_flash_decode_dh160_rows_do_not_depend_on_window_or_batch(dev, tree, int
         alone = flash_decode(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
                              v[b:b + 1].contiguous(), qpos[b:b + 1].contiguous(), **one)
         assert torch.equal(alone, full[b:b + 1])
+
+
+def _ring_attn(dev, b, t, window, hkv, g, dh, dtype, int8, seed, past=None):
+    """A ring of ``window + RING_PAD`` slots filled as the model's writes
+    leave it: a prefill of ``past`` tokens (by default 1.5 rings: the T >= S
+    write), then the query window's own K/V at its positions.  Returns (q,
+    cache, qpos)."""
+    import types
+
+    from repro_torch.models.attention import RING_PAD, init_attn_cache, write_cache
+
+    gen = _gen(dev, seed)
+    cfg = types.SimpleNamespace(num_kv_heads=hkv, head_dim=dh, dtype=dtype,
+                                kv_cache_dtype="int8" if int8 else "bf16")
+    cache = init_attn_cache(cfg, b, window, dev, window)
+    S = window + RING_PAD
+    past = past if past is not None else S + S // 2
+    for start, n in ((0, past), (past, t)):
+        k = torch.randn(b, n, hkv, dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, n, hkv, dh, generator=gen, device=dev).to(dtype)
+        pos = (start + torch.arange(n, device=dev)).to(torch.int32).expand(b, n)
+        write_cache(cache, k, v, pos.contiguous())
+    q = torch.randn(b, t, hkv * g, dh, generator=gen, device=dev).to(dtype)
+    qpos = (past + torch.arange(t, device=dev)).to(torch.int32).expand(b, t).contiguous()
+    return q, cache, qpos
+
+
+def _ring_kw(cache, window):
+    return dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                kpos=cache["kpos"], window=window)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,window,hkv,g,dh", [
+    (2, 1, 8, 2, 2, 64),         # a ring of 136 slots: two splits, the last partial
+    (2, 6, 8, 2, 2, 64),
+    (4, 6, 4096, 8, 4, 128),     # quasar-paper-7b at long_500k's window (4224 slots)
+    (4, 1, 4096, 8, 4, 128),
+    (2, 6, 64, 32, 1, 80),       # zamba2's shared attention
+    (2, 6, 64, 8, 4, 160)])      # stablelm-12b
+def test_flash_decode_ring_matches_plain_on_card(dev, b, t, window, hkv, g, dh, dtype, int8):
+    """The ring variant (``kpos``/``window``) over a wrapped ring against
+    its plain version: every key at most ``window - 1`` positions back
+    visible, the rest (older keys, unwritten or future slots) masked."""
+    q, cache, qpos = _ring_attn(dev, b, t, window, hkv, g, dh, dtype, int8, seed=window + t)
+    kw = _ring_kw(cache, window)
+    ops.reset_launch_counts()
+    o = flash_decode(q, cache["k"], cache["v"], qpos, **kw)
+    assert ops.launch_counts() == {"flash_decode_ring" + "_int8" * int8: 1}
+    ro = flash_decode_ref(q, cache["k"], cache["v"], qpos, **kw)
+    assert o.dtype == dtype and bool(torch.isfinite(o).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7, atol=1e-5)
+    # the window matters: without it (every older key visible) the output moves
+    wide = flash_decode_ref(q, cache["k"], cache["v"], qpos, k_scale=kw["k_scale"],
+                            v_scale=kw["v_scale"], kpos=cache["kpos"], window=2 ** 29)
+    assert (wide.float() - ro.float()).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dh", [64, 80, 128, 160])
+def test_flash_decode_ring_rows_do_not_depend_on_window_or_batch(dev, dh, int8):
+    """Over a wrapped ring a row's bits are the same alone (T = 1 at its
+    position) as first in the verify window (T = 6), and alone (B = 1) as in
+    the batch of 4: every split is read whatever T, and the split layout
+    depends on S alone."""
+    q, cache, qpos = _ring_attn(dev, 4, 6, 4096, 8, 4, dh, torch.bfloat16, int8, seed=dh)
+    kw = _ring_kw(cache, 4096)
+    full = flash_decode(q, cache["k"], cache["v"], qpos, **kw)
+    first = flash_decode(q[:, :1].contiguous(), cache["k"], cache["v"],
+                         qpos[:, :1].contiguous(), **kw)
+    assert torch.equal(full[:, :1], first)
+    for b in range(4):
+        one = {n: (x[b:b + 1].contiguous() if isinstance(x, torch.Tensor) else x)
+               for n, x in kw.items()}
+        alone = flash_decode(q[b:b + 1].contiguous(), cache["k"][b:b + 1].contiguous(),
+                             cache["v"][b:b + 1].contiguous(), qpos[b:b + 1].contiguous(),
+                             **one)
+        assert torch.equal(alone, full[b:b + 1])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("verifier", ["w8a8", "bf16"])
+def test_ring_graph_replay_equals_eager_on_card(dev, verifier, kv):
+    """A windowed model (window 16, rings of 144 slots) on 180-token prompts:
+    ``generate`` through captured steps gives the eager steps' tokens and
+    launches, the ring read launched at every step; greedy ngram ≡ vanilla
+    (row invariance over the ring)."""
+    from repro_torch.core.config import SpecConfig
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), vocab_size=151936,
+                              kv_cache_dtype=kv, sliding_window=16)
+    model = Model(cfg, device=dev)
+    raw = model.init_params(_gen(dev, 3))
+    pat = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 7))
+    prompts = torch.from_numpy(np.tile(pat, 26)[:, :180].astype(np.int32)).to(dev)
+    toks = {}
+    for drafter in ("ngram", "vanilla"):
+        scfg = SpecConfig(temperature=0.0, verifier=verifier, **GRAPH_DRAFTERS[drafter])
+        out = _eager_and_graph(model, scfg, lambda eng: eng.generate(raw, prompts, 24))
+        (eager, n_eager, _), (graph, n_graph, g_eng) = out[False], out[True]
+        assert torch.equal(graph.tokens, eager.tokens) and not graph.bad.any()
+        ring = "flash_decode_ring" + "_int8" * (kv == "int8")
+        assert n_graph == n_eager and n_graph[ring] >= graph.steps * cfg.num_layers
+        assert g_eng._programs.captures == 1
+        toks[drafter] = graph.tokens[:, :180 + 24]
+    assert torch.equal(toks["ngram"], toks["vanilla"])
 
 
 @pytest.mark.parametrize("hq,hkv,sa,dh", [(64, 8, 1600, 128),    # llama-3.2-vision
@@ -1853,6 +1968,9 @@ def test_guarded_wrappers_raise_under_grad_on_card(dev):
             xq.view(2, 2, 64), we, need(dx).view(2, 2), dwe),
         "int4_matmul": lambda: int4_matmul(xq, w4, dx, need(dw)),
         "flash_decode": lambda: flash_decode(need(q), kv, kv, qpos),
+        "flash_decode_ring": lambda: flash_decode(
+            need(q), kv, kv, qpos, kpos=torch.arange(128, dtype=torch.int32,
+                                                     device=dev)[None].contiguous(), window=64),
         "flash_decode_paged": lambda: flash_decode_paged(q, need(pool), pool, bt, qpos),
     }
     for name, call in calls.items():

@@ -151,13 +151,16 @@ def test_registry_holds_every_reference_config():
 
 
 def test_check_supported_refuses_only_sliding_windows():
+    """A window is accepted (every self-attention cache a ring); an unknown
+    ``arch_type`` or ``attn_impl`` is still refused."""
     for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match="sliding-window"):
-            transformer.check_supported(dataclasses.replace(get_config(arch),
-                                                            sliding_window=64))
+        transformer.check_supported(dataclasses.replace(get_config(arch), sliding_window=64))
     with pytest.raises(NotImplementedError):
         transformer.check_supported(dataclasses.replace(get_config("smollm-135m"),
                                                         arch_type="graph"))
+    with pytest.raises(ValueError, match="attn_impl"):
+        transformer.check_supported(dataclasses.replace(get_config("smollm-135m"),
+                                                        attn_impl="triton"))
 
 
 def test_gate_tanh_is_bit_equal_in_both():

@@ -16,7 +16,7 @@ package, on the CPU.
   placements from a spec.
 * The dry-run's bytes equal the byte sums of the reference's abstract
   leaves (bf16, W8A8, W4A8, AdamW's moments, the engine state); its CLI
-  reports refused ``long_500k`` combos with their reason.
+  reports the ``long_500k`` combos through their ring caches.
 * ``SpecEngine(mode=)`` and ``make_serve_step`` / ``make_vanilla_step`` /
   ``make_pruned_step`` give the reference's greedy tokens; the serve CLI's
   ``--mode spec --task humaneval`` over a reference checkpoint gives the
@@ -204,6 +204,13 @@ def test_meta_specs_match_jax_eval_shape(name):
         assert got["generators"] == [] and "key" in want
         assert _leaf_specs(got) == _leaf_specs(want)
         assert all(t.device.type == "meta" for _, t in shd.tree_paths(got))
+        # long_500k: ring caches (4096 + 128 slots and their kpos) for attention
+        got = shp.serve_state_specs(shp.shape_cfg(cfg, "long_500k"), "long_500k",
+                                    scfg=SpecConfig(), scan=scan)
+        want = jshp.serve_state_specs(jshp.shape_cfg(jcfg, "long_500k"), "long_500k",
+                                      JModel(jshp.shape_cfg(jcfg, "long_500k")),
+                                      JSpecConfig(), scan=scan)
+        assert _leaf_specs(got) == _leaf_specs(want)
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +340,19 @@ def test_dryrun_cli_reports_rows_and_refusals(tmp_path, capsys):
     assert [r["shape"] for r in rows] == list(shp.SHAPES)
     assert all(r["status"] == "ok" and r["fits_card"] for r in rows)
     assert rows[2]["bound_by"] == "bytes" and rows[2]["step_bound_ms"] > 0
-    assert dryrun.main(["--arch", "smollm-135m", "--shape", "long_500k", "--cards", "4"]) == 0
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "long_500k", "--cards", "4",
+                        "--out", str(out)]) == 0
     text = capsys.readouterr().out
-    assert "[refused] smollm-135m × long_500k × 1x4: needs the ring cache (not ported)" in text
-    assert "0 ok / 1 refused / 0 failed" in text
+    assert "[ok] smollm-135m × long_500k × 1x4:" in text
+    assert "1 ok (1 fit one card) / 0 failed" in text
+    (row,) = json.loads(out.read_text())["rows"]
+    assert row["status"] == "ok" and row["sliding_window"] == 4096 and row["fits_card"]
+    # the ring: 4096 + 128 slots of the 524288-token context read, held and counted
+    cfg = shp.shape_cfg(get_config("smollm-135m"), "long_500k")
+    assert rf.kv_slots(cfg, 524288) == 4224 and rf.kv_slots(cfg, 1000) == 1000
+    assert row["kv_gbytes"] * 1e9 == rf.kv_cache_read_bytes(cfg, 1, 4224)
+    assert row["kv_capacity_gbytes"] * 1e9 == rf.kv_cache_capacity_bytes(cfg, [1], 4096)
+    assert row["kv_capacity_paged_gbytes"] is None
 
 
 # ---------------------------------------------------------------------------

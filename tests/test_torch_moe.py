@@ -304,12 +304,13 @@ def test_check_supported_takes_moe_and_rejects_the_rest():
         assert transformer.layer_kinds(cfg) == __import__(
             "repro.models.transformer", fromlist=["layer_kinds"]).layer_kinds(jget_config(arch))
     base = get_config("moonshot-v1-16b-a3b")
-    # every family is ported now: only a sliding window (ring cache) is refused
+    # every family is ported, and the sliding window (ring cache) too: only
+    # an unknown arch_type is refused
     for kw in (dict(arch_type="vlm"), dict(arch_type="audio"), dict(cross_attn_every=2),
-               dict(encoder_layers=2)):
+               dict(encoder_layers=2), dict(sliding_window=64)):
         transformer.check_supported(dataclasses.replace(base, **kw))
     with pytest.raises(NotImplementedError):
-        transformer.check_supported(dataclasses.replace(base, sliding_window=64))
+        transformer.check_supported(dataclasses.replace(base, arch_type="graph"))
 
 
 def test_with_config_shares_every_tensor():

@@ -85,13 +85,15 @@ def test_check_supported_admits_ssm_and_hybrid():
     assert transformer.shared_attn_positions(get_config("zamba2-2.7b")) == list(
         range(5, 54, 6))
     base = get_config("zamba2-2.7b")
-    # every family is ported now: only a sliding window (ring cache) is refused
-    for kw in (dict(arch_type="vlm"), dict(arch_type="audio"), dict(encoder_layers=2)):
+    # every family is ported, and the sliding window (ring cache) too: only
+    # an unknown arch_type is refused
+    for kw in (dict(arch_type="vlm"), dict(arch_type="audio"), dict(encoder_layers=2),
+               dict(sliding_window=64)):
         transformer.check_supported(dataclasses.replace(base, **kw))
     transformer.check_supported(dataclasses.replace(get_config("smollm-135m"),
                                                     cross_attn_every=2))
     with pytest.raises(NotImplementedError):
-        transformer.check_supported(dataclasses.replace(base, sliding_window=64))
+        transformer.check_supported(dataclasses.replace(base, arch_type="graph"))
 
 
 def test_softplus_matches_jax():
