@@ -55,9 +55,12 @@
    the graph phase's weights, ``quasar-paper-7b`` at full depth with
    ``long_500k``'s window of 4096 (rings of 4224 slots): the ring variant
    of ``flash_decode`` against its plain version (7B windows, bf16 and
-   int8 KV, dh 80 and 160) beside SDPA; greedy ngram ≡ vanilla on 2 ×
-   5120-token prompts, 384 new tokens, bf16 and W8A8 × KV bf16 and int8,
-   through graphs; replay ≡ eager; the ring's logits against the windowed
+   int8 KV, B 1, a partly filled ring, dh 80 and 160) beside SDPA; greedy
+   ngram ≡ vanilla on 2 × 5120-token prompts, 384 new tokens, bf16 and
+   W8A8 × KV bf16 and int8, through graphs; replay ≡ eager;
+   ``generate_requests`` over rings (six prompts of 300-5120 tokens
+   through three recycled slots, W8A8), ngram ≡ vanilla per request; the
+   ring's logits against the windowed
    no-cache forward; the long_500k verify step as a graph beside its
    roofline bound.  ``--ring-only`` runs it alone.
 6. Paged phase (the continuous-batching scheduler over the paged,
@@ -302,6 +305,9 @@ MEM_TOL = 0.10                     # (b): predicted resident bytes against the p
 RING_WINDOW = 4096                 # the ring phase: shapes.shape_cfg's long_500k window
 RING_B, RING_PROMPT, RING_NEW = 2, 5120, 384   # (b): the prefill wraps the 4224-slot ring
 RING_LOGITS_TOL = 2 ** -4          # (d): bf16 ring vs no-cache logits, of the largest |logit|
+RING_FILL = 1024                   # (a): the partly filled ring's prefill (of 4224 slots)
+RING_REQUEST_LENS = (5120, 700, 2600, 4500, 300, 1500)   # (c2): prompts, some under the window
+RING_REQUEST_SLOTS, RING_REQUEST_NEW = 3, 96             # (c2): rows recycled twice
 QUICKSTART_NEEDS = (("norm_smooth_quant", "smooth_quant"), ("int8_matmul",),
                     ("flash_decode",))   # (c): one of each group must launch
 
@@ -954,38 +960,47 @@ def graph_phase(torch, dev, model, prepared):
     return out
 
 
-def ring_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, int8: bool,
-              ts=(GAMMA + 1, 1), past: int = RING_PROMPT + 100, **tag) -> list:
-    """The ring variant of ``flash_decode`` (int8 K/V with ``int8``) over a
-    RING_WINDOW-token window's ring of RING_WINDOW + 128 slots, filled as the
-    model's writes leave it — a prefill of ``past`` tokens (past one wrap:
-    the write keeps its last 4224 rows), then the query window's own rows —
-    at each T of ``ts``: within one bf16 rounding step of its plain version,
-    timed beside it and (bf16 K/V) beside SDPA with a boolean mask."""
+def ring_inputs(torch, dev, g, b: int, t: int, hq: int, hkv: int, dh: int, int8: bool,
+                past: int):
+    """A RING_WINDOW-token window's ring of RING_WINDOW + 128 slots (int8
+    K/V with ``int8``), filled as the model's writes leave it — a prefill of
+    ``past`` tokens (past one wrap, the write keeps its last 4224 rows;
+    under RING_WINDOW, the slots past it stay unwritten), then the query
+    window's own rows — and a (b, t) query window at ``past``.  Returns
+    (q, k, v, qpos, kw): ``flash_decode(q, k, v, qpos, **kw)`` reads it."""
     import types
 
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
     from repro_torch.models.attention import init_attn_cache, write_cache
+
+    kvcfg = types.SimpleNamespace(num_kv_heads=hkv, head_dim=dh, dtype=torch.bfloat16,
+                                  kv_cache_dtype="int8" if int8 else "bf16")
+    cache = init_attn_cache(kvcfg, b, RING_WINDOW, dev, RING_WINDOW)
+    for start, n in ((0, past), (past, t)):
+        k, v = (torch.randn(b, n, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        pos = (start + torch.arange(n, device=dev, dtype=torch.int32)).expand(b, n)
+        write_cache(cache, k, v, pos.contiguous())
+    q = torch.randn(b, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+    qpos = (past + torch.arange(t, device=dev, dtype=torch.int32)).expand(b, t).contiguous()
+    kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+              kpos=cache["kpos"], window=RING_WINDOW)
+    return q, cache["k"], cache["v"], qpos, kw
+
+
+def ring_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, int8: bool,
+              ts=(GAMMA + 1, 1), past: int = RING_PROMPT + 100, b: int = B, **tag) -> list:
+    """The ring variant of ``flash_decode`` (int8 K/V with ``int8``) over
+    :func:`ring_inputs`' ring at each T of ``ts``: within one bf16 rounding
+    step of its plain version, timed beside it and (bf16 K/V) beside SDPA
+    with a boolean mask; the bound counts the slots some query row sees."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref, visible
 
     F = torch.nn.functional
     name = "flash_decode_ring" + "_int8" * int8
-    kvcfg = types.SimpleNamespace(num_kv_heads=hkv, head_dim=dh, dtype=torch.bfloat16,
-                                  kv_cache_dtype="int8" if int8 else "bf16")
     rows = []
     for t in ts:
-        cache = init_attn_cache(kvcfg, B, RING_WINDOW, dev, RING_WINDOW)
-        S = cache["k"].shape[1]
-        for start, n in ((0, past), (past, t)):
-            k, v = (torch.randn(B, n, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
-                    for _ in range(2))
-            pos = (start + torch.arange(n, device=dev, dtype=torch.int32)).expand(B, n)
-            write_cache(cache, k, v, pos.contiguous())
-        del k, v
-        q = torch.randn(B, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
-        qpos = (past + torch.arange(t, device=dev, dtype=torch.int32)).expand(B, t).contiguous()
-        k, v = cache["k"], cache["v"]
-        kw = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-                  kpos=cache["kpos"], window=RING_WINDOW)
+        q, k, v, qpos, kw = ring_inputs(torch, dev, g, b, t, hq, hkv, dh, int8, past)
+        S = k.shape[1]
         o = flash_decode(q, k, v, qpos, **kw)
         ro = flash_decode_ref(q, k, v, qpos, **kw)
         torch.cuda.synchronize()
@@ -997,10 +1012,10 @@ def ring_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, int8: bool,
         # the work this ring needs: K/V of the slots some query row of the
         # batch row sees, every slot's position, q in, out; each query row
         # scores (and sums values over) the keys it sees
-        vis = visible(qpos, S, kpos=cache["kpos"], window=RING_WINDOW)      # (B, T, S)
+        vis = visible(qpos, S, kpos=kw["kpos"], window=RING_WINDOW)         # (B, T, S)
         read = int(vis.any(dim=1).sum())
         kv_bytes = 2 * read * hkv * dh * (1 if int8 else 2) + (8 * read * hkv if int8 else 0)
-        nbytes = 2 * 2 * B * t * hq * dh + kv_bytes + 4 * B * S + 4 * B * t
+        nbytes = 2 * 2 * b * t * hq * dh + kv_bytes + 4 * b * S + 4 * b * t
         bms, by = bound_ms(nbytes, 4 * hq * int(vis.sum()) * dh, "bf16")
         library = None
         if not int8:       # SDPA with a boolean mask; int8 K/V has no such call
@@ -1014,13 +1029,74 @@ def ring_rows(torch, dev, g, flush, hq: int, hkv: int, dh: int, int8: bool,
             lib_err = (library().float() - ro.float()).abs().max().item()
             if lib_err > SDPA_TOL:
                 raise AssertionError(f"SDPA yardstick disagrees: {lib_err}")
-        rows.append(dict(shape=[B, t, hq, hkv, S, dh], window=RING_WINDOW, qpos0=past, **tag,
+        rows.append(dict(shape=[b, t, hq, hkv, S, dh], window=RING_WINDOW, qpos0=past, **tag,
                          max_abs_err=err, bound_ms=bms, bound_by=by, slots_read=read,
                          **timed(torch, lambda: flash_decode(q, k, v, qpos, **kw),
                                  lambda: flash_decode_ref(q, k, v, qpos, **kw), library,
                                  50, flush)))
-        del cache, k, v, kw
+        del k, v, kw
     return rows
+
+
+def ring_requests(torch, dev, base, prepared) -> dict:
+    """(c2) of :func:`ring_phase`: ``generate_requests`` over contiguous
+    rings, W8A8 verifier, KV bf16, greedy: the prompts of
+    RING_REQUEST_LENS (two wrap the ring, four are shorter than the window)
+    through RING_REQUEST_SLOTS slots, so rows are recycled through
+    ``transformer.reset_cache`` and fresh rings of unwritten slots reach the
+    ring read; ngram's tokens must equal vanilla's for every request."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.data import task_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, transformer
+    from repro_torch.serving.engine import SpecEngine
+    from repro_torch.serving.request import GenerationRequest
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(base, kv_cache_dtype="bf16")
+    model, params = Model(cfg, device=dev), transformer.with_config(prepared, cfg)
+    full = task_prompts(serve.TASK, len(RING_REQUEST_LENS), max(RING_REQUEST_LENS),
+                        cfg.vocab_size)
+    reqs = [GenerationRequest(p[:n], RING_REQUEST_NEW, seed=i)
+            for i, (p, n) in enumerate(zip(full, RING_REQUEST_LENS))]
+    out, toks = {}, {}
+    for drafter in ("vanilla", "ngram"):
+        eng = SpecEngine(model, SpecConfig(gamma=GAMMA, temperature=0.0, drafter=drafter,
+                                           verifier="w8a8"))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        res = eng.generate_requests(params, reqs, batch_slots=RING_REQUEST_SLOTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        tel = eng.telemetry.summary()[f"{eng.drafter.name}:{eng.verifier.name}"]
+        info = dict(requests=len(reqs), slots=RING_REQUEST_SLOTS, prompt_lens=RING_REQUEST_LENS,
+                    new_tokens=sum(int(r.new_tokens) for r in res),
+                    steps=eng.group_stats[0]["steps"],
+                    L=float(np.mean([r.accept_len for r in res])),
+                    mean_step_ms=1e3 * tel["step_s"]["mean"], wall_s=wall,
+                    launches=ops.launch_counts(), bad_rows=sum(int(r.bad) for r in res))
+        if info["bad_rows"] or any(r.new_tokens != RING_REQUEST_NEW for r in res):
+            raise AssertionError(f"ring requests {drafter}: {info}")
+        if info["launches"].get("flash_decode_ring", 0) <= 0:
+            raise AssertionError(f"ring requests {drafter}: the ring read never launched")
+        toks[drafter] = [np.asarray(r.tokens) for r in res]
+        log(f"  ring requests {drafter}: {json.dumps(info)}")
+        out[drafter] = info
+        del eng, res
+    same = [bool(np.array_equal(a, b)) for a, b in zip(toks["ngram"], toks["vanilla"])]
+    if not all(same):
+        raise AssertionError(f"ring requests: greedy ngram tokens differ from vanilla's: {same}")
+    log(f"  ring requests: greedy ngram == vanilla for all {len(reqs)} requests "
+        f"({RING_REQUEST_SLOTS} slots)")
+    out["phase_s"] = time.perf_counter() - t0
+    del params, model
+    return out
 
 
 def ring_phase(torch, dev, flush, raw, prepared) -> tuple:
@@ -1030,12 +1106,15 @@ def ring_phase(torch, dev, flush, raw, prepared) -> tuple:
     weights (``raw`` bf16 and ``prepared`` W8A8, viewed under the windowed
     config: nothing new is initialised).  (a) The ring variant of
     ``flash_decode`` against its plain version at the 7B chain and vanilla
-    windows, bf16 and int8 K/V, and at head sizes 80 (zamba2) and 160
-    (stablelm-12b).  (b) ``generate`` through graphs on RING_B prompts of
-    RING_PROMPT tokens (the prefill of 5119 wraps the ring), RING_NEW new
+    windows, bf16 and int8 K/V, at B 1 and over a ring filled by a
+    RING_FILL-token prefill (most chunks unwritten), and at head sizes 80
+    (zamba2) and 160 (stablelm-12b).  (b) ``generate`` through graphs on
+    RING_B prompts of RING_PROMPT tokens (the prefill of 5119 wraps the
+    ring), RING_NEW new
     tokens, greedy: ngram ≡ vanilla for the bf16 and W8A8 verifiers over
     bf16 and int8 KV, each run launching every kernel of its path.  (c) The
-    W8A8 bf16-KV spec run again eagerly: tokens and launches equal.  (d)
+    W8A8 bf16-KV spec run again eagerly: tokens and launches equal.  (c2)
+    :func:`ring_requests`: ``generate_requests`` over contiguous rings.  (d)
     The last verify window's logits from the ring (bf16) against a no-cache
     forward of the whole sequence with the window mask, within
     RING_LOGITS_TOL of the logits' largest magnitude; the unwindowed
@@ -1073,6 +1152,14 @@ def ring_phase(torch, dev, flush, raw, prepared) -> tuple:
         kern["flash_decode_ring"] += ring_rows(torch, dev, g, flush, c.num_heads,
                                                c.num_kv_heads, c.head_dim, False,
                                                ts=(GAMMA + 1,), arch=arch)
+    # B 1 (the long_500k read's shape), and a partly filled ring (a
+    # RING_FILL-token prefill: most chunks hold unwritten slots)
+    for int8 in (False, True):
+        kern["flash_decode_ring" + "_int8" * int8] += ring_rows(
+            torch, dev, g, flush, base.num_heads, base.num_kv_heads, base.head_dim, int8,
+            ts=(GAMMA + 1,), b=1, arch=ARCH) + ring_rows(
+            torch, dev, g, flush, base.num_heads, base.num_kv_heads, base.head_dim, int8,
+            ts=(GAMMA + 1,), past=RING_FILL, arch=ARCH, fill="partly filled")
     for name, rows in kern.items():
         for r in rows:
             log(f"  {name:22s} {str(r['shape']):32s} ms={r['ms']:.4f} "
@@ -1138,6 +1225,7 @@ def ring_phase(torch, dev, flush, raw, prepared) -> tuple:
         raise AssertionError("ring spec W8A8: eager tokens or launches differ from replayed")
     out["eager_spec_w8a8_kv_bf16"] = eager
     log("  ring: replay tokens == eager tokens, bit for bit; launches equal")
+    out["requests"] = ring_requests(torch, dev, base, prepared)
 
     # (d) the last verify window's logits against the windowed no-cache forward
     cfg = dataclasses.replace(base, kv_cache_dtype="bf16")

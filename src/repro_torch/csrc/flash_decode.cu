@@ -16,10 +16,11 @@
 // Ring caches (kpos != nullptr, the sliding window): each slot holds the
 // absolute position kpos[b, s] of the key it stores (-2^30 while unwritten),
 // and key s is visible to the query at position p iff 0 <= p - kpos[b, s] <
-// window.  Once the ring has wrapped any slot can be live, so every split
-// is read (the live range is the whole ring); the split layout still
-// depends on S alone, so a row's bits depend on neither T nor B.  The
-// reference reads a ring through plain jnp (repro/models/attention.py:242
+// window.  Once the ring has wrapped any slot can be live, so no split is
+// past the live range; the split layout depends on S alone, so a row's bits
+// depend on neither T nor B.  bf16 queries read a ring through a body of
+// its own (flash_ring_mma_kernel, below); f32 queries through the f32 body.
+// The reference reads a ring through plain jnp (repro/models/attention.py:242
 // attend); this variant is the port's own, for row invariance on the card.
 //
 // Replaces the Pallas TPU kernels repro/kernels/flash_decode.py:_kernel
@@ -38,13 +39,17 @@
 // The last live slot is the window's last position for a chain, and the
 // larger of that and win_start + T - 1 for a tree, whose nodes are packed
 // past their positions; slots past it are masked for every query row and
-// never read.
+// never read.  A ring reads the slots some query row sees (the ring body
+// skips the 32-key chunks no row sees) and each read slot's position.
 //
 // Design.  S is split into 128-key ranges (flash-decoding: B*Hkv blocks
 // alone would leave most of the 132 SMs idle); the split depends on S
 // alone, never on T or B, a split past the live range is skipped, and a
 // second kernel merges the live splits in split order and divides by
-// max(l, 1e-30).  Two split bodies:
+// max(l, 1e-30).  Three split bodies: the tensor-core body and the f32
+// body below, and the ring body (flash_ring_mma_kernel, its own note) for a
+// ring with bf16 queries, whose split length comes from S alone and which
+// merges its splits itself.
 //
 // * Tensor-core body (bf16 queries, bf16 or int8 K/V) — what the earlier
 //   CUDA-core kernel lost time to, and what this one does about it:
@@ -110,6 +115,12 @@ constexpr int CK = 32;          // keys per chunk: one online-softmax update (bo
 constexpr int SPLIT = 128;      // keys per split (SPLIT_LEN in kernels/flash_decode.py)
 constexpr int RING = 3;         // tensor-core body: K/V chunks staged at once (cp.async ring)
 constexpr int RB = 8;           // f32 body: query rows per register block
+constexpr int RING_SLICES = 4;  // ring body: key slices per split (RING_SLICES in flash_decode.py)
+constexpr int RING_ROWS = 32;   // ring body: most query rows per block (two 16-row tiles)
+constexpr int RCK = 16;         // ring body: keys per chunk (one online-softmax update)
+constexpr int RING_STAGES = 3;  // ring body: chunk slots per slice (two in flight, one read)
+constexpr int RING_MAX_PAIRS = 4;  // ring body: most 32-key runs per slice (split <= 512 keys)
+constexpr int NEG_POS = -(1 << 30);  // an unwritten ring slot's position (models/attention.py)
 constexpr float MASK_VAL = -1e30f;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -143,9 +154,9 @@ __device__ __forceinline__ int live_end(const int* __restrict__ qpos, const int*
   return min(e, S);
 }
 
-// Splits holding at least one live key.
-__device__ __forceinline__ int live_splits(int end, int nsplit) {
-  return end <= 0 ? 0 : min(nsplit, (end - 1) / SPLIT + 1);
+// Splits of split_len keys holding at least one live key.
+__device__ __forceinline__ int live_splits(int end, int nsplit, int split_len) {
+  return end <= 0 ? 0 : min(nsplit, (end - 1) / split_len + 1);
 }
 
 // Is slot s visible to a query row at position qp, window node t?  Over a
@@ -480,7 +491,6 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
                        const float* __restrict__ vs, const Rows rows,
                        const int* __restrict__ qpos, const int* __restrict__ tree_bits,
                        const int* __restrict__ win_start, int tree_words,
-                       const int* __restrict__ kpos, int window,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int T, int Hq, int Hkv, int S,
                        int rows_per_block, float scale) {
@@ -499,8 +509,7 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
   const int R = min(rows_per_block, Rtot - row0);
   const int tiles = (R + 15) / 16;
   const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, kpos, b, T, S);
-  const int* kpos_b = kpos != nullptr ? kpos + static_cast<int64_t>(b) * S : nullptr;
+  const int end = live_end(qpos, tree_bits != nullptr ? win_start : nullptr, nullptr, b, T, S);
   const int s_begin = split * SPLIT;
   if (s_begin >= end) return;
   const int s_end = min(s_begin + SPLIT, end);
@@ -627,7 +636,7 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
         float x = sc[n][e] * scale;
         if (kInt8) x = x * ksc_s[cb + j];
         const bool ok = live[i] && s < s_end &&
-                        visible(s, qp[i], tt[i], tree_bits, ws, T, tree_words, kpos_b, window);
+                        visible(s, qp[i], tt[i], tree_bits, ws, T, tree_words, nullptr, 0);
         okbits |= static_cast<unsigned>(ok) << (4 * n + e);
         sc[n][e] = ok ? x : MASK_VAL;
         mx[i] = fmaxf(mx[i], sc[n][e]);
@@ -704,6 +713,431 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
   }
 }
 
+// ---------------------------------------------------------------------------
+// Ring body (bf16 queries; bf16 or int8 K/V; a contiguous ring, no tree)
+// ---------------------------------------------------------------------------
+
+// Wait at named barrier id (1..15; 0 is __syncthreads) for n threads.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// What held the first ring read (the tensor-core body above with kpos) back,
+// and what this body does about it:
+// 1. Few warps did math: one warp per 16-row tile swept its split's keys,
+//    so the 7B's T 6 (24 rows) kept 2 warps busy and T 1 one.  Here each
+//    split's RCK-key chunks are dealt in order to RING_SLICES key slices,
+//    as evenly as they go, and one warp runs per (16-row tile, slice),
+//    tiles * RING_SLICES warps, each with its own m, l and f32
+//    accumulator; at the block's end the slices' (m, l, acc) are folded in
+//    slice order through shared memory (the K/V stages, then free).
+// 2. kpos came from global memory, one load per score.  Here a chunk's
+//    positions are copied into shared memory in the copy group of its K/V,
+//    and visibility is taken from there.  The skip test below reads each
+//    position once more, with one coalesced load per 32 keys, issued for
+//    all of a slice's keys when the block starts.
+// 3. Every split was read.  A RCK-key chunk none of whose slots any query
+//    row of the block can see — unwritten slots (NEG_POS) of a fresh or
+//    reset ring, keys older than the window — is neither copied nor
+//    computed.  The loop would add exact zeros for it (alpha = 1, p = 0), so
+//    skipping it moves no bit; a wholly masked split writes what the loop
+//    leaves (m = -1e30, l = 0, acc = 0).
+// 4. 128-key splits wrote 13 MB of f32 partials at the 7B's B 4, T 6, and
+//    a second kernel merged them.  Here the split length comes from S alone
+//    (kernels/flash_decode.py ring_split_len: 272 keys over the 7B's
+//    4224-slot ring, 16 splits, so B 1's 8 KV heads run 128 blocks on the
+//    132 SMs and B 4's 512 blocks two rounds of two per SM), which halves
+//    them, and the merge runs in the kernel: the last block of a (b, kv
+//    head, row block) to finish — a counter per (b, kv head, row block),
+//    which that block sets back to 0, so a CUDA graph replays the launch —
+//    folds the splits' partials in split order from L2 and writes the
+//    output.
+// 5. Copies: a slice streams its live chunks through RING_STAGES stages of
+//    its own with 16-byte cp.async, two chunks in flight while it computes
+//    one, behind a named barrier of its own warps: no block-wide barrier
+//    per chunk, no producer warp to hand a chunk over.  cp.async rather than
+//    TMA: a slice copies only the chunks its positions show live, a list
+//    known only once the block has read them; one TMA bulk copy per K or V
+//    row (a 16-key chunk's rows lie Hkv * dh apart) ran slower than these
+//    copies at the 7B's shapes on the H100, and 2-D tiles would need a
+//    swizzle that no box width serves at dh 80 and 160.
+//    ~114 KB per block (bf16, dh 128) keeps two blocks on an SM, so one
+//    block's start (positions, Q) and fold overlap the other's copies.
+// 6. int8 K/V: a slice's threads widen only its own chunk to bf16 in its
+//    own buffer (exact, |x| <= 127), behind the slice's barrier.
+// A query row's bits depend on neither T nor B: the slices, their keys and
+// the chunks' order depend on S alone (tiles, warps and row blocks follow
+// G*T, but mma computes each row from its own row, and every row's sums
+// run in the same order), a chunk is skipped only where it adds exact
+// zeros to every row of the block, and the fold and the merge run in slice
+// and split order.
+template <typename KVT, int DH>
+__global__ void __launch_bounds__(32 * 2 * RING_SLICES, DH > 128 ? 1 : 2)
+flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k,
+                      const KVT* __restrict__ v, const float* __restrict__ ks,
+                      const float* __restrict__ vs, const int* __restrict__ qpos,
+                      const int* __restrict__ kpos, int window,
+                      float* __restrict__ part_m, float* __restrict__ part_l,
+                      float* __restrict__ part_acc, int* __restrict__ counters,
+                      __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int S,
+                      int split_len, int rows_per_block, float scale) {
+  constexpr bool kInt8 = sizeof(KVT) == 1;
+  constexpr int EPV = 16 / sizeof(KVT);               // K/V elements per 16-byte copy
+  constexpr int VPR = DH / EPV;                       // copies per key row
+  constexpr int BROW = DH * 2 + 16;                   // a bf16 row, padded: ldmatrix conflict-free
+  constexpr int KROW = kInt8 ? DH : BROW;             // a staged K/V row (int8 rows unpadded)
+  constexpr int NDT = DH / 8;                         // dim tiles of 8
+  constexpr int KST = DH / 16;                        // k steps of q.k
+  // a stage: K and V rows, positions; int8: scales
+  constexpr int STAGE = 2 * RCK * KROW + 4 * RCK + (kInt8 ? 2 * 4 * RCK : 0);
+  // a slice: its stages; int8: one chunk widened to bf16
+  constexpr int SLICE = RING_STAGES * STAGE + (kInt8 ? 2 * RCK * BROW : 0);
+  const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int G = Hq / Hkv, Rtot = G * T;
+  const int row0 = blockIdx.z * rows_per_block;
+  const int R = min(rows_per_block, Rtot - row0);  // the last row block may hold fewer
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = nthr / (32 * RING_SLICES), Rp = tiles * 16;  // ceil(rows_per_block / 16)
+  const int slice = warp / tiles, tile = warp % tiles;
+  const int sl_threads = 32 * tiles, stid = tid - slice * sl_threads;
+  // the split's RCK-key chunks dealt to the slices in order, as evenly as
+  // they go (17 chunks: 4, 4, 4, 5)
+  const int nchunks = split_len / RCK;
+  const int c_lo = slice * nchunks / RING_SLICES, c_hi = (slice + 1) * nchunks / RING_SLICES;
+  const int sl_keys = (c_hi - c_lo) * RCK;            // at most 32 * RING_MAX_PAIRS
+  const int k0 = split * split_len + c_lo * RCK;      // the slice's first key
+  const int* kpos_b = kpos + static_cast<int64_t>(b) * S;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw;                      // [Rp][BROW]
+  unsigned char* slots = q_s + Rp * BROW;             // [RING_SLICES][SLICE]
+  unsigned char* sl_base = slots + slice * SLICE;     // this slice's stages
+  unsigned char* kw_s = sl_base + RING_STAGES * STAGE;  // [RCK][BROW] int8: widened K
+  unsigned char* vw_s = kw_s + RCK * BROW;            // [RCK][BROW] int8: widened V
+  // after the sweep, the stages hold the fold: each slice's accumulators
+  // (rows FROW floats apart: a warp's fragment stores fall in distinct
+  // banks), and its m, l and weight exp(m - max m) per row
+  constexpr int FROW = DH + 8;
+  float* facc = reinterpret_cast<float*>(slots);      // [RING_SLICES][Rp][FROW]
+  float* fm = facc + RING_SLICES * Rp * FROW;         // [RING_SLICES][RING_ROWS]
+  float* fl = fm + RING_SLICES * RING_ROWS;
+  float* fw = fl + RING_SLICES * RING_ROWS;
+  __shared__ int is_last;
+
+  // the block's query rows (local row r = query row row0 + r = g*T + t),
+  // pad rows zero
+  for (int i = tid; i < Rp * (DH / 8); i += nthr) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8, qr = row0 + r;
+    const bool ok = r < R;
+    const __nv_bfloat16* src =
+        ok ? q + ((static_cast<int64_t>(b) * T + qr % T) * Hq + h * G + qr / T) * DH + c : q;
+    cp_async16(q_s + r * BROW + c * 2, src, ok);
+  }
+  cp_async_commit();
+  // the skip test: the slice's positions, 32 keys per load (lane j: key j
+  // of each 32; NEG_POS past S), and the span [qlo, qhi] of the block's
+  // query positions (lane i: position i), all loads in flight at once
+  int kp[RING_MAX_PAIRS];
+#pragma unroll
+  for (int c = 0; c < RING_MAX_PAIRS; ++c) {
+    const int s = k0 + 32 * c + lane;
+    kp[c] = 32 * c + lane < sl_keys && s < S ? __ldg(kpos_b + s) : NEG_POS;
+  }
+  int qlo = 0x7fffffff, qhi = -0x7fffffff - 1;
+  for (int i = lane; i < min(R, T); i += 32) {
+    const int p = __ldg(qpos + b * T + (row0 + i) % T);
+    qlo = min(qlo, p);
+    qhi = max(qhi, p);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
+    qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
+  }
+  // a key at kpl may be seen by some query row of the block iff kpl <= p <
+  // kpl + window for a position p in [qlo, qhi] (|p|, |kpl| <= 2^30: no
+  // overflow); bit c of `todo`: chunk c of the slice holds such a key (the
+  // same in every warp of the slice)
+  unsigned todo = 0;
+#pragma unroll
+  for (int c = 0; c < RING_MAX_PAIRS; ++c) {
+    const unsigned seen = __ballot_sync(0xffffffffu, kp[c] <= qhi && qlo - kp[c] < window);
+    todo |= (static_cast<unsigned>((seen & 0xffffu) != 0) |
+             (static_cast<unsigned>((seen >> 16) != 0) << 1)) << (2 * c);
+  }
+  const int nlive = __popc(todo);
+
+  // live chunk i of the slice into stage i % RING_STAGES, one copy group per
+  // thread (empty past the live chunks, so every thread of the slice keeps
+  // the same group count)
+  unsigned rest = todo;  // live chunks not yet issued, lowest first
+  auto issue = [&](int i) {
+    if (i < nlive) {
+      const int c = __ffs(static_cast<int>(rest)) - 1;
+      rest &= rest - 1;
+      const int cb = k0 + c * RCK;
+      unsigned char* st = sl_base + (i % RING_STAGES) * STAGE;
+      for (int x = stid; x < RCK * VPR; x += sl_threads) {
+        const int j = x / VPR, e = (x % VPR) * EPV, s = cb + j;
+        const bool ok = s < S;
+        const int64_t off = ok ? ((static_cast<int64_t>(b) * S + s) * Hkv + h) * DH + e : 0;
+        const int dst = j * KROW + e * static_cast<int>(sizeof(KVT));
+        cp_async16(st + dst, k + off, ok);
+        cp_async16(st + RCK * KROW + dst, v + off, ok);
+      }
+      int* kp_s = reinterpret_cast<int*>(st + 2 * RCK * KROW);
+      for (int j = stid; j < RCK; j += sl_threads) {
+        const int s = cb + j;
+        cp_async4(kp_s + j, kpos_b + (s < S ? s : 0), s < S);  // past S: masked below
+        if constexpr (kInt8) {
+          const int64_t off = s < S ? (static_cast<int64_t>(b) * S + s) * Hkv + h : 0;
+          cp_async4(kp_s + RCK + j, ks + off, s < S);
+          cp_async4(kp_s + 2 * RCK + j, vs + off, s < S);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the key base of each issued chunk, in issue order (the chunks' order)
+  unsigned order = todo;
+#pragma unroll
+  for (int i = 0; i < RING_STAGES - 1; ++i) issue(i);
+
+  const int g = lane >> 2, c4 = lane & 3, tr0 = tile * 16;
+  bool live[2];
+  int qp[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = tr0 + g + 8 * i;
+    live[i] = r < R;
+    qp[i] = live[i] ? __ldg(qpos + b * T + (row0 + r) % T) : 0;
+    m[i] = MASK_VAL;
+    l[i] = 0.f;
+  }
+  float acc[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const unsigned char* q_lane = q_s + (tr0 + (lane & 15)) * BROW + (lane >> 4) * 16;
+  cp_async_wait<RING_STAGES - 1>();  // the query rows' group has landed ...
+  __syncthreads();                   // ... for every warp
+
+  for (int i = 0; i < nlive; ++i) {
+    cp_async_wait<RING_STAGES - 2>();  // live chunk i has landed (later ones may be in flight) ...
+    bar_sync(1 + slice, sl_threads);   // ... for the slice, and chunk i - 1's stage is free
+    issue(i + RING_STAGES - 1);
+    const int c = __ffs(static_cast<int>(order)) - 1;
+    order &= order - 1;
+    const int cb = k0 + c * RCK;       // the chunk's first key
+    const unsigned char* st = sl_base + (i % RING_STAGES) * STAGE;
+    const int* kp_s = reinterpret_cast<const int*>(st + 2 * RCK * KROW);
+    const unsigned char* kc = st;      // the chunk's K and V rows as bf16, BROW bytes apart
+    const unsigned char* vc = st + RCK * KROW;
+    if constexpr (kInt8) {
+      // the slice's threads widen its chunk's codes to bf16 (exact: |x| <= 127)
+      for (int x = stid; x < RCK * (DH / 8); x += sl_threads) {
+        const int j = x / (DH / 8), d = (x % (DH / 8)) * 8;
+        widen8(kw_s + j * BROW + d * 2, kc + j * KROW + d);
+        widen8(vw_s + j * BROW + d * 2, vc + j * KROW + d);
+      }
+      bar_sync(1 + slice, sl_threads);
+      kc = kw_s;
+      vc = vw_s;
+    }
+
+    // scores: q.k over dh in ascending k steps, for the chunk's two 8-key tiles
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KST; ++kk) {
+      unsigned qf[4], bk[4];
+      ldsm_x4(qf, q_lane + kk * 32);
+      const int key = (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(bk, kc + key * BROW + (kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+      mma_bf16(sc[0], qf, bk[0], bk[1]);
+      mma_bf16(sc[1], qf, bk[2], bk[3]);
+    }
+
+    // online softmax on the accumulator fragments (as the body above),
+    // visibility from the chunk's staged positions
+    unsigned okbits = 0;
+    float mx[2] = {MASK_VAL, MASK_VAL};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1, j = 8 * n + 2 * c4 + (e & 1);
+        float x = sc[n][e] * scale;
+        if constexpr (kInt8) x = x * __int_as_float(kp_s[RCK + j]);
+        const int d = qp[i2] - kp_s[j];
+        const bool ok = live[i2] && cb + j < S && d >= 0 && d < window;
+        okbits |= static_cast<unsigned>(ok) << (4 * n + e);
+        sc[n][e] = ok ? x : MASK_VAL;
+        mx[i2] = fmaxf(mx[i2], sc[n][e]);
+      }
+    float alpha[2], mnew[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+      mnew[i2] = fmaxf(m[i2], mx[i2]);
+      alpha[i2] = fast_exp(m[i2] - mnew[i2]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1;
+        float p = (okbits >> (4 * n + e)) & 1u ? fast_exp(sc[n][e] - mnew[i2]) : 0.f;
+        sum[i2] += p;
+        if constexpr (kInt8) p = p * __int_as_float(kp_s[2 * RCK + 8 * n + 2 * c4 + (e & 1)]);
+        sc[n][e] = p;
+      }
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      sum[i2] += __shfl_xor_sync(0xffffffffu, sum[i2], 1);
+      sum[i2] += __shfl_xor_sync(0xffffffffu, sum[i2], 2);
+      l[i2] = l[i2] * alpha[i2] + sum[i2];
+      m[i2] = mnew[i2];
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // x * 1 == x
+#pragma unroll
+      for (int n = 0; n < NDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    }
+
+    // p.V: P as two bf16 terms (hi, lo) into the same f32 accumulators,
+    // the chunk's 16 keys as one k step
+    unsigned ph[4], pl[4];
+    split_pair(sc[0][0], sc[0][1], ph[0], pl[0]);
+    split_pair(sc[0][2], sc[0][3], ph[1], pl[1]);
+    split_pair(sc[1][0], sc[1][1], ph[2], pl[2]);
+    split_pair(sc[1][2], sc[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int n = 0; n < NDT; n += 2) {
+      unsigned bv[4];
+      const int key = (lane & 7) + (((lane >> 3) & 1) << 3);
+      ldsm_x4_t(bv, vc + key * BROW + (8 * n + ((lane >> 4) << 3)) * 2);
+      mma_bf16(acc[n], ph, bv[0], bv[1]);
+      mma_bf16(acc[n], pl, bv[0], bv[1]);
+      mma_bf16(acc[n + 1], ph, bv[2], bv[3]);
+      mma_bf16(acc[n + 1], pl, bv[2], bv[3]);
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the sweep (none is pending past nlive)
+  __syncthreads();     // every slice has left its stages: they become facc
+
+  // this warp's (m, l, acc) of its tile, as slice `slice`'s rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = tr0 + g + 8 * i;
+    if (c4 == 0) {
+      fm[slice * RING_ROWS + r] = m[i];
+      fl[slice * RING_ROWS + r] = l[i];
+    }
+    float* o = facc + (slice * Rp + r) * FROW + 2 * c4;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+  __syncthreads();
+
+  // fold the slices in slice order into the split's partials
+  const int64_t base = (static_cast<int64_t>(bh) * nsplit + split) * Rtot + row0;
+  for (int r = tid; r < R; r += nthr) {
+    float mx = MASK_VAL;
+#pragma unroll
+    for (int s = 0; s < RING_SLICES; ++s) mx = fmaxf(mx, fm[s * RING_ROWS + r]);
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < RING_SLICES; ++s) {
+      const float w = expf(fm[s * RING_ROWS + r] - mx);
+      fw[s * RING_ROWS + r] = w;
+      sum += fl[s * RING_ROWS + r] * w;
+    }
+    part_m[base + r] = mx;
+    part_l[base + r] = sum;
+  }
+  __syncthreads();
+  for (int x = tid; x < R * (DH / 4); x += nthr) {  // four dims per item
+    const int r = x / (DH / 4), d = (x % (DH / 4)) * 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < RING_SLICES; ++s) {
+      const float4 y = *reinterpret_cast<const float4*>(facc + (s * Rp + r) * FROW + d);
+      const float w = fw[s * RING_ROWS + r];
+      o.x += y.x * w;
+      o.y += y.y * w;
+      o.z += y.z * w;
+      o.w += y.w * w;
+    }
+    *reinterpret_cast<float4*>(part_acc + (base + r) * DH + d) = o;
+  }
+
+  // the last block of this (b, kv head, row block) merges the splits
+  __threadfence();  // this block's partials are visible device-wide ...
+  __syncthreads();
+  int* counter = counters + static_cast<int64_t>(bh) * gridDim.z + blockIdx.z;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == nsplit - 1;  // ... before it is counted
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // each split's maximum and sum for the block's rows (read through L2,
+  // where the other blocks wrote them), then each row's maximum M, the
+  // splits' weights exp(m_j - M) and the denominator, in split order
+  float* mw = reinterpret_cast<float*>(slots);        // [nsplit][RING_ROWS]: m_j, then weights
+  float* lw = mw + nsplit * RING_ROWS;                // [nsplit][RING_ROWS]: l_j
+  float* den = lw + nsplit * RING_ROWS;               // [RING_ROWS]: max(l, 1e-30)
+  const int64_t rows0 = static_cast<int64_t>(bh) * nsplit * Rtot + row0;  // split 0, row 0
+  for (int x = tid; x < nsplit * R; x += nthr) {
+    const int j = x / R, r = x % R;
+    mw[j * RING_ROWS + r] = __ldcg(part_m + rows0 + static_cast<int64_t>(j) * Rtot + r);
+    lw[j * RING_ROWS + r] = __ldcg(part_l + rows0 + static_cast<int64_t>(j) * Rtot + r);
+  }
+  __syncthreads();
+  for (int r = tid; r < R; r += nthr) {
+    float mx = MASK_VAL;
+    for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, mw[j * RING_ROWS + r]);
+    float sum = 0.f;
+    for (int j = 0; j < nsplit; ++j) {
+      const float w = expf(mw[j * RING_ROWS + r] - mx);
+      mw[j * RING_ROWS + r] = w;
+      sum += lw[j * RING_ROWS + r] * w;
+    }
+    den[r] = fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  // four output dims per item: the splits' partial accumulators in split order
+  for (int x = tid; x < R * (DH / 4); x += nthr) {
+    const int r = x / (DH / 4), d = (x % (DH / 4)) * 4, qr = row0 + r;
+    const float4* a = reinterpret_cast<const float4*>(part_acc + (rows0 + r) * DH + d);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int j = 0; j < nsplit; ++j) {
+      const float4 y = __ldcg(a + static_cast<int64_t>(j) * Rtot * (DH / 4));
+      const float w = mw[j * RING_ROWS + r];
+      o.x += y.x * w;
+      o.y += y.y * w;
+      o.z += y.z * w;
+      o.w += y.w * w;
+    }
+    const float denom = den[r];
+    __nv_bfloat16* dst =
+        out + ((static_cast<int64_t>(b) * T + qr % T) * Hq + h * G + qr / T) * DH + d;
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o.x / denom, o.y / denom);
+    *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+        __floats2bfloat162_rn(o.z / denom, o.w / denom);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch (or graph replay)
+}
+
 // One warp per (b, kv head, query row), 8 rows per block: lane j reads
 // split j's maximum and sum (all splits at once), the row's maximum M is
 // their warp max, and the splits are then folded in split order — each
@@ -718,7 +1152,8 @@ __global__ void __launch_bounds__(32 * kMergeRows)
 flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, const int* __restrict__ qpos,
                    const int* __restrict__ win_start, const int* __restrict__ kpos,
-                   QT* __restrict__ out, int T, int Hq, int Hkv, int S, int nsplit) {
+                   QT* __restrict__ out, int T, int Hq, int Hkv, int S, int nsplit,
+                   int split_len) {
   constexpr int DPL = (DH + 31) / 32;  // output dims per lane (the last may be partial)
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
   const int G = Hq / Hkv, R = G * T, lane = threadIdx.x & 31;
@@ -728,7 +1163,7 @@ flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
   if (r >= R) return;
   const int g = r / T, t = r % T;
   const int64_t base = static_cast<int64_t>(bh) * nsplit * R + r;
-  const int live = live_splits(live_end(qpos, win_start, kpos, b, T, S), nsplit);
+  const int live = live_splits(live_end(qpos, win_start, kpos, b, T, S), nsplit, split_len);
   float m = MASK_VAL;
   for (int j = lane; j < live; j += 32) m = fmaxf(m, part_m[base + j * R]);
 #pragma unroll
@@ -765,7 +1200,8 @@ struct Args {
   int window;
   void* out;
   float *part_m, *part_l, *part_acc;
-  int B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block, threads;
+  int* counters;
+  int B, T, Hq, Hkv, S, tree_words, nsplit, split_len, rows_per_block, threads;
   size_t smem;
   float scale;
   cudaStream_t st;
@@ -780,21 +1216,45 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The split pass — the tensor-core body for bf16 queries, the f32 body for
-// f32 queries — then the merge.
+// The split pass — the ring body for a ring with bf16 queries, the
+// tensor-core body for other bf16 queries, the f32 body for f32 queries —
+// then the merge.
 template <typename QT, typename KVT, int DH, typename Rows>
 int launch(const Args& a, const Rows rows) {
   const int R = (a.Hq / a.Hkv) * a.T;
   const dim3 grid(a.B * a.Hkv, a.nsplit, (R + a.rows_per_block - 1) / a.rows_per_block);
   cudaError_t e;
   if constexpr (sizeof(QT) == 2) {
-    auto split = flash_split_mma_kernel<KVT, DH, Rows>;
-    if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
-    split<<<grid, a.threads, a.smem, a.st>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
-        static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
-        a.tree_words, a.kpos, a.window, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv,
-        a.S, a.rows_per_block, a.scale);
+    if (a.kpos != nullptr) {  // a ring (contiguous: the paged entry passes none)
+      if (a.split_len % RCK != 0 || a.split_len > RING_SLICES * 32 * RING_MAX_PAIRS ||
+          a.rows_per_block > RING_ROWS ||
+          a.threads != 32 * RING_SLICES * ((a.rows_per_block + 15) / 16) ||
+          a.counters == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      auto split = flash_ring_mma_kernel<KVT, DH>;
+      // its static bytes count against the default 48 KB too: always raise it
+      if ((e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(a.smem))) != cudaSuccess)
+        return static_cast<int>(e);
+      // two blocks per SM need the whole 228 KB as shared memory
+      if ((e = cudaFuncSetAttribute(split, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+        return static_cast<int>(e);
+      split<<<grid, a.threads, a.smem, a.st>>>(
+          static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
+          static_cast<const KVT*>(a.v), a.ks, a.vs, a.qpos, a.kpos, a.window, a.part_m,
+          a.part_l, a.part_acc, a.counters, static_cast<__nv_bfloat16*>(a.out), a.T, a.Hq,
+          a.Hkv, a.S, a.split_len, a.rows_per_block, a.scale);
+      return static_cast<int>(cudaGetLastError());  // the kernel merges its splits itself
+    } else {
+      auto split = flash_split_mma_kernel<KVT, DH, Rows>;
+      if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
+      split<<<grid, a.threads, a.smem, a.st>>>(
+          static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
+          static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
+          a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
+          a.rows_per_block, a.scale);
+    }
   } else {
     auto split = flash_split_f32_kernel<KVT, DH, Rows>;  // strides by kMaxThreads
     if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
@@ -809,7 +1269,7 @@ int launch(const Args& a, const Rows rows) {
       <<<dim3(a.B * a.Hkv, (R + kMergeRows - 1) / kMergeRows), 32 * kMergeRows, 0, a.st>>>(
           a.part_m, a.part_l, a.part_acc, a.qpos,
           a.tree_bits != nullptr ? a.win_start : nullptr, a.kpos, static_cast<QT*>(a.out),
-          a.T, a.Hq, a.Hkv, a.S, a.nsplit);
+          a.T, a.Hq, a.Hkv, a.S, a.nsplit, a.split_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -847,10 +1307,12 @@ int launch_types(int q_is_bf16, int kv_int8, int dh, const Args& a, const Rows r
 // passes tree_bits: (T, tree_words) int32 ancestor-or-self bit words and
 // win_start: (B,) int32; a chain passes null for both.  A ring passes kpos:
 // (B, S) int32 slot positions and window > 0 (no tree); else null and 0.
-// part_m, part_l:
+// counters: a ring with bf16 queries, (B*Hkv*row blocks) int32 zeros, left
+// zero (the ring body merges its splits itself); else null.  part_m, part_l:
 // (B*Hkv*nsplit*R) f32 and part_acc: (B*Hkv*nsplit*R*dh) f32 scratch,
-// R = (Hq/Hkv)*T, nsplit = ceil(S / 128).  rows_per_block, threads, smem:
-// the launch plan of kernels/flash_decode.py:launch_plan (query rows per
+// R = (Hq/Hkv)*T, nsplit = ceil(S / split_len).  split_len, rows_per_block,
+// threads, smem: the launch plan of kernels/flash_decode.py:launch_plan
+// (keys per split — 128, or the ring body's from S alone —, query rows per
 // block — R or a multiple of 16 —, threads per block and dynamic shared
 // bytes of the split pass).  All contiguous.  Returns a cudaError_t.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
@@ -859,13 +1321,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const int* win_start, int tree_words, const int* kpos,
                                    int window, void* out,
                                    float* part_m, float* part_l, float* part_acc,
-                                   int B, int T, int Hq, int Hkv, int S, int dh,
-                                   int q_is_bf16, int kv_int8, int nsplit,
+                                   int* counters, int B, int T, int Hq, int Hkv, int S, int dh,
+                                   int q_is_bf16, int kv_int8, int nsplit, int split_len,
                                    int rows_per_block, int threads, long long smem,
                                    float scale, void* stream) {
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, kpos, window, out, part_m,
-               part_l, part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block,
+               part_l, part_acc, counters, B, T, Hq, Hkv, S, tree_words, nsplit, split_len,
+               rows_per_block,
                threads, static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, ContigRows{S});
 }
@@ -887,7 +1350,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
   const int S = nb * bs;
   if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const Args a{q, k, v, ks, vs, qpos, tree_bits, win_start, nullptr, 0, out, part_m,
-               part_l, part_acc, B, T, Hq, Hkv, S, tree_words, nsplit, rows_per_block,
+               part_l, part_acc, nullptr, B, T, Hq, Hkv, S, tree_words, nsplit, SPLIT,
+               rows_per_block,
                threads, static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, PagedRows{bt, nb, bs});
 }

@@ -19,8 +19,11 @@ A **ring** cache (the sliding window, ``models/attention.py``) passes
 ``0 <= p - kpos[b, s] < window`` (an unwritten slot holds ``-2^30``, so
 ``p - kpos`` is at least 2^30 and the slot is masked).  The reference
 reads a ring through plain jnp, not its Pallas kernel; the port reads it
-here so that on the card a row's bits depend on neither T nor B.  Token
-trees do not compose with a ring (the reference refuses them).
+here so that on the card a row's bits depend on neither T nor B (with
+bf16 queries through a body of its own: splits and key slices from S
+alone, chunks no query row sees skipped, the splits merged in the same
+launch through :func:`ring_counters`).  Token trees do not compose with a
+ring (the reference refuses them).
 
 ``flash_decode`` checks its inputs, then runs the plain version for CPU
 tensors and the CUDA kernel (``csrc/flash_decode.cu``) for CUDA tensors.
@@ -52,6 +55,12 @@ CHUNK = 32                 # keys per online-softmax step (a copy group of the r
 RING = 3                   # K/V chunks staged at once in the tensor-core body
 TILE = 16                  # query rows per warp in the tensor-core body
 MMA_ROWS = 128             # most query rows per block in the tensor-core body
+RING_SLICES = 4            # key slices per split in the ring body: one warp per (tile, slice)
+RING_ROWS = 32             # most query rows per block in the ring body (two tiles)
+RING_CHUNK = 16            # keys per online-softmax step in the ring body
+RING_STAGES = 3            # chunk slots per key slice in the ring body (two in flight)
+RING_MAX_SPLIT = 512       # most keys per split in the ring body (128 per slice)
+RING_SPLITS = 16           # splits of a long ring in the ring body (B·Hkv·16 blocks)
 HEAD_DIMS = (32, 64, 80, 128, 160)  # head sizes the kernel is instantiated for
 MAX_SMEM = 232448          # bytes of shared memory a block may use (H100)
 
@@ -193,8 +202,10 @@ class Plan(NamedTuple):
     rows_per_block: int    # query rows per block: all G·T, or a multiple of 16
     smem: int              # dynamic shared bytes per block
     stages: int            # K/V chunks in flight per block (cp.async groups)
-    nsplit: int            # 128-key splits of S: depends on S alone
+    nsplit: int            # splits of S: depends on S alone
     threads: int           # threads per block
+    split_len: int = SPLIT_LEN  # keys per split: depends on S alone
+    slices: int = 1        # key slices per split, one warp each per 16-row tile (ring body)
 
 
 def _even_blocks(rows: int, cap: int) -> int:
@@ -204,10 +215,49 @@ def _even_blocks(rows: int, cap: int) -> int:
     return -(-(-(-rows // blocks)) // TILE) * TILE
 
 
+def ring_split_len(S: int) -> int:
+    """Keys per split of the ring body, from S alone: whole RING_CHUNK-key
+    chunks, as few as make RING_SPLITS splits, between 128 and
+    RING_MAX_SPLIT keys.  A ring of 2048 slots or more then takes 16 splits
+    (17 once a split would pass 512 keys): at B 1 and 8 KV heads 128 blocks
+    for the 132 SMs, at B 4 512 blocks, two per SM in two rounds (17
+    splits left 16 blocks to a third); and a long ring writes fewer f32
+    partials (272 keys at the 7B's 4224 slots: 16 splits, not 128-key
+    splits' 33)."""
+    chunks = -(-S // RING_CHUNK)
+    per_split = -(-chunks // RING_SPLITS)
+    return RING_CHUNK * max(SPLIT_LEN // RING_CHUNK,
+                            min(RING_MAX_SPLIT // RING_CHUNK, per_split))
+
+
+def ring_smem(rows_per_block: int, dh: int, int8: bool) -> int:
+    """Dynamic shared bytes of the ring body (``flash_ring_mma_kernel``):
+    the block's query rows and the slices' stages
+    (:func:`ring_slices_bytes`), which the fold and the merge reuse."""
+    return -(-rows_per_block // TILE) * TILE * (2 * dh + 16) + ring_slices_bytes(dh, int8)
+
+
+def ring_slices_bytes(dh: int, int8: bool) -> int:
+    """The ring body's stage bytes (``SLICE`` in ``csrc/flash_decode.cu``)
+    for all RING_SLICES slices: RING_STAGES chunks each of K and V rows
+    and the chunk's positions (int8: and scales) and, for int8 K/V, one
+    chunk widened to bf16."""
+    brow = 2 * dh + 16
+    krow = dh if int8 else brow
+    stage = 2 * RING_CHUNK * krow + 4 * RING_CHUNK + (2 * 4 * RING_CHUNK if int8 else 0)
+    return RING_SLICES * (RING_STAGES * stage + (2 * RING_CHUNK * brow if int8 else 0))
+
+
 def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
-                kv_dtype: torch.dtype) -> Plan:
+                kv_dtype: torch.dtype, ring: bool = False) -> Plan:
     """The launch plan for ``rows`` = G·T query rows per KV head over S
-    cached keys.
+    cached keys (``ring``: a ring cache read through ``kpos``).
+
+    A ring with bf16 queries takes the ring body: splits of
+    :func:`ring_split_len` keys, each split's RING_CHUNK-key chunks dealt
+    to RING_SLICES key slices that stream them through RING_STAGES stages
+    each; one warp per (16-row tile, slice), at most RING_ROWS rows per
+    block (wider windows spread over row blocks).
 
     bf16 queries take the tensor-core body: one block holds all rows up to
     MMA_ROWS (one warp per 16-row tile, at least 4 warps to run the
@@ -217,6 +267,15 @@ def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
     widened to f32 one 32-key chunk at a time), with as many rows per block
     as keep two blocks on an SM."""
     nsplit = -(-S // SPLIT_LEN)
+    if q_dtype == torch.bfloat16 and ring:
+        split = ring_split_len(S)
+        rpb = rows if rows <= RING_ROWS else _even_blocks(rows, RING_ROWS)
+        ring_nsplit = -(-S // split)
+        if 4 * (2 * ring_nsplit + 1) * RING_ROWS > ring_slices_bytes(dh, kv_dtype == torch.int8):
+            raise ValueError(f"flash_decode: a ring of {S} slots needs {ring_nsplit} splits, "
+                             "more than the ring body's merge holds")
+        return Plan(rpb, ring_smem(rpb, dh, kv_dtype == torch.int8), RING_STAGES, ring_nsplit,
+                    32 * RING_SLICES * -(-rpb // TILE), split, RING_SLICES)
     if q_dtype == torch.bfloat16:
         rpb = rows if rows <= MMA_ROWS else _even_blocks(rows, MMA_ROWS)
         tiles = -(-rpb // TILE)
@@ -240,6 +299,26 @@ def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
     return Plan(rpb, f32_smem(rpb), 1, nsplit, 256)
 
 
+_RING_COUNTERS: dict = {}   # device → every counter buffer made there, the newest last
+
+
+def ring_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the ring body's merge, one
+    per (b, kv head, row block), shared by every ring read on ``device``:
+    the last block of each (b, kv head, row block) sets its counter back to
+    0, so the buffer is zero between launches and a CUDA graph replays a
+    captured launch.  A buffer is made (or grown) outside a graph capture,
+    and none is freed (a graph holds the pointer it captured); ring reads
+    on one card run on one stream at a time, as every launch of the port."""
+    bufs = _RING_COUNTERS.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: the ring read's counters must grow outside a "
+                               "CUDA graph capture: run the step once eagerly first")
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=device))
+    return bufs[-1]
+
+
 def _check_table(q, k, bt) -> None:
     if bt.dim() != 2 or bt.shape[0] != q.shape[0] or bt.shape[1] < 1 \
             or bt.dtype != torch.int32:
@@ -254,15 +333,17 @@ def _check_table(q, k, bt) -> None:
 def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None,
             count_as=None, kpos=None, window=None):
     """Launch the split and merge kernels on contiguous K/V (a ring with
-    ``kpos``/``window``), or on pools through the block table ``bt``
-    (logical length nb·bs); the launch is counted under ``count_as`` when
-    given (the cross-attention read)."""
+    ``kpos``/``window``: with bf16 queries the ring body, which merges its
+    splits itself), or on pools through the block table ``bt`` (logical
+    length nb·bs); the launch is counted under ``count_as`` when given (the
+    cross-attention read)."""
     B, T, Hq, dh = q.shape
     paged = bt is not None
     S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
     Hkv = k.shape[2]
     R = (Hq // Hkv) * T
-    plan = launch_plan(R, S, dh, q.dtype, k.dtype)
+    ring = kpos is not None
+    plan = launch_plan(R, S, dh, q.dtype, k.dtype, ring=ring)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: the kernel loads K/V in 16-byte vectors; "
                          "k and v must be 16-byte aligned")
@@ -276,29 +357,32 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
     tree = tree_mask is not None
     if tree and tree_bits is None:
         tree_bits = tree_mask_bits(tree_mask)
-    tail = [int(q.dtype == torch.bfloat16), int(int8), nsplit, plan.rows_per_block,
-            plan.threads, plan.smem, dh ** -0.5, ops.stream(q)]
-    tail_types = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+    head = [int(q.dtype == torch.bfloat16), int(int8), nsplit]
+    tail = [plan.rows_per_block, plan.threads, plan.smem, dh ** -0.5, ops.stream(q)]
+    tail_types = [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
     if paged:
         fn = ops.c_function("flash_decode", "flash_decode_paged_launch",
                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                            + [ctypes.c_int] * 5 + tail_types)
+                            + [ctypes.c_int] * 8 + tail_types)
         err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
                  ops.ptr(bt), bt.shape[1], k.shape[1], ops.ptr(qpos), ops.ptr(tree_bits),
                  ops.ptr(win_start), -(-T // 32), ops.ptr(out), ops.ptr(part_m),
-                 ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, dh, *tail)
+                 ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, dh, *head, *tail)
     else:
+        counters = None
+        if ring and q.dtype == torch.bfloat16:      # the ring body merges its splits itself
+            counters = ring_counters(q.device, B * Hkv * -(-R // plan.rows_per_block))
         fn = ops.c_function("flash_decode", "flash_decode_launch",
                             [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
-                                                     ctypes.c_int] + [ctypes.c_void_p] * 4
-                            + [ctypes.c_int] * 6 + tail_types)
+                                                     ctypes.c_int] + [ctypes.c_void_p] * 5
+                            + [ctypes.c_int] * 10 + tail_types)
         err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(k_scale), ops.ptr(v_scale),
                  ops.ptr(qpos), ops.ptr(tree_bits), ops.ptr(win_start),
                  -(-T // 32), ops.ptr(kpos), int(window or 0), ops.ptr(out), ops.ptr(part_m),
-                 ops.ptr(part_l), ops.ptr(part_acc), B, T, Hq, Hkv, S, dh, *tail)
+                 ops.ptr(part_l), ops.ptr(part_acc), ops.ptr(counters), B, T, Hq, Hkv, S, dh,
+                 *head, plan.split_len, *tail)
     ops.check("flash_decode", err)
-    ring = kpos is not None
     ops.LAUNCHES[count_as or "flash_decode" + "_paged" * paged + "_tree" * tree
                  + "_ring" * ring + "_int8" * int8] += 1
     return out

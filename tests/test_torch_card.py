@@ -646,18 +646,26 @@ def _ring_kw(cache, window):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,window,hkv,g,dh", [
-    (2, 1, 8, 2, 2, 64),         # a ring of 136 slots: two splits, the last partial
-    (2, 6, 8, 2, 2, 64),
-    (4, 6, 4096, 8, 4, 128),     # quasar-paper-7b at long_500k's window (4224 slots)
-    (4, 1, 4096, 8, 4, 128),
-    (2, 6, 64, 32, 1, 80),       # zamba2's shared attention
-    (2, 6, 64, 8, 4, 160)])      # stablelm-12b
-def test_flash_decode_ring_matches_plain_on_card(dev, b, t, window, hkv, g, dh, dtype, int8):
-    """The ring variant (``kpos``/``window``) over a wrapped ring against
-    its plain version: every key at most ``window - 1`` positions back
-    visible, the rest (older keys, unwritten or future slots) masked."""
-    q, cache, qpos = _ring_attn(dev, b, t, window, hkv, g, dh, dtype, int8, seed=window + t)
+@pytest.mark.parametrize("b,t,window,hkv,g,dh,past", [
+    (2, 1, 8, 2, 2, 64, None),         # a ring of 136 slots: two splits, the last partial
+    (2, 6, 8, 2, 2, 64, None),
+    (4, 6, 4096, 8, 4, 128, None),     # quasar-paper-7b at long_500k's window (4224 slots)
+    (4, 1, 4096, 8, 4, 128, None),
+    (1, 6, 4096, 8, 4, 128, None),     # the long_500k read's B 1
+    (1, 1, 4096, 8, 4, 128, None),
+    (4, 6, 4096, 8, 4, 128, 1024),     # partly filled: slots past 1030 unwritten
+    (1, 1, 4096, 8, 4, 128, 1024),
+    (2, 6, 4096, 8, 4, 128, 0),        # a fresh ring: the window's own keys alone
+    (2, 6, 64, 32, 1, 80, None),       # zamba2's shared attention
+    (2, 6, 64, 8, 4, 160, None)])      # stablelm-12b
+def test_flash_decode_ring_matches_plain_on_card(dev, b, t, window, hkv, g, dh, past, dtype,
+                                                 int8):
+    """The ring variant (``kpos``/``window``) over a wrapped, a partly
+    filled and a fresh ring against its plain version: every key at most
+    ``window - 1`` positions back visible, the rest (older keys, unwritten
+    or future slots) masked."""
+    q, cache, qpos = _ring_attn(dev, b, t, window, hkv, g, dh, dtype, int8, seed=window + t,
+                                past=past)
     kw = _ring_kw(cache, window)
     ops.reset_launch_counts()
     o = flash_decode(q, cache["k"], cache["v"], qpos, **kw)
@@ -668,32 +676,42 @@ def test_flash_decode_ring_matches_plain_on_card(dev, b, t, window, hkv, g, dh, 
         torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
     else:
         torch.testing.assert_close(o.float(), ro.float(), rtol=2 ** -7, atol=1e-5)
-    # the window matters: without it (every older key visible) the output moves
-    wide = flash_decode_ref(q, cache["k"], cache["v"], qpos, k_scale=kw["k_scale"],
-                            v_scale=kw["v_scale"], kpos=cache["kpos"], window=2 ** 29)
-    assert (wide.float() - ro.float()).abs().max() > 1e-2
+    # the window matters once the ring holds keys older than it: without it
+    # (every older key visible) the output moves
+    if int(qpos.max()) >= window:
+        wide = flash_decode_ref(q, cache["k"], cache["v"], qpos, k_scale=kw["k_scale"],
+                                v_scale=kw["v_scale"], kpos=cache["kpos"], window=2 ** 29)
+        assert (wide.float() - ro.float()).abs().max() > 1e-2
 
 
+@pytest.mark.parametrize("past", [None, 1024])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dh", [64, 80, 128, 160])
-def test_flash_decode_ring_rows_do_not_depend_on_window_or_batch(dev, dh, int8):
-    """Over a wrapped ring a row's bits are the same alone (T = 1 at its
-    position) as first in the verify window (T = 6), and alone (B = 1) as in
-    the batch of 4: every split is read whatever T, and the split layout
-    depends on S alone."""
-    q, cache, qpos = _ring_attn(dev, 4, 6, 4096, 8, 4, dh, torch.bfloat16, int8, seed=dh)
+def test_flash_decode_ring_rows_do_not_depend_on_window_or_batch(dev, dh, int8, past):
+    """Over a wrapped ring (``past`` None) and a partly filled one (1030 of
+    4224 slots written, the rest unwritten) a row's bits are the same in a
+    window of any T in 1..6 (its first T rows) as in the verify window of
+    6, and in a batch of 1 or 2 as in the batch of 4: the splits, the key
+    slices and the chunks' order depend on S alone, and a chunk skipped
+    for one window (no row of its block sees it) adds exact zeros in the
+    other."""
+    q, cache, qpos = _ring_attn(dev, 4, 6, 4096, 8, 4, dh, torch.bfloat16, int8, seed=dh,
+                                past=past)
     kw = _ring_kw(cache, 4096)
     full = flash_decode(q, cache["k"], cache["v"], qpos, **kw)
-    first = flash_decode(q[:, :1].contiguous(), cache["k"], cache["v"],
-                         qpos[:, :1].contiguous(), **kw)
-    assert torch.equal(full[:, :1], first)
-    for b in range(4):
-        one = {n: (x[b:b + 1].contiguous() if isinstance(x, torch.Tensor) else x)
-               for n, x in kw.items()}
-        alone = flash_decode(q[b:b + 1].contiguous(), cache["k"][b:b + 1].contiguous(),
-                             cache["v"][b:b + 1].contiguous(), qpos[b:b + 1].contiguous(),
-                             **one)
-        assert torch.equal(alone, full[b:b + 1])
+    for t in range(1, 7):
+        first = flash_decode(q[:, :t].contiguous(), cache["k"], cache["v"],
+                             qpos[:, :t].contiguous(), **kw)
+        assert torch.equal(full[:, :t], first), t
+    for n in (1, 2):
+        for b in range(0, 4, n):
+            rows = slice(b, b + n)
+            one = {k: (x[rows].contiguous() if isinstance(x, torch.Tensor) else x)
+                   for k, x in kw.items()}
+            alone = flash_decode(q[rows].contiguous(), cache["k"][rows].contiguous(),
+                                 cache["v"][rows].contiguous(), qpos[rows].contiguous(),
+                                 **one)
+            assert torch.equal(alone, full[rows]), (n, b)
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

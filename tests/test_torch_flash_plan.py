@@ -6,8 +6,9 @@ Imports only ``repro_torch.kernels.flash_decode`` (no card, no nvcc)."""
 import pytest
 import torch
 
-from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_SMEM, MMA_ROWS, SPLIT_LEN, TILE,
-                                              launch_plan)
+from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_SMEM, MMA_ROWS, RING_CHUNK,
+                                              RING_ROWS, RING_SLICES, SPLIT_LEN, TILE,
+                                              launch_plan, ring_slices_bytes, ring_split_len)
 
 # (q dtype, K/V dtype) pairs the kernel is instantiated for
 TYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
@@ -64,3 +65,66 @@ def test_plan_at_the_7b_windows():
     assert launch_plan(88, 1152, 128, bf16, i8).threads == 192
     assert launch_plan(340, 1280, 128, bf16, bf16).rows_per_block == 128
     assert launch_plan(260, 1280, 128, bf16, bf16).rows_per_block == 96
+
+
+RING_S = (136, 144, 192, 1152, 2176, 4096, 4224, 6272, 8320, 16512)
+SM_SMEM = 233472           # shared memory of one H100 SM; each block reserves 1 KB of it
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_ring_split_and_slices_depend_on_s_and_dh_alone(dh, kv_dtype):
+    """The ring body's split length, split count and key slices follow S
+    (and dh) alone — never T, G·T or B (B is no argument of the plan) — so
+    a row sums its keys in the same order whatever window it sits in."""
+    for S in RING_S:
+        plans = [launch_plan(rows, S, dh, torch.bfloat16, kv_dtype, ring=True)
+                 for rows in ROWS + [g * t for g in (1, 3, 4, 8) for t in range(1, 8)]]
+        assert {(p.split_len, p.nsplit, p.slices) for p in plans} == {
+            (ring_split_len(S), -(-S // ring_split_len(S)), RING_SLICES)}
+        split = ring_split_len(S)
+        assert split % RING_CHUNK == 0 and SPLIT_LEN <= split <= 512
+    # 16 splits or more from 2048 slots on: B 1 at 8 KV heads fills the SMs;
+    # the 7B's 4224-slot ring in 16 splits of 17 chunks
+    assert all(-(-S // ring_split_len(S)) >= 16 for S in RING_S if S >= 2048)
+    assert (ring_split_len(4224), -(-4224 // ring_split_len(4224))) == (272, 16)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dh", [64, 80, 128, 160])
+def test_ring_plan_fits_the_card(dh, kv_dtype):
+    """The ring body's block fits the H100's shared memory at every window
+    up to 24 rows per KV head and beyond (row blocks of at most RING_ROWS),
+    two blocks per SM up to dh 128 (each block also holds 16 static bytes
+    and the 1 KB the card reserves), with one warp per (16-row tile, key
+    slice); its fold's accumulators and its merge's per-split sums fit in
+    the slots they reuse."""
+    for rows in range(1, 97):
+        p = launch_plan(rows, 4224, dh, torch.bfloat16, kv_dtype, ring=True)
+        assert 0 < p.smem <= MAX_SMEM
+        assert p.rows_per_block <= RING_ROWS
+        assert p.rows_per_block == rows or p.rows_per_block % TILE == 0
+        blocks = -(-rows // p.rows_per_block)
+        assert (blocks - 1) * p.rows_per_block < rows <= blocks * p.rows_per_block
+        assert p.threads == 32 * RING_SLICES * -(-p.rows_per_block // TILE)
+        rp = -(-p.rows_per_block // TILE) * TILE
+        slots = ring_slices_bytes(dh, kv_dtype == torch.int8)
+        assert slots <= p.smem - rp * (2 * dh + 16)
+        # the fold's accumulators, m, l and weights; the merge's m, l per split
+        assert 4 * (RING_SLICES * rp * (dh + 8) + 3 * RING_SLICES * RING_ROWS) <= slots
+        assert 4 * (2 * p.nsplit + 1) * RING_ROWS <= slots
+        if dh <= 128:
+            assert 2 * (p.smem + 16 + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", TYPES)
+def test_non_ring_plans_are_unchanged_by_the_ring_body(q_dtype, kv_dtype):
+    """A chain, tree, paged or cross read keeps 128-key splits and its
+    plan; an f32 ring keeps the f32 body's plan (128-key splits)."""
+    for dh in HEAD_DIMS:
+        for rows in ROWS:
+            for S in (128, 1152, 4224):
+                p = launch_plan(rows, S, dh, q_dtype, kv_dtype)
+                assert (p.split_len, p.slices, p.nsplit) == (SPLIT_LEN, 1, -(-S // SPLIT_LEN))
+                if q_dtype == torch.float32:
+                    assert launch_plan(rows, S, dh, q_dtype, kv_dtype, ring=True) == p
