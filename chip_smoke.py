@@ -158,7 +158,11 @@
 10. Families phase (:func:`families_phase`): codeqwen1.5-7b, stablelm-12b,
     llama-3.2-vision-90b (20 of 100 layers) and whisper-small at full
     width, their kernels at their shapes, every run through graphs and
-    again eagerly, spec ≡ vanilla.
+    again eagerly, spec ≡ vanilla.  Every step window (here and in the
+    profile and graph phases) also gives the device kernels run per step
+    and the device time per launch in the graph of the kernels in
+    ``KERNEL_SYMBOLS`` (the fused norm, the cross read), printed beside
+    their flushed kernel-phase times.
 11. Train phase (:func:`train_phase`, ``repro_torch/train``): the
     gradients of ``ssd_update`` and of the cross read against their plain
     versions' (f32, within 1e-4 of each tensor's max) and a wrapper with no
@@ -277,6 +281,10 @@ GRAPH_WINDOWS = ("spec_w8a8_kv_bf16", "spec_w4a8_kv_bf16", "tree_w8a8_kv_bf16",
                  "paged_w8a8_kv_bf16")
 W8A8_CHAIN_LAUNCHES = {"norm_smooth_quant": 65, "smooth_quant": 64, "int8_matmul": 225,
                        "flash_decode": 32}
+KERNEL_SYMBOLS = {                 # launch counter -> its device kernel: a name holding
+    "norm_smooth_quant": [("norm_quant_kernel",)],             # every substring of one tuple
+    "flash_decode_cross": [("flash_sliced_kernel", "false>")],
+}
 SERVER_REQUESTS, SERVER_SLOTS = 16, 8
 HOPELESS = (5, 9, 11)              # (s1): priority 1, a deadline no slot frees in time
 SERVER_STEP_S = 0.02               # (s1), (s3): virtual seconds per decode step
@@ -825,13 +833,26 @@ def step_window(torch, engine, params, prompts, steps: int = WINDOW_STEPS,
 
 
 def window_info(torch, prof, step_ms, cpu_ms, wall_ms, launches) -> dict:
-    busy_ms, top = device_time(torch, prof)
+    """A window's numbers; ``in_graph_ms_per_launch``: the device time of
+    each KERNEL_SYMBOLS kernel that launched in the window over its
+    launches, the kernel as the step runs it (its inputs just written, in
+    L2) rather than after a flush."""
+    busy_ms, top, by_name, kernels = device_time(torch, prof)
     busy = busy_ms / PROFILE_STEPS if busy_ms else None
+    in_graph = {}
+    for counter, names in KERNEL_SYMBOLS.items():
+        n = launches.get(counter, 0) * PROFILE_STEPS
+        ms = sum(v for k, v in by_name.items()
+                 if any(all(p in k for p in parts) for parts in names))
+        if n and ms:
+            in_graph[counter] = ms / n
     return dict(step_ms=step_ms, cpu_ms=cpu_ms, profiled_step_ms=wall_ms / PROFILE_STEPS,
                 device_busy_ms_per_step=busy,
                 device_idle_share=(1 - busy / step_ms) if busy else None,
                 device_idle_share_profiled=(1 - busy_ms / wall_ms) if busy_ms else None,
-                launches_per_step=launches, top_kernels_ms=top)
+                launches_per_step=launches, top_kernels_ms=top,
+                device_kernels_per_step=kernels / PROFILE_STEPS,
+                in_graph_ms_per_launch=in_graph)
 
 
 def profile_phase(torch, dev, verifier: str, drafter: str, kv: str, branches=None):
@@ -1644,18 +1665,21 @@ def tick_window(torch, engine, params, reqs, steps: int = WINDOW_STEPS) -> dict:
 
 
 def device_time(torch, prof):
-    """(device busy ms, top kernels [[name, ms]]) of a torch.profiler run:
-    device-side events only — a host-side op such as aten::mul also carries
-    its kernel's time, which would count twice."""
-    by_name = {}
+    """(device busy ms, top kernels [[name, ms]], {name: ms}, kernels run)
+    of a torch.profiler run: device-side events only — a host-side op such
+    as aten::mul also carries its kernel's time, which would count twice;
+    copies and fills (Memcpy, Memset) are not counted as kernels."""
+    by_name, kernels = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU:
             continue
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
     top = sorted(by_name.items(), key=lambda item: -item[1])[:12]
-    return sum(by_name.values()), [[k[:90], v] for k, v in top]
+    return sum(by_name.values()), [[k[:90], v] for k, v in top], by_name, kernels
 
 
 def paged_lossless_gate(torch, dev):
@@ -2943,6 +2967,8 @@ def families_phase(torch, dev, flush):
     t_phase = time.perf_counter()
     kern = families_kernel_phase(torch, dev, flush)
     out = {"kernel_phase_s": time.perf_counter() - t_phase}
+    cross_flushed = {"vision": kern["flash_decode_cross"][0]["ms"],   # cross_rows' order
+                     "whisper": kern["flash_decode_cross"][1]["ms"]}
     runs, toks, replayed = {}, {}, []
 
     def replay_equals_eager(name, model, scfg, run, graph_out, graph_launches):
@@ -2999,7 +3025,9 @@ def families_phase(torch, dev, flush):
         w = info.get("window", {})
         log(f"  {name}: L={info['L']:.3f} steps={info['steps']} tok/s={info['tok_s']:.1f} "
             f"step_ms={w.get('step_ms')} busy_ms={w.get('device_busy_ms_per_step')} "
-            f"idle={w.get('device_idle_share')} capture_ms={info['capture_ms']:.1f} "
+            f"idle={w.get('device_idle_share')} kernels/step={w.get('device_kernels_per_step')} "
+            f"in_graph_ms_per_launch={w.get('in_graph_ms_per_launch')} (cross read flushed "
+            f"bench {cross_flushed.get(name.split('_')[0])} ms) capture_ms={info['capture_ms']:.1f} "
             f"launches={info['launches']} graph_s={info['graph_s']:.1f} "
             f"eager_s={info['eager_s']:.1f} peak_gb={info['peak_mem_gb']:.1f}")
         runs[name] = info
@@ -3305,7 +3333,7 @@ def train_breakdown(torch, run, cfg, batch) -> dict:
         adamw_update(opt_cfg, leaves, grads, opt)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy, _ = device_time(torch, prof)
+    busy = device_time(torch, prof)[0]
     del grads
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3313,7 +3341,7 @@ def train_breakdown(torch, run, cfg, batch) -> dict:
         run.step(params, opt, batch)
         torch.cuda.synchronize()
         replay_wall_ms = 1e3 * (time.perf_counter() - t0)
-    replay_busy, top = device_time(torch, prof)
+    replay_busy, top = device_time(torch, prof)[:2]
     out.update(profiled_eager_step_ms=wall_ms, eager_device_busy_ms=busy,
                eager_idle_share=(1 - busy / wall_ms) if busy else None,
                graph_step_ms=run.step_ms, profiled_replay_ms=replay_wall_ms,
@@ -3703,7 +3731,11 @@ def main() -> int:
                 f"unprofiled step {p['step_ms']:.2f} ms; idle "
                 f"{p['device_idle_share_profiled']:.3f} under the profiler, "
                 f"{p['device_idle_share']:.3f} of the unprofiled step; launches per step "
-                f"{p['launches_per_step']}")
+                f"{p['launches_per_step']}; device kernels per step "
+                f"{p['device_kernels_per_step']:.1f}")
+        nsq = kern["norm_smooth_quant"][1]
+        log(f"  {run}: in the graph, ms per launch {p['in_graph_ms_per_launch']} "
+            f"(norm_smooth_quant flushed bench {nsq['ms']:.4f} ms at {nsq['shape']})")
     log("graph phase")
     model7, raw7, prepared7 = seven_b(torch, dev)
     graph = graph_phase(torch, dev, model7, prepared7)

@@ -19,7 +19,7 @@
 // window.  Once the ring has wrapped any slot can be live, so no split is
 // past the live range; the split layout depends on S alone, so a row's bits
 // depend on neither T nor B.  bf16 queries read a ring through a body of
-// its own (flash_ring_mma_kernel, below); f32 queries through the f32 body.
+// its own (flash_sliced_kernel, below); f32 queries through the f32 body.
 // The reference reads a ring through plain jnp (repro/models/attention.py:242
 // attend); this variant is the port's own, for row invariance on the card.
 //
@@ -47,9 +47,10 @@
 // alone, never on T or B, a split past the live range is skipped, and a
 // second kernel merges the live splits in split order and divides by
 // max(l, 1e-30).  Three split bodies: the tensor-core body and the f32
-// body below, and the ring body (flash_ring_mma_kernel, its own note) for a
-// ring with bf16 queries, whose split length comes from S alone and which
-// merges its splits itself.
+// body below, and the sliced body (flash_sliced_kernel, its own note) for a
+// ring with bf16 queries and for the cross-attention read
+// (flash_decode_cross_launch), whose split length comes from S alone and
+// which merges its splits itself.
 //
 // * Tensor-core body (bf16 queries, bf16 or int8 K/V) — what the earlier
 //   CUDA-core kernel lost time to, and what this one does about it:
@@ -118,7 +119,7 @@ constexpr int RB = 8;           // f32 body: query rows per register block
 constexpr int RING_SLICES = 4;  // ring body: key slices per split (RING_SLICES in flash_decode.py)
 constexpr int RING_ROWS = 32;   // ring body: most query rows per block (two 16-row tiles)
 constexpr int RCK = 16;         // ring body: keys per chunk (one online-softmax update)
-constexpr int RING_STAGES = 3;  // ring body: chunk slots per slice (two in flight, one read)
+constexpr int RING_STAGES = 3;  // sliced body: chunk slots per slice (two in flight, one read)
 constexpr int RING_MAX_PAIRS = 4;  // ring body: most 32-key runs per slice (split <= 512 keys)
 constexpr int NEG_POS = -(1 << 30);  // an unwritten ring slot's position (models/attention.py)
 constexpr float MASK_VAL = -1e30f;
@@ -144,10 +145,10 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
 // window's last position + 1, and for a tree window at least
 // win_start + T (its packed nodes); never past S.  Keys from there on are
 // masked for every query row of the batch row.  A ring (kpos) may hold a
-// live key in any slot: S.
+// live key in any slot, and the cross read (no qpos) sees every slot: S.
 __device__ __forceinline__ int live_end(const int* __restrict__ qpos, const int* win_start,
                                         const int* kpos, int b, int T, int S) {
-  if (kpos != nullptr) return S;
+  if (kpos != nullptr || qpos == nullptr) return S;
   int e = 0;
   for (int t = 0; t < T; ++t) e = max(e, qpos[b * T + t] + 1);
   if (win_start != nullptr) e = max(e, win_start[b] + T);
@@ -263,7 +264,7 @@ flash_split_f32_kernel(const float* __restrict__ q, const KVT* __restrict__ k,
   for (int r = tid; r < R; r += kMaxThreads) {
     m_s[r] = MASK_VAL;
     l_s[r] = 0.f;
-    qpos_s[r] = qpos[b * T + (row0 + r) % T];
+    qpos_s[r] = qpos != nullptr ? qpos[b * T + (row0 + r) % T] : S - 1;  // cross: every key
   }
 
   for (int c0 = s_begin; c0 < s_end; c0 += CK) {
@@ -714,7 +715,8 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restric
 }
 
 // ---------------------------------------------------------------------------
-// Ring body (bf16 queries; bf16 or int8 K/V; a contiguous ring, no tree)
+// Sliced body (bf16 queries: a contiguous ring with bf16 or int8 K/V, no
+// tree; or the cross-attention read over bf16 K/V)
 // ---------------------------------------------------------------------------
 
 // Wait at named barrier id (1..15; 0 is __syncthreads) for n threads.
@@ -771,16 +773,37 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // run in the same order), a chunk is skipped only where it adds exact
 // zeros to every row of the block, and the fold and the merge run in slice
 // and split order.
-template <typename KVT, int DH>
-__global__ void __launch_bounds__(32 * 2 * RING_SLICES, DH > 128 ? 1 : 2)
-flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k,
-                      const KVT* __restrict__ v, const float* __restrict__ ks,
-                      const float* __restrict__ vs, const int* __restrict__ qpos,
-                      const int* __restrict__ kpos, int window,
-                      float* __restrict__ part_m, float* __restrict__ part_l,
-                      float* __restrict__ part_acc, int* __restrict__ counters,
-                      __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int S,
-                      int split_len, int rows_per_block, float scale) {
+//
+// The cross-attention read (RING false; bf16 queries and K/V, no kpos, no
+// qpos) runs the same body: every key is visible, so it makes and reads no
+// positions, skips no chunk and masks only the keys of the last chunk
+// past S.  It replaces no TPU kernel: the reference computes it as a plain
+// attend(causal=False) (repro/models/attention.py:459 cross_attention),
+// which the port first ran through the tensor-core body with every query
+// at Sa - 1 — 128-key splits (576 blocks of 32 KB at whisper's B 4), one
+// computing warp per 16-row tile, a fill kernel for the positions and a
+// merge kernel after it.  Bound: bytes (each K/V row once; 4*G*T
+// operations per element pair).  Here the splits come from S alone
+// (kernels/flash_decode.py cross_split: four of 384 keys at whisper's 1500
+// frames, of 400 at vision's 1600 image tokens), so B 4 runs one round of
+// 192 and 128 blocks; a block holds up to cross_rows(DH) = 64 query rows
+// (vision's 48 rows per KV head in one block: K/V read once); and the
+// splits merge in the launch as the ring's do.
+template <int DH>
+__host__ __device__ constexpr int sliced_threads(bool ring) {  // most threads of a block: tiles * RING_SLICES warps
+  return 32 * RING_SLICES * (ring ? RING_ROWS : DH > 128 ? 32 : 64) / 16;
+}
+template <typename KVT, int DH, bool RING>
+__global__ void __launch_bounds__(sliced_threads<DH>(RING), RING && DH <= 128 ? 2 : 1)
+flash_sliced_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k,
+                    const KVT* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ qpos,
+                    const int* __restrict__ kpos, int window,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int* __restrict__ counters,
+                    __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int S,
+                    int split_len, int rows_per_block, float scale) {
+  static_assert(RING || sizeof(KVT) == 2, "the cross read's K/V are bf16");
   constexpr bool kInt8 = sizeof(KVT) == 1;
   constexpr int EPV = 16 / sizeof(KVT);               // K/V elements per 16-byte copy
   constexpr int VPR = DH / EPV;                       // copies per key row
@@ -788,8 +811,8 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   constexpr int KROW = kInt8 ? DH : BROW;             // a staged K/V row (int8 rows unpadded)
   constexpr int NDT = DH / 8;                         // dim tiles of 8
   constexpr int KST = DH / 16;                        // k steps of q.k
-  // a stage: K and V rows, positions; int8: scales
-  constexpr int STAGE = 2 * RCK * KROW + 4 * RCK + (kInt8 ? 2 * 4 * RCK : 0);
+  // a stage: K and V rows; a ring: positions; int8: scales
+  constexpr int STAGE = 2 * RCK * KROW + (RING ? 4 * RCK : 0) + (kInt8 ? 2 * 4 * RCK : 0);
   // a slice: its stages; int8: one chunk widened to bf16
   constexpr int SLICE = RING_STAGES * STAGE + (kInt8 ? 2 * RCK * BROW : 0);
   const int bh = blockIdx.x, b = bh / Hkv, h = bh % Hkv;
@@ -807,7 +830,7 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   const int c_lo = slice * nchunks / RING_SLICES, c_hi = (slice + 1) * nchunks / RING_SLICES;
   const int sl_keys = (c_hi - c_lo) * RCK;            // at most 32 * RING_MAX_PAIRS
   const int k0 = split * split_len + c_lo * RCK;      // the slice's first key
-  const int* kpos_b = kpos + static_cast<int64_t>(b) * S;
+  const int* kpos_b = RING ? kpos + static_cast<int64_t>(b) * S : nullptr;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s = smem_raw;                      // [Rp][BROW]
@@ -819,10 +842,13 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   // (rows FROW floats apart: a warp's fragment stores fall in distinct
   // banks), and its m, l and weight exp(m - max m) per row
   constexpr int FROW = DH + 8;
+  // (the per-row arrays RS floats apart: the ring's most rows, the cross
+  // read's block rows)
+  const int RS = RING ? RING_ROWS : Rp;
   float* facc = reinterpret_cast<float*>(slots);      // [RING_SLICES][Rp][FROW]
-  float* fm = facc + RING_SLICES * Rp * FROW;         // [RING_SLICES][RING_ROWS]
-  float* fl = fm + RING_SLICES * RING_ROWS;
-  float* fw = fl + RING_SLICES * RING_ROWS;
+  float* fm = facc + RING_SLICES * Rp * FROW;         // [RING_SLICES][RS]
+  float* fl = fm + RING_SLICES * RS;
+  float* fw = fl + RING_SLICES * RS;
   __shared__ int is_last;
 
   // the block's query rows (local row r = query row row0 + r = g*T + t),
@@ -835,36 +861,41 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
     cp_async16(q_s + r * BROW + c * 2, src, ok);
   }
   cp_async_commit();
-  // the skip test: the slice's positions, 32 keys per load (lane j: key j
-  // of each 32; NEG_POS past S), and the span [qlo, qhi] of the block's
-  // query positions (lane i: position i), all loads in flight at once
-  int kp[RING_MAX_PAIRS];
+  unsigned todo = 0;  // bit c: chunk c of the slice is read (the same in every warp of the slice)
+  if constexpr (RING) {
+    // the skip test: the slice's positions, 32 keys per load (lane j: key j
+    // of each 32; NEG_POS past S), and the span [qlo, qhi] of the block's
+    // query positions (lane i: position i), all loads in flight at once
+    int kp[RING_MAX_PAIRS];
 #pragma unroll
-  for (int c = 0; c < RING_MAX_PAIRS; ++c) {
-    const int s = k0 + 32 * c + lane;
-    kp[c] = 32 * c + lane < sl_keys && s < S ? __ldg(kpos_b + s) : NEG_POS;
-  }
-  int qlo = 0x7fffffff, qhi = -0x7fffffff - 1;
-  for (int i = lane; i < min(R, T); i += 32) {
-    const int p = __ldg(qpos + b * T + (row0 + i) % T);
-    qlo = min(qlo, p);
-    qhi = max(qhi, p);
-  }
+    for (int c = 0; c < RING_MAX_PAIRS; ++c) {
+      const int s = k0 + 32 * c + lane;
+      kp[c] = 32 * c + lane < sl_keys && s < S ? __ldg(kpos_b + s) : NEG_POS;
+    }
+    int qlo = 0x7fffffff, qhi = -0x7fffffff - 1;
+    for (int i = lane; i < min(R, T); i += 32) {
+      const int p = __ldg(qpos + b * T + (row0 + i) % T);
+      qlo = min(qlo, p);
+      qhi = max(qhi, p);
+    }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
-    qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
-  }
-  // a key at kpl may be seen by some query row of the block iff kpl <= p <
-  // kpl + window for a position p in [qlo, qhi] (|p|, |kpl| <= 2^30: no
-  // overflow); bit c of `todo`: chunk c of the slice holds such a key (the
-  // same in every warp of the slice)
-  unsigned todo = 0;
+    for (int o = 16; o > 0; o >>= 1) {
+      qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
+      qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
+    }
+    // a key at kpl may be seen by some query row of the block iff kpl <= p <
+    // kpl + window for a position p in [qlo, qhi] (|p|, |kpl| <= 2^30: no
+    // overflow): chunk c holds such a key
 #pragma unroll
-  for (int c = 0; c < RING_MAX_PAIRS; ++c) {
-    const unsigned seen = __ballot_sync(0xffffffffu, kp[c] <= qhi && qlo - kp[c] < window);
-    todo |= (static_cast<unsigned>((seen & 0xffffu) != 0) |
-             (static_cast<unsigned>((seen >> 16) != 0) << 1)) << (2 * c);
+    for (int c = 0; c < RING_MAX_PAIRS; ++c) {
+      const unsigned seen = __ballot_sync(0xffffffffu, kp[c] <= qhi && qlo - kp[c] < window);
+      todo |= (static_cast<unsigned>((seen & 0xffffu) != 0) |
+               (static_cast<unsigned>((seen >> 16) != 0) << 1)) << (2 * c);
+    }
+  } else {
+    // the cross read: every chunk that starts before S
+    const int n = min(sl_keys / RCK, max(0, (S - k0 + RCK - 1) / RCK));
+    todo = (1u << n) - 1u;
   }
   const int nlive = __popc(todo);
 
@@ -887,7 +918,7 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
         cp_async16(st + RCK * KROW + dst, v + off, ok);
       }
       int* kp_s = reinterpret_cast<int*>(st + 2 * RCK * KROW);
-      for (int j = stid; j < RCK; j += sl_threads) {
+      for (int j = stid; j < RCK && RING; j += sl_threads) {
         const int s = cb + j;
         cp_async4(kp_s + j, kpos_b + (s < S ? s : 0), s < S);  // past S: masked below
         if constexpr (kInt8) {
@@ -912,7 +943,7 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   for (int i = 0; i < 2; ++i) {
     const int r = tr0 + g + 8 * i;
     live[i] = r < R;
-    qp[i] = live[i] ? __ldg(qpos + b * T + (row0 + r) % T) : 0;
+    qp[i] = RING && live[i] ? __ldg(qpos + b * T + (row0 + r) % T) : 0;
     m[i] = MASK_VAL;
     l[i] = 0.f;
   }
@@ -975,8 +1006,13 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
         const int i2 = e >> 1, j = 8 * n + 2 * c4 + (e & 1);
         float x = sc[n][e] * scale;
         if constexpr (kInt8) x = x * __int_as_float(kp_s[RCK + j]);
-        const int d = qp[i2] - kp_s[j];
-        const bool ok = live[i2] && cb + j < S && d >= 0 && d < window;
+        bool ok;
+        if constexpr (RING) {
+          const int d = qp[i2] - kp_s[j];
+          ok = live[i2] && cb + j < S && d >= 0 && d < window;
+        } else {
+          ok = cb + j < S;  // only the last chunk holds keys past S
+        }
         okbits |= static_cast<unsigned>(ok) << (4 * n + e);
         sc[n][e] = ok ? x : MASK_VAL;
         mx[i2] = fmaxf(mx[i2], sc[n][e]);
@@ -1039,8 +1075,8 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   for (int i = 0; i < 2; ++i) {
     const int r = tr0 + g + 8 * i;
     if (c4 == 0) {
-      fm[slice * RING_ROWS + r] = m[i];
-      fl[slice * RING_ROWS + r] = l[i];
+      fm[slice * RS + r] = m[i];
+      fl[slice * RS + r] = l[i];
     }
     float* o = facc + (slice * Rp + r) * FROW + 2 * c4;
 #pragma unroll
@@ -1054,13 +1090,13 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   for (int r = tid; r < R; r += nthr) {
     float mx = MASK_VAL;
 #pragma unroll
-    for (int s = 0; s < RING_SLICES; ++s) mx = fmaxf(mx, fm[s * RING_ROWS + r]);
+    for (int s = 0; s < RING_SLICES; ++s) mx = fmaxf(mx, fm[s * RS + r]);
     float sum = 0.f;
 #pragma unroll
     for (int s = 0; s < RING_SLICES; ++s) {
-      const float w = expf(fm[s * RING_ROWS + r] - mx);
-      fw[s * RING_ROWS + r] = w;
-      sum += fl[s * RING_ROWS + r] * w;
+      const float w = expf(fm[s * RS + r] - mx);
+      fw[s * RS + r] = w;
+      sum += fl[s * RS + r] * w;
     }
     part_m[base + r] = mx;
     part_l[base + r] = sum;
@@ -1072,7 +1108,7 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
 #pragma unroll
     for (int s = 0; s < RING_SLICES; ++s) {
       const float4 y = *reinterpret_cast<const float4*>(facc + (s * Rp + r) * FROW + d);
-      const float w = fw[s * RING_ROWS + r];
+      const float w = fw[s * RS + r];
       o.x += y.x * w;
       o.y += y.y * w;
       o.z += y.z * w;
@@ -1092,48 +1128,89 @@ flash_ring_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict
   // each split's maximum and sum for the block's rows (read through L2,
   // where the other blocks wrote them), then each row's maximum M, the
   // splits' weights exp(m_j - M) and the denominator, in split order
-  float* mw = reinterpret_cast<float*>(slots);        // [nsplit][RING_ROWS]: m_j, then weights
-  float* lw = mw + nsplit * RING_ROWS;                // [nsplit][RING_ROWS]: l_j
-  float* den = lw + nsplit * RING_ROWS;               // [RING_ROWS]: max(l, 1e-30)
+  float* mw = reinterpret_cast<float*>(slots);        // [nsplit][RS]: m_j, then weights
+  float* lw = mw + nsplit * RS;                       // [nsplit][RS]: l_j
+  float* den = lw + nsplit * RS;                      // [RS]: max(l, 1e-30)
   const int64_t rows0 = static_cast<int64_t>(bh) * nsplit * Rtot + row0;  // split 0, row 0
   for (int x = tid; x < nsplit * R; x += nthr) {
     const int j = x / R, r = x % R;
-    mw[j * RING_ROWS + r] = __ldcg(part_m + rows0 + static_cast<int64_t>(j) * Rtot + r);
-    lw[j * RING_ROWS + r] = __ldcg(part_l + rows0 + static_cast<int64_t>(j) * Rtot + r);
+    mw[j * RS + r] = __ldcg(part_m + rows0 + static_cast<int64_t>(j) * Rtot + r);
+    lw[j * RS + r] = __ldcg(part_l + rows0 + static_cast<int64_t>(j) * Rtot + r);
   }
   __syncthreads();
   for (int r = tid; r < R; r += nthr) {
     float mx = MASK_VAL;
-    for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, mw[j * RING_ROWS + r]);
+    for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, mw[j * RS + r]);
     float sum = 0.f;
     for (int j = 0; j < nsplit; ++j) {
-      const float w = expf(mw[j * RING_ROWS + r] - mx);
-      mw[j * RING_ROWS + r] = w;
-      sum += lw[j * RING_ROWS + r] * w;
+      const float w = expf(mw[j * RS + r] - mx);
+      mw[j * RS + r] = w;
+      sum += lw[j * RS + r] * w;
     }
     den[r] = fmaxf(sum, 1e-30f);
   }
   __syncthreads();
   // four output dims per item: the splits' partial accumulators in split order
-  for (int x = tid; x < R * (DH / 4); x += nthr) {
+  auto emit = [&](int x, const float4& o) {
     const int r = x / (DH / 4), d = (x % (DH / 4)) * 4, qr = row0 + r;
-    const float4* a = reinterpret_cast<const float4*>(part_acc + (rows0 + r) * DH + d);
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 16
-    for (int j = 0; j < nsplit; ++j) {
-      const float4 y = __ldcg(a + static_cast<int64_t>(j) * Rtot * (DH / 4));
-      const float w = mw[j * RING_ROWS + r];
-      o.x += y.x * w;
-      o.y += y.y * w;
-      o.z += y.z * w;
-      o.w += y.w * w;
-    }
     const float denom = den[r];
     __nv_bfloat16* dst =
         out + ((static_cast<int64_t>(b) * T + qr % T) * Hq + h * G + qr / T) * DH + d;
     *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(o.x / denom, o.y / denom);
     *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
         __floats2bfloat162_rn(o.z / denom, o.w / denom);
+  };
+  if constexpr (RING) {
+    // a ring's 16 splits: an item's loads in flight together
+    for (int x = tid; x < R * (DH / 4); x += nthr) {
+      const int r = x / (DH / 4);
+      const float4* a =
+          reinterpret_cast<const float4*>(part_acc + (rows0 + r) * DH + (x % (DH / 4)) * 4);
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+      for (int j = 0; j < nsplit; ++j) {
+        const float4 y = __ldcg(a + static_cast<int64_t>(j) * Rtot * (DH / 4));
+        const float w = mw[j * RS + r];
+        o.x += y.x * w;
+        o.y += y.y * w;
+        o.z += y.z * w;
+        o.w += y.w * w;
+      }
+      emit(x, o);
+    }
+  } else {
+    // the cross read's four splits: a thread's ITEMS items (nthr * ITEMS >=
+    // Rp * DH / 4), the loads of one split for all of them in flight together
+    constexpr int ITEMS = (DH + 31) / 32;
+    float4 o[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = 0; j < nsplit; ++j) {
+      float4 y[ITEMS];
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const int x = tid + i * nthr;
+        if (x < R * (DH / 4))
+          y[i] = __ldcg(reinterpret_cast<const float4*>(
+                            part_acc + (rows0 + static_cast<int64_t>(j) * Rtot + x / (DH / 4)) * DH) +
+                        x % (DH / 4));
+      }
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const int x = tid + i * nthr;
+        if (x < R * (DH / 4)) {
+          const float w = mw[j * RS + x / (DH / 4)];
+          o[i].x += y[i].x * w;
+          o[i].y += y[i].y * w;
+          o[i].z += y[i].z * w;
+          o[i].w += y[i].w * w;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i)
+      if (tid + i * nthr < R * (DH / 4)) emit(tid + i * nthr, o[i]);
   }
   if (tid == 0) *counter = 0;  // ready for the next launch (or graph replay)
 }
@@ -1216,7 +1293,35 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The split pass — the ring body for a ring with bf16 queries, the
+// The sliced body (flash_sliced_kernel): a ring (RING) or the cross read,
+// which merges its splits itself.
+template <typename KVT, int DH, bool RING>
+int launch_sliced(const Args& a) {
+  const int R = (a.Hq / a.Hkv) * a.T;
+  if (a.split_len % RCK != 0 || a.split_len > RING_SLICES * 32 * RING_MAX_PAIRS ||
+      a.threads != 32 * RING_SLICES * ((a.rows_per_block + 15) / 16) ||
+      a.threads > sliced_threads<DH>(RING) || a.counters == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto split = flash_sliced_kernel<KVT, DH, RING>;
+  cudaError_t e;
+  // its static bytes count against the default 48 KB too: always raise it
+  if ((e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(a.smem))) != cudaSuccess)
+    return static_cast<int>(e);
+  // two blocks per SM need the whole 228 KB as shared memory
+  if ((e = cudaFuncSetAttribute(split, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return static_cast<int>(e);
+  const dim3 grid(a.B * a.Hkv, a.nsplit, (R + a.rows_per_block - 1) / a.rows_per_block);
+  split<<<grid, a.threads, a.smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
+      static_cast<const KVT*>(a.v), a.ks, a.vs, a.qpos, a.kpos, a.window, a.part_m, a.part_l,
+      a.part_acc, a.counters, static_cast<__nv_bfloat16*>(a.out), a.T, a.Hq, a.Hkv, a.S,
+      a.split_len, a.rows_per_block, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split pass — the sliced body for a ring with bf16 queries, the
 // tensor-core body for other bf16 queries, the f32 body for f32 queries —
 // then the merge.
 template <typename QT, typename KVT, int DH, typename Rows>
@@ -1225,36 +1330,15 @@ int launch(const Args& a, const Rows rows) {
   const dim3 grid(a.B * a.Hkv, a.nsplit, (R + a.rows_per_block - 1) / a.rows_per_block);
   cudaError_t e;
   if constexpr (sizeof(QT) == 2) {
-    if (a.kpos != nullptr) {  // a ring (contiguous: the paged entry passes none)
-      if (a.split_len % RCK != 0 || a.split_len > RING_SLICES * 32 * RING_MAX_PAIRS ||
-          a.rows_per_block > RING_ROWS ||
-          a.threads != 32 * RING_SLICES * ((a.rows_per_block + 15) / 16) ||
-          a.counters == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-      auto split = flash_ring_mma_kernel<KVT, DH>;
-      // its static bytes count against the default 48 KB too: always raise it
-      if ((e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(a.smem))) != cudaSuccess)
-        return static_cast<int>(e);
-      // two blocks per SM need the whole 228 KB as shared memory
-      if ((e = cudaFuncSetAttribute(split, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                    cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
-        return static_cast<int>(e);
-      split<<<grid, a.threads, a.smem, a.st>>>(
-          static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
-          static_cast<const KVT*>(a.v), a.ks, a.vs, a.qpos, a.kpos, a.window, a.part_m,
-          a.part_l, a.part_acc, a.counters, static_cast<__nv_bfloat16*>(a.out), a.T, a.Hq,
-          a.Hkv, a.S, a.split_len, a.rows_per_block, a.scale);
-      return static_cast<int>(cudaGetLastError());  // the kernel merges its splits itself
-    } else {
-      auto split = flash_split_mma_kernel<KVT, DH, Rows>;
-      if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
-      split<<<grid, a.threads, a.smem, a.st>>>(
-          static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
-          static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
-          a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
-          a.rows_per_block, a.scale);
-    }
+    if (a.kpos != nullptr)  // a ring (contiguous: the paged entry passes none)
+      return launch_sliced<KVT, DH, true>(a);
+    auto split = flash_split_mma_kernel<KVT, DH, Rows>;
+    if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
+    split<<<grid, a.threads, a.smem, a.st>>>(
+        static_cast<const __nv_bfloat16*>(a.q), static_cast<const KVT*>(a.k),
+        static_cast<const KVT*>(a.v), a.ks, a.vs, rows, a.qpos, a.tree_bits, a.win_start,
+        a.tree_words, a.part_m, a.part_l, a.part_acc, a.T, a.Hq, a.Hkv, a.S,
+        a.rows_per_block, a.scale);
   } else {
     auto split = flash_split_f32_kernel<KVT, DH, Rows>;  // strides by kMaxThreads
     if ((e = allow_smem(split, a.smem)) != cudaSuccess) return static_cast<int>(e);
@@ -1331,6 +1415,43 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                rows_per_block,
                threads, static_cast<size_t>(smem), scale, static_cast<cudaStream_t>(stream)};
   return launch_types(q_is_bf16, kv_int8, dh, a, ContigRows{S});
+}
+
+// The cross-attention read: q (B, T, Hq, dh) over every one of the S keys of
+// k, v (B, S, Hkv, dh) of q's type (bf16 if q_is_bf16 != 0, else f32),
+// 16-byte aligned; out (B, T, Hq, dh) of q's type.  bf16 takes the sliced
+// body (no positions), which merges its splits itself through counters:
+// (B*Hkv*row blocks) int32 zeros, left zero.  f32 takes the f32 body and
+// the merge with no positions (counters unused).  part_m, part_l, part_acc,
+// nsplit, split_len, rows_per_block, threads and smem as for
+// flash_decode_launch, from kernels/flash_decode.py:cross_plan (bf16) or
+// launch_plan (f32).  Returns a cudaError_t.
+extern "C" int flash_decode_cross_launch(const void* q, const void* k, const void* v,
+                                         void* out, float* part_m, float* part_l,
+                                         float* part_acc, int* counters, int B, int T, int Hq,
+                                         int Hkv, int S, int dh, int q_is_bf16, int nsplit,
+                                         int split_len, int rows_per_block, int threads,
+                                         long long smem, float scale, void* stream) {
+  if (B == 0 || T == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  const Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, out, part_m,
+               part_l, part_acc, counters, B, T, Hq, Hkv, S, 0, nsplit, split_len,
+               rows_per_block, threads, static_cast<size_t>(smem), scale,
+               static_cast<cudaStream_t>(stream)};
+  if (!q_is_bf16) return launch_dh<float, float>(dh, a, ContigRows{S});
+  switch (dh) {
+    case 32:
+      return launch_sliced<__nv_bfloat16, 32, false>(a);
+    case 64:
+      return launch_sliced<__nv_bfloat16, 64, false>(a);
+    case 80:
+      return launch_sliced<__nv_bfloat16, 80, false>(a);
+    case 128:
+      return launch_sliced<__nv_bfloat16, 128, false>(a);
+    case 160:
+      return launch_sliced<__nv_bfloat16, 160, false>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // As flash_decode_launch, over paged pools: k, v: (N, bs, Hkv, dh) and ks,

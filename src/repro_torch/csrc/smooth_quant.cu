@@ -22,10 +22,26 @@
 // memory once, in 16-byte vectors (8 bf16 or 4 f32 values, a "chunk") where
 // D and the pointers allow it (else element by element, in the same
 // order), and held in registers: thread t holds chunks t, t + 256, ...
-// (up to CPT of them, a template parameter: 2, enough for a 4096-wide bf16
-// row, or 8; smooth_quant alone also 16, for llama-3.2-vision's 28672-wide
-// down projection).  No second read of the row, so one block per row moves the
-// bound's bytes.
+// (up to CPT of them, a template parameter: smooth_quant 2, 8 or 16, for
+// llama-3.2-vision's 28672-wide down projection; norm_smooth_quant 2, 4
+// or 8).  No second read of the row, so one block per row moves the bound's
+// bytes.
+// norm_smooth_quant (norm_quant_kernel) at decode's tens of rows is bound
+// by the latency of dependent steps, not by bytes: its first fused body
+// loaded x, reduced, then loaded the norm's scale, then each reader's
+// smooth vector, reduced again and loaded the smooth vectors a second time
+// for the codes, three round trips to memory and three barriers for
+// ~0.3 MB at (24, 4096, 3 readers).  This body issues every load that does
+// not wait on a reduction when the block starts: x and the scale into
+// registers, each reader's smooth vector into shared memory with cp.async
+// (each thread copies the chunks it alone reads back, so no barrier guards
+// them); it reduces the sum of squares, then takes every reader's abs-max
+// in one block reduction (max is exact in any order) and reads the smooth
+// vectors from shared memory for the codes: one round trip, two barriers.
+// A trace of its blocks (%globaltimer per phase, H100) then showed the
+// codes at ~1.1 us per reader: each value's division, rounding and
+// conversion queued on the SM's 16-lane unit behind a branch per value.
+// codes() below takes them on the FMA and integer pipes, a chunk at a time.
 // norm_smooth_quant's sum of squares is taken in an order the kernel fixes,
 // whatever the number of rows: each thread adds the squares of its chunks'
 // elements in index order into one f32 partial; the 32 partials of a warp
@@ -105,94 +121,246 @@ struct Targets {       // up to three linears reading the same row
   float* dx[3];        // scales (M,)
 };
 
-// One row per block: [RMSNorm ->] for each of NS smooth vectors, smoothing,
-// the row's abs-max, dx and the int8 codes.
-template <typename T, bool NORM, int NS, int CPT>
+// max that gives the canonical NaN if either operand is a NaN (max.NaN):
+// nan_max's bits for the operands the norm's abs-max sees (never -0; a NaN
+// computed on the card is canonical), in one instruction.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// clip(round(a[e] / d), -127, 127) for a chunk of N values, as
+// quant_rows_kernel takes them (half to even), for a finite d > 0 (the
+// caller gives a row whose d is inf or NaN codes of 0, as the division
+// does), from
+// rinv = RN(1/d) on the FMA and integer pipes alone — no conversion (F2I,
+// FRND) or division on the SM's 16-lane unit, no branch per value, so the
+// values' dependent steps interleave: y = a * rinv lies within
+// |a/d| * 1.5 * 2^-23 < 2^-15 of RN(a / d), since |a| <= the row's abs-max
+// gives |a/d| <= 127.01, so where y is more than 0.0005 from a
+// half-integer both round to the same integer; y + 1.5 * 2^23 rounds y half
+// to even (|y| < 2^22) and holds the integer in its low bits.  A chunk with
+// a value nearer a half-integer (rare) takes the exact divisions.
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23
+template <int N>
+__device__ __forceinline__ void codes(const float (&a)[N], float d, float rinv, int (&k)[N]) {
+  bool exact = false;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float y = __fmul_rn(a[e], rinv), t = __fadd_rn(y, kRound);
+    k[e] = __float_as_int(t) - __float_as_int(kRound);
+    exact |= fabsf(__fsub_rn(y, __fsub_rn(t, kRound))) > 0.4995f;
+  }
+  if (exact) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) k[e] = static_cast<int>(rintf(__fdiv_rn(a[e], d)));
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) k[e] = min(max(k[e], -127), 127);
+}
+
+// One row per block (smooth_quant): smoothing, the row's abs-max, dx and
+// the int8 codes.
+template <typename T, int CPT>
 __global__ void __launch_bounds__(kThreads)
-quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale, float eps,
-                  float inv_d, Targets tg, int D, int vec) {
+quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ smooth,
+                  int8_t* __restrict__ q, float* __restrict__ dx, int D, int vec) {
   constexpr int C = 16 / sizeof(T);
   const int64_t row = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __shared__ float red[NS][kWarps];
+  __shared__ float red[kWarps];
 
   float v[CPT][C];
 #pragma unroll
   for (int i = 0; i < CPT; ++i)
     load_row<T, C>(x + row * D, (i * kThreads + threadIdx.x) * C, D, vec, v[i]);
 
-  if (NORM) {
-    float part = 0.f;
+  float amax = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i)
+  for (int i = 0; i < CPT; ++i) {
+    float s[C];
+    load_f32<C>(smooth, (i * kThreads + threadIdx.x) * C, D, vec, s);
 #pragma unroll
-      for (int e = 0; e < C; ++e) part = __fadd_rn(part, __fmul_rn(v[i][e], v[i][e]));
+    for (int e = 0; e < C; ++e) amax = nan_max(amax, fabsf(__fmul_rn(v[i][e], s[e])));
+  }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-    if (lane == 0) red[0][warp] = part;
-    __syncthreads();
-    float total = red[0][0];
+  for (int o = 16; o > 0; o >>= 1) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+  float m = red[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) total = __fadd_rn(total, red[0][w]);
-    const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fmul_rn(total, inv_d), eps)));
+  for (int w = 1; w < kWarps; ++w) m = nan_max(m, red[w]);
+  const float d = __fmul_rn(nan_max(m, 1e-8f), 1.0f / 127.0f);
+  if (threadIdx.x == 0) dx[row] = d;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      float sc[C];
-      const int k0 = (i * kThreads + threadIdx.x) * C;
-      load_f32<C>(scale, k0, D, vec, sc);
+  for (int i = 0; i < CPT; ++i) {
+    const int k0 = (i * kThreads + threadIdx.x) * C;
+    if (k0 >= D) continue;
+    float s[C];
+    load_f32<C>(smooth, k0, D, vec, s);
+    union {
+      int8_t b[C];
+      typename std::conditional<C == 8, uint2, uint32_t>::type w;
+    } out;
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      const float r = rintf(__fdiv_rn(__fmul_rn(v[i][e], s[e]), d));
+      out.b[e] = isnan(r) ? int8_t(0) : static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+    }
+    int8_t* qr = q + row * D;
+    if (vec) {
+      *reinterpret_cast<decltype(out.w)*>(qr + k0) = out.w;
+    } else {
 #pragma unroll
       for (int e = 0; e < C; ++e)
-        v[i][e] = round_to(__fmul_rn(__fmul_rn(v[i][e], inv), sc[e]), T());
+        if (k0 + e < D) qr[k0 + e] = out.b[e];
     }
-    __syncthreads();  // red is reused below
+  }
+}
+
+// Async 16- and 4-byte copies to shared memory; pred false reads nothing
+// and zero-fills the destination.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
+// One row per block (norm_smooth_quant): the RMSNorm, then for each of NS
+// smooth vectors smoothing, the row's abs-max, dx and the int8 codes.
+// Dynamic shared memory: the NS smooth vectors, [NS][D rounded up to C],
+// read back in 16-byte vectors (scalar reads of a chunk 32 bytes from the
+// next thread's would take 8-way bank conflicts; a layout of consecutive
+// 16-byte pieces per warp reads without any, but made the copies' issue
+// three times slower on the H100).
+template <typename T, int NS, int CPT>
+__global__ void __launch_bounds__(kThreads)
+norm_quant_kernel(const T* __restrict__ x, const float* __restrict__ scale, float eps,
+                  float inv_d, Targets tg, int D, int vec) {
+  constexpr int C = 16 / sizeof(T);
+  const int64_t row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Dp = (D + C - 1) / C * C;
+  extern __shared__ __align__(16) float s_sm[];
+  __shared__ float red_sum[kWarps], red_max[NS][kWarps];
+  // values 4q .. 4q + 3 of this thread's chunk i of smooth vector n
+  auto smooth4 = [&](int n, int i, int q) {
+    return s_sm + n * Dp + (i * kThreads + threadIdx.x) * C + 4 * q;
+  };
+
+  // every load that waits on no reduction, issued at once: this thread's
+  // chunks of each smooth vector into shared memory (this thread alone
+  // reads them back, after its own wait), of x and of the scale into
+  // registers
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int k0 = (i * kThreads + threadIdx.x) * C;
+    if (k0 >= D) continue;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) {
+        float* dst = smooth4(n, i, q);
+        const int k = k0 + 4 * q;
+        if (vec) {
+          cp_async16(dst, tg.s[n] + k);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cp_async4(dst + e, tg.s[n] + min(k + e, D - 1), k + e < D);
+        }
+      }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  float v[CPT][C], sc[CPT][C];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int k0 = (i * kThreads + threadIdx.x) * C;
+    load_row<T, C>(x + row * D, k0, D, vec, v[i]);
+    load_f32<C>(scale, k0, D, vec, sc[i]);
   }
 
-  float amax[NS];
+  // the sum of squares in the order row_sum_squares fixes
+  float part = 0.f;
 #pragma unroll
-  for (int n = 0; n < NS; ++n) amax[n] = 0.f;
+  for (int i = 0; i < CPT; ++i)
+#pragma unroll
+    for (int e = 0; e < C; ++e) part = __fadd_rn(part, __fmul_rn(v[i][e], v[i][e]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+  if (lane == 0) red_sum[warp] = part;
+  __syncthreads();
+  float total = red_sum[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) total = __fadd_rn(total, red_sum[w]);
+  const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fmul_rn(total, inv_d), eps)));
+
+  // y, and every reader's abs-max in one block reduction (chunks past D
+  // add nothing: y and s are 0 there, and a NaN inv comes from a NaN row)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  float amax[NS][2];  // two per reader, so the max chains interleave
+#pragma unroll
+  for (int n = 0; n < NS; ++n) amax[n][0] = amax[n][1] = 0.f;
 #pragma unroll
   for (int i = 0; i < CPT; ++i) {
     const int k0 = (i * kThreads + threadIdx.x) * C;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float s[C];
-      load_f32<C>(tg.s[n], k0, D, vec, s);
+    for (int e = 0; e < C; ++e) v[i][e] = round_to(__fmul_rn(__fmul_rn(v[i][e], inv), sc[i][e]), T());
+    if (k0 >= D) continue;
 #pragma unroll
-      for (int e = 0; e < C; ++e) amax[n] = nan_max(amax[n], fabsf(__fmul_rn(v[i][e], s[e])));
-    }
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) {
+        const float4 s = *reinterpret_cast<const float4*>(smooth4(n, i, q));
+        amax[n][0] = max_nan(amax[n][0], fabsf(__fmul_rn(v[i][4 * q], s.x)));
+        amax[n][1] = max_nan(amax[n][1], fabsf(__fmul_rn(v[i][4 * q + 1], s.y)));
+        amax[n][0] = max_nan(amax[n][0], fabsf(__fmul_rn(v[i][4 * q + 2], s.z)));
+        amax[n][1] = max_nan(amax[n][1], fabsf(__fmul_rn(v[i][4 * q + 3], s.w)));
+      }
   }
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
+    float m = max_nan(amax[n][0], amax[n][1]);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax[n] = nan_max(amax[n], __shfl_xor_sync(0xffffffffu, amax[n], o));
-    if (lane == 0) red[n][warp] = amax[n];
+    for (int o = 16; o > 0; o >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) red_max[n][warp] = m;
   }
   __syncthreads();
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
-    float m = red[n][0];
+    float m = red_max[n][0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = nan_max(m, red[n][w]);
-    const float d = __fmul_rn(nan_max(m, 1e-8f), 1.0f / 127.0f);
+    for (int w = 1; w < kWarps; ++w) m = max_nan(m, red_max[n][w]);
+    const float d = __fmul_rn(nan_max(m, 1e-8f), 1.0f / 127.0f), rinv = __frcp_rn(d);
+    const bool finite = d < INFINITY;  // else every a / d is NaN or 0: codes 0
     if (threadIdx.x == 0) tg.dx[n][row] = d;
-    int8_t* qr = tg.q[n] + row * D;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int k0 = (i * kThreads + threadIdx.x) * C;
       if (k0 >= D) continue;
-      float s[C];
-      load_f32<C>(tg.s[n], k0, D, vec, s);
       union {
         int8_t b[C];
         typename std::conditional<C == 8, uint2, uint32_t>::type w;
       } out;
+      float a[C];
 #pragma unroll
-      for (int e = 0; e < C; ++e) {
-        const float r = rintf(__fdiv_rn(__fmul_rn(v[i][e], s[e]), d));
-        out.b[e] = isnan(r) ? int8_t(0) : static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+      for (int q = 0; q < C / 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(smooth4(n, i, q));
+        a[4 * q] = __fmul_rn(v[i][4 * q], f.x);
+        a[4 * q + 1] = __fmul_rn(v[i][4 * q + 1], f.y);
+        a[4 * q + 2] = __fmul_rn(v[i][4 * q + 2], f.z);
+        a[4 * q + 3] = __fmul_rn(v[i][4 * q + 3], f.w);
       }
+      int k[C];
+      codes<C>(a, d, rinv, k);
+#pragma unroll
+      for (int e = 0; e < C; ++e) out.b[e] = finite ? static_cast<int8_t>(k[e]) : int8_t(0);
+      int8_t* qr = tg.q[n] + row * D;
       if (vec) {
         *reinterpret_cast<decltype(out.w)*>(qr + k0) = out.w;
       } else {
@@ -204,43 +372,59 @@ quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale, floa
   }
 }
 
-template <typename T, bool NORM, int NS>
-cudaError_t launch_cpt(int cpt, const T* x, const float* scale, float eps, float inv_d,
-                       const Targets& tg, int M, int D, int vec, cudaStream_t st) {
-#define QUANT_ROWS(N)                                                                  \
-  if (cpt <= N) {                                                                      \
-    quant_rows_kernel<T, NORM, NS, N><<<M, kThreads, 0, st>>>(x, scale, eps, inv_d, tg, \
-                                                             D, vec);                  \
-    return cudaSuccess;                                                                \
+// 16-byte vectors where every chunk starts 16-byte aligned, in x and in the
+// f32 vectors (an 8-wide chunk spans two float4), and the codes' stores
+// (C bytes) are aligned.
+inline bool vectors_ok(const void* x, int C, int D, const float* scale, const Targets& tg,
+                       int ns) {
+  bool vec = D % C == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+             (scale == nullptr || reinterpret_cast<uintptr_t>(scale) % 16 == 0);
+  for (int n = 0; n < ns; ++n)
+    vec = vec && reinterpret_cast<uintptr_t>(tg.s[n]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(tg.q[n]) % C == 0;
+  return vec;
+}
+
+template <typename T>
+cudaError_t launch_quant(const T* x, const Targets& tg, int M, int D, cudaStream_t st) {
+  constexpr int C = 16 / sizeof(T);
+  const int cpt = ((D + C - 1) / C + kThreads - 1) / kThreads;
+  const int vec = vectors_ok(x, C, D, nullptr, tg, 1);
+#define QUANT_ROWS(N)                                                                      \
+  if (cpt <= N) {                                                                          \
+    quant_rows_kernel<T, N><<<M, kThreads, 0, st>>>(x, tg.s[0], tg.q[0], tg.dx[0], D, vec); \
+    return cudaSuccess;                                                                    \
   }
   QUANT_ROWS(2)
   QUANT_ROWS(8)
-  if constexpr (!NORM) {
-    QUANT_ROWS(16)
-  }
+  QUANT_ROWS(16)
 #undef QUANT_ROWS
   return cudaErrorInvalidValue;
 }
 
-template <bool NORM, int NS>
-cudaError_t launch_rows(const void* x, int x_is_bf16, const float* scale, float eps,
-                        float inv_d, const Targets& tg, int M, int D, cudaStream_t st) {
-  const int C = x_is_bf16 ? 8 : 4;
+template <typename T, int NS>
+cudaError_t launch_norm(const T* x, const float* scale, float eps, float inv_d,
+                        const Targets& tg, int M, int D, cudaStream_t st) {
+  constexpr int C = 16 / sizeof(T);
   const int cpt = ((D + C - 1) / C + kThreads - 1) / kThreads;
-  if (D <= 0 || cpt > (NORM ? kMaxNormCpt : kMaxCpt)) return cudaErrorInvalidValue;
-  // 16-byte vectors where every chunk starts 16-byte aligned, in x and in the
-  // f32 vectors (an 8-wide chunk spans two float4), and the codes' stores
-  // (C bytes) are aligned
-  bool vec = D % C == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-             (scale == nullptr || reinterpret_cast<uintptr_t>(scale) % 16 == 0);
-  for (int n = 0; n < NS; ++n)
-    vec = vec && reinterpret_cast<uintptr_t>(tg.s[n]) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(tg.q[n]) % C == 0;
-  if (x_is_bf16)
-    return launch_cpt<__nv_bfloat16, NORM, NS>(cpt, static_cast<const __nv_bfloat16*>(x),
-                                               scale, eps, inv_d, tg, M, D, vec, st);
-  return launch_cpt<float, NORM, NS>(cpt, static_cast<const float*>(x), scale, eps, inv_d,
-                                     tg, M, D, vec, st);
+  const int vec = vectors_ok(x, C, D, scale, tg, NS);
+  const int smem = NS * ((D + C - 1) / C * C) * static_cast<int>(sizeof(float));
+#define NORM_ROWS(N)                                                                       \
+  if (cpt <= N) {                                                                          \
+    auto kern = norm_quant_kernel<T, NS, N>;                                               \
+    if (smem + 1024 > 48 * 1024) { /* the static bytes count against the 48 KB too */    \
+      const cudaError_t e =                                                                \
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);   \
+      if (e != cudaSuccess) return e;                                                      \
+    }                                                                                      \
+    kern<<<M, kThreads, smem, st>>>(x, scale, eps, inv_d, tg, D, vec);                     \
+    return cudaSuccess;                                                                    \
+  }
+  NORM_ROWS(2)
+  NORM_ROWS(4)
+  NORM_ROWS(8)
+#undef NORM_ROWS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -253,8 +437,11 @@ extern "C" int smooth_quant_launch(const void* x, int x_is_bf16, const float* s,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M > 0) {
     const Targets tg{{s, nullptr, nullptr}, {q, nullptr, nullptr}, {dx, nullptr, nullptr}};
+    if (K <= 0 || K > kMaxCpt * kThreads * (x_is_bf16 ? 8 : 4))
+      return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t e =
-        launch_rows<false, 1>(x, x_is_bf16, nullptr, 0.f, 0.f, tg, M, K, st);
+        x_is_bf16 ? launch_quant(static_cast<const __nv_bfloat16*>(x), tg, M, K, st)
+                  : launch_quant(static_cast<const float*>(x), tg, M, K, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
@@ -274,10 +461,19 @@ extern "C" int norm_smooth_quant_launch(const void* x, int x_is_bf16, const floa
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M > 0) {
     const Targets tg{{s0, s1, s2}, {q0, q1, q2}, {dx0, dx1, dx2}};
+    if (D <= 0 || D > kMaxNormCpt * kThreads * (x_is_bf16 ? 8 : 4))
+      return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e = cudaErrorInvalidValue;
-    if (ns == 1) e = launch_rows<true, 1>(x, x_is_bf16, scale, eps, inv_d, tg, M, D, st);
-    if (ns == 2) e = launch_rows<true, 2>(x, x_is_bf16, scale, eps, inv_d, tg, M, D, st);
-    if (ns == 3) e = launch_rows<true, 3>(x, x_is_bf16, scale, eps, inv_d, tg, M, D, st);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* xf = static_cast<const float*>(x);
+#define NORM_NS(N)                                                                       \
+  if (ns == N)                                                                           \
+    e = x_is_bf16 ? launch_norm<__nv_bfloat16, N>(xb, scale, eps, inv_d, tg, M, D, st)   \
+                  : launch_norm<float, N>(xf, scale, eps, inv_d, tg, M, D, st);
+    NORM_NS(1)
+    NORM_NS(2)
+    NORM_NS(3)
+#undef NORM_NS
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

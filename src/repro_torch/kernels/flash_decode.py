@@ -22,8 +22,13 @@ reads a ring through plain jnp, not its Pallas kernel; the port reads it
 here so that on the card a row's bits depend on neither T nor B (with
 bf16 queries through a body of its own: splits and key slices from S
 alone, chunks no query row sees skipped, the splits merged in the same
-launch through :func:`ring_counters`).  Token trees do not compose with a
+launch through :func:`merge_counters`).  Token trees do not compose with a
 ring (the reference refuses them).
+
+``flash_decode_cross`` is the cross-attention read: every one of the S
+keys is visible to every query, so it takes no positions; on the card, bf16
+queries run the sliced body of the ring read without its positions (splits
+from S alone, :func:`cross_split_len`; one launch that merges its splits).
 
 ``flash_decode`` checks its inputs, then runs the plain version for CPU
 tensors and the CUDA kernel (``csrc/flash_decode.cu``) for CUDA tensors.
@@ -61,6 +66,9 @@ RING_CHUNK = 16            # keys per online-softmax step in the ring body
 RING_STAGES = 3            # chunk slots per key slice in the ring body (two in flight)
 RING_MAX_SPLIT = 512       # most keys per split in the ring body (128 per slice)
 RING_SPLITS = 16           # splits of a long ring in the ring body (B·Hkv·16 blocks)
+CROSS_SPLITS = 4           # splits of a long cross read (B 4 fills the SMs in one round)
+CROSS_MIN_SPLIT = 128      # fewest keys per split of the cross read
+CROSS_ROWS = 64            # most query rows per block of the cross read (32 at dh 160)
 HEAD_DIMS = (32, 64, 80, 128, 160)  # head sizes the kernel is instantiated for
 MAX_SMEM = 232448          # bytes of shared memory a block may use (H100)
 
@@ -161,7 +169,7 @@ def _check(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits,
     elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_decode: K/V dtype {k.dtype} must be int8 or "
                          f"q's dtype {q.dtype}")
-    if qpos.shape != (B, T) or qpos.dtype != torch.int32:
+    if qpos is not None and (qpos.shape != (B, T) or qpos.dtype != torch.int32):
         raise ValueError(f"flash_decode: qpos must be ({B}, {T}) int32, got "
                          f"{tuple(qpos.shape)} {qpos.dtype}")
     if (tree_mask is None) != (win_start is None):
@@ -231,7 +239,7 @@ def ring_split_len(S: int) -> int:
 
 
 def ring_smem(rows_per_block: int, dh: int, int8: bool) -> int:
-    """Dynamic shared bytes of the ring body (``flash_ring_mma_kernel``):
+    """Dynamic shared bytes of the ring body (``flash_sliced_kernel``):
     the block's query rows and the slices' stages
     (:func:`ring_slices_bytes`), which the fold and the merge reuse."""
     return -(-rows_per_block // TILE) * TILE * (2 * dh + 16) + ring_slices_bytes(dh, int8)
@@ -246,6 +254,50 @@ def ring_slices_bytes(dh: int, int8: bool) -> int:
     krow = dh if int8 else brow
     stage = 2 * RING_CHUNK * krow + 4 * RING_CHUNK + (2 * 4 * RING_CHUNK if int8 else 0)
     return RING_SLICES * (RING_STAGES * stage + (2 * RING_CHUNK * brow if int8 else 0))
+
+
+def cross_split_len(S: int) -> int:
+    """Keys per split of the cross read's sliced body, from S alone: whole
+    RING_CHUNK-key chunks dealt as evenly as they go to CROSS_SPLITS
+    splits from 4·CROSS_MIN_SPLIT keys on (two from 2·CROSS_MIN_SPLIT, one
+    below), and to more past 4·RING_MAX_SPLIT keys, so no split passes
+    RING_MAX_SPLIT.  Whisper's 1500 frames: four splits of 384 keys;
+    vision's 1600 image tokens: four of 400; at B 4 one round of 192 and
+    128 blocks on the 132 SMs."""
+    n = (CROSS_SPLITS if S >= CROSS_SPLITS * CROSS_MIN_SPLIT
+         else 2 if S >= 2 * CROSS_MIN_SPLIT else 1)
+    n = max(n, -(-S // RING_MAX_SPLIT))
+    return RING_CHUNK * -(-(-(-S // RING_CHUNK)) // n)
+
+
+def cross_smem(rows_per_block: int, dh: int, nsplit: int) -> int:
+    """Dynamic shared bytes of the cross read's sliced body: the block's
+    query rows, then the largest of the slices' stages (K and V rows of
+    RING_STAGES chunks each), the fold (each slice's accumulators, rows
+    dh + 8 floats apart, and its m, l and weight per row) and the merge
+    (each split's m and l per row, and the denominators), which reuse the
+    same bytes one after the other."""
+    rp = -(-rows_per_block // TILE) * TILE
+    brow = 2 * dh + 16
+    stages = RING_SLICES * RING_STAGES * 2 * RING_CHUNK * brow
+    fold = 4 * RING_SLICES * rp * (dh + 8 + 3)
+    merge = 4 * (2 * nsplit + 1) * rp
+    return rp * brow + max(stages, fold, merge)
+
+
+def cross_plan(rows: int, S: int, dh: int) -> Plan:
+    """The launch plan of the cross read with bf16 queries (``rows`` = G·T
+    query rows per KV head over S keys): the sliced body, splits of
+    :func:`cross_split_len` keys, RING_SLICES key slices, one warp per
+    (16-row tile, slice), at most CROSS_ROWS rows per block (32 at dh 160,
+    whose accumulators need the registers of half as many warps); wider
+    windows spread over row blocks."""
+    split = cross_split_len(S)
+    cap = CROSS_ROWS if dh <= 128 else RING_ROWS
+    rpb = rows if rows <= cap else _even_blocks(rows, cap)
+    nsplit = -(-S // split)
+    return Plan(rpb, cross_smem(rpb, dh, nsplit), RING_STAGES, nsplit,
+                32 * RING_SLICES * -(-rpb // TILE), split, RING_SLICES)
 
 
 def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
@@ -299,21 +351,22 @@ def launch_plan(rows: int, S: int, dh: int, q_dtype: torch.dtype,
     return Plan(rpb, f32_smem(rpb), 1, nsplit, 256)
 
 
-_RING_COUNTERS: dict = {}   # device → every counter buffer made there, the newest last
+_MERGE_COUNTERS: dict = {}   # device → every counter buffer made there, the newest last
 
 
-def ring_counters(device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters for the ring body's merge, one
-    per (b, kv head, row block), shared by every ring read on ``device``:
-    the last block of each (b, kv head, row block) sets its counter back to
-    0, so the buffer is zero between launches and a CUDA graph replays a
-    captured launch.  A buffer is made (or grown) outside a graph capture,
-    and none is freed (a graph holds the pointer it captured); ring reads
-    on one card run on one stream at a time, as every launch of the port."""
-    bufs = _RING_COUNTERS.setdefault(device, [])
+def merge_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the sliced body's merge
+    (a ring or a cross read), one per (b, kv head, row block), shared by
+    every such read on ``device``: the last block of each (b, kv head, row
+    block) sets its counter back to 0, so the buffer is zero between
+    launches and a CUDA graph replays a captured launch.  A buffer is made
+    (or grown) outside a graph capture, and none is freed (a graph holds
+    the pointer it captured); the reads on one card run on one stream at a
+    time, as every launch of the port."""
+    bufs = _MERGE_COUNTERS.setdefault(device, [])
     if not bufs or bufs[-1].numel() < n:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("flash_decode: the ring read's counters must grow outside a "
+            raise RuntimeError("flash_decode: the merge counters must grow outside a "
                                "CUDA graph capture: run the step once eagerly first")
         bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=device))
     return bufs[-1]
@@ -330,13 +383,23 @@ def _check_table(q, k, bt) -> None:
         raise ValueError("flash_decode_paged: inputs are on different devices")
 
 
+def _scratch(q, k, v, n: int):
+    """Check K/V's alignment; the output and the (part_m, part_l, part_acc)
+    f32 scratch of ``n`` = B·Hkv·nsplit·R split rows."""
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: the kernel loads K/V in 16-byte vectors; "
+                         "k and v must be 16-byte aligned")
+    part_m = torch.empty((n,), dtype=torch.float32, device=q.device)
+    return (torch.empty_like(q), part_m, torch.empty_like(part_m),
+            torch.empty((n * q.shape[3],), dtype=torch.float32, device=q.device))
+
+
 def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt=None,
-            count_as=None, kpos=None, window=None):
+            kpos=None, window=None):
     """Launch the split and merge kernels on contiguous K/V (a ring with
     ``kpos``/``window``: with bf16 queries the ring body, which merges its
     splits itself), or on pools through the block table ``bt`` (logical
-    length nb·bs); the launch is counted under ``count_as`` when given (the
-    cross-attention read)."""
+    length nb·bs)."""
     B, T, Hq, dh = q.shape
     paged = bt is not None
     S = bt.shape[1] * k.shape[1] if paged else k.shape[1]
@@ -344,16 +407,9 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
     R = (Hq // Hkv) * T
     ring = kpos is not None
     plan = launch_plan(R, S, dh, q.dtype, k.dtype, ring=ring)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: the kernel loads K/V in 16-byte vectors; "
-                         "k and v must be 16-byte aligned")
     int8 = k.dtype == torch.int8
     nsplit = plan.nsplit
-    out = torch.empty_like(q)
-    part_m = torch.empty((B * Hkv * nsplit * R,), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * Hkv * nsplit * R * dh,), dtype=torch.float32,
-                           device=q.device)
+    out, part_m, part_l, part_acc = _scratch(q, k, v, B * Hkv * nsplit * R)
     tree = tree_mask is not None
     if tree and tree_bits is None:
         tree_bits = tree_mask_bits(tree_mask)
@@ -372,7 +428,7 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
     else:
         counters = None
         if ring and q.dtype == torch.bfloat16:      # the ring body merges its splits itself
-            counters = ring_counters(q.device, B * Hkv * -(-R // plan.rows_per_block))
+            counters = merge_counters(q.device, B * Hkv * -(-R // plan.rows_per_block))
         fn = ops.c_function("flash_decode", "flash_decode_launch",
                             [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p,
                                                      ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -383,8 +439,31 @@ def _launch(q, k, v, qpos, k_scale, v_scale, tree_mask, win_start, tree_bits, bt
                  ops.ptr(part_l), ops.ptr(part_acc), ops.ptr(counters), B, T, Hq, Hkv, S, dh,
                  *head, plan.split_len, *tail)
     ops.check("flash_decode", err)
-    ops.LAUNCHES[count_as or "flash_decode" + "_paged" * paged + "_tree" * tree
-                 + "_ring" * ring + "_int8" * int8] += 1
+    ops.LAUNCHES["flash_decode" + "_paged" * paged + "_tree" * tree + "_ring" * ring
+                 + "_int8" * int8] += 1
+    return out
+
+
+def _launch_cross(q, k, v):
+    """The cross read's one launch (bf16: the sliced body, merging its
+    splits itself) or, for f32 queries, the f32 body and the merge, with no
+    positions."""
+    B, T, Hq, dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    R = (Hq // Hkv) * T
+    bf16 = q.dtype == torch.bfloat16
+    plan = cross_plan(R, S, dh) if bf16 else launch_plan(R, S, dh, q.dtype, k.dtype)
+    out, part_m, part_l, part_acc = _scratch(q, k, v, B * Hkv * plan.nsplit * R)
+    counters = merge_counters(q.device, B * Hkv * -(-R // plan.rows_per_block)) if bf16 else None
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = ops.c_function("flash_decode", "flash_decode_cross_launch",
+                        [p] * 8 + [i] * 11 + [ctypes.c_longlong, ctypes.c_float, p])
+    err = fn(ops.ptr(q), ops.ptr(k), ops.ptr(v), ops.ptr(out), ops.ptr(part_m),
+             ops.ptr(part_l), ops.ptr(part_acc), ops.ptr(counters), B, T, Hq, Hkv, S, dh,
+             int(bf16), plan.nsplit, plan.split_len, plan.rows_per_block, plan.threads,
+             plan.smem, dh ** -0.5, ops.stream(q))
+    ops.check("flash_decode", err)
+    ops.LAUNCHES["flash_decode_cross"] += 1
     return out
 
 
@@ -408,19 +487,20 @@ def flash_decode(q, k, v, qpos, *, k_scale=None, v_scale=None, tree_mask=None,
 
 def flash_decode_cross(q, k, v):
     """q (B,T,Hq,dh) over every one of the S keys of k/v (B,S,Hkv,dh) of
-    q's dtype: :func:`flash_decode` with every query at position S - 1,
-    counted as ``flash_decode_cross`` (the cross-attention read,
-    ``models/attention.cross_attend``).  Training reaches it: on the card a
-    call that needs a gradient launches the kernel forward and takes
-    :func:`flash_decode_ref`'s vector-Jacobian product backward
+    q's dtype, counted as ``flash_decode_cross`` (the cross-attention read,
+    ``models/attention.cross_attend``).  The card takes no positions (bf16:
+    one launch of the sliced body); the plain version is
+    :func:`flash_decode_ref` with every query at position S - 1.  Training
+    reaches it: on the card a call that needs a gradient launches the kernel
+    forward and takes the plain version's vector-Jacobian product backward
     (``ops.dispatch_differentiable``)."""
-    B, T = q.shape[:2]
-    qpos = torch.full((B, T), k.shape[1] - 1, dtype=torch.int32, device=q.device)
-    _check(q, k, v, qpos, None, None, None, None, None)
-    return ops.dispatch_differentiable(
-        lambda q, k, v: flash_decode_ref(q, k, v, qpos),
-        lambda q, k, v: _launch(q, k, v, qpos, None, None, None, None, None,
-                                count_as="flash_decode_cross"), q, k, v)
+    _check(q, k, v, None, None, None, None, None, None)
+
+    def plain(q, k, v):
+        qpos = torch.full(q.shape[:2], k.shape[1] - 1, dtype=torch.int32, device=q.device)
+        return flash_decode_ref(q, k, v, qpos)
+
+    return ops.dispatch_differentiable(plain, _launch_cross, q, k, v)
 
 
 def flash_decode_paged(q, k, v, bt, qpos, *, k_scale=None, v_scale=None, tree_mask=None,

@@ -340,6 +340,51 @@ def test_norm_smooth_quant_rows_do_not_depend_on_row_count_on_card(dev, d, dtype
         _same_codes(got, [(q[:m], dx[:m]) for q, dx in full])
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("d", [576, 2048, 4096, 5120, 8192])
+@pytest.mark.parametrize("m", [1, 4, 12, 24, 88, 176, 256])
+def test_norm_smooth_quant_bit_equal_at_engine_shapes_on_card(dev, m, d, n):
+    """The fused norm's body at the rows the engine makes (vanilla 4, a
+    window of 6 or 22 at B 4 / 8, a paged tick) and the widths of every
+    family (smollm 576, moonshot 2048, the 7B 4096, stablelm 5120, vision
+    8192), with 1-3 readers: bit-equal to the plain version."""
+    x, scale, smooths = _norm_inputs(dev, m, d, torch.bfloat16, 7 * m + d + n, n)
+    _same_codes(norm_smooth_quant(x, scale, 1e-5, smooths),
+                norm_smooth_quant_ref(x, scale, 1e-5, smooths))
+
+
+@pytest.mark.parametrize("d", [2048, 5120, 8192])
+def test_norm_smooth_quant_rows_do_not_depend_on_engine_row_count_on_card(dev, d):
+    """A row's codes and Δx are the same bits whatever number of rows of
+    the engine's shapes shares the call (B·T for T 1, 6 and 22 at B 4 and
+    8, 30/60/110 for the GEMM width edges, 176, 256)."""
+    x, scale, smooths = _norm_inputs(dev, 256, d, torch.bfloat16, d + 1)
+    full = norm_smooth_quant(x, scale, 1e-5, smooths)
+    for m in (1, 4, 8, 12, 24, 30, 48, 60, 88, 110, 176):
+        got = norm_smooth_quant(x[:m].contiguous(), scale, 1e-5, smooths)
+        _same_codes(got, [(q[:m], dx[:m]) for q, dx in full])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_norm_smooth_quant_unaligned_inputs_on_card(dev, dtype):
+    """x and the smooth vectors off their 16-byte alignment: the body copies
+    the smooth vectors element by element (4-byte cp.async) and loads x
+    element by element, bit-equal to the plain version."""
+    x, scale, smooths = _norm_inputs(dev, 24, 4097, dtype, 11)
+    x = x[:, 1:].contiguous().view(-1)
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xs[1:] = x
+    x = xs[1:].view(24, 4096)
+    sm = []
+    for s_ in smooths:
+        buf = torch.empty(4097, device=dev)
+        buf[1:] = s_[1:]
+        sm.append(buf[1:])
+    assert x.data_ptr() % 16 and all(s_.data_ptr() % 16 for s_ in sm)
+    scale = scale[1:].contiguous()
+    _same_codes(norm_smooth_quant(x, scale, 1e-5, sm), norm_smooth_quant_ref(x, scale, 1e-5, sm))
+
+
 @pytest.mark.parametrize("verifier", ["w8a8", "w4a8"])
 def test_fused_norm_path_equals_plain_path_on_card(dev, verifier, monkeypatch):
     """A 7B-shaped decoder layer (d 4096, 32/8 heads, d_ff 12288) with its
@@ -769,6 +814,56 @@ def test_cross_attention_row_does_not_depend_on_t_on_card(dev, hq, hkv, sa, dh):
     valid = _mask(zeros, torch.zeros(sa, dtype=torch.int32, device=dev), causal=False)
     plain = _attend_direct(q, k, v, valid)
     torch.testing.assert_close(full.float(), plain.float(), rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,hq,hkv,sa,dh", [
+    (4, 6, 12, 12, 1500, 64),      # whisper-small
+    (4, 6, 64, 8, 1600, 128),      # llama-3.2-vision-90b
+    (2, 6, 64, 8, 1000, 128),      # S not a multiple of the 16-key chunk: four splits of 256
+    (3, 5, 12, 12, 40, 64),        # S shorter than one split (and than one 128-key split)
+    (2, 1, 8, 8, 9, 32),           # a reduced config's 9 keys, T 1
+    (1, 64, 12, 12, 1500, 64),     # a training-sized window: 64 rows per KV head
+    (1, 64, 64, 8, 1600, 128),     # 512 rows per KV head: eight row blocks
+    (2, 6, 32, 32, 700, 80),       # every other instantiated head size
+    (2, 6, 32, 8, 300, 160),
+    (2, 3, 8, 2, 257, 32)])
+def test_cross_read_matches_plain_on_card(dev, b, t, hq, hkv, sa, dh, dtype):
+    """The cross read (``flash_decode_cross``: no positions; bf16 through
+    the sliced body, f32 through the f32 body) within one bf16 rounding
+    step of its plain version (``flash_decode_ref`` with every query at
+    Sa - 1), one counted launch per call."""
+    from repro_torch.kernels.flash_decode import flash_decode_cross
+
+    g = _gen(dev, b * t * sa + dh)
+    q = torch.randn(b, t, hq, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(dtype)
+    qpos = torch.full((b, t), sa - 1, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    o = flash_decode_cross(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"flash_decode_cross": 1}
+    assert o.shape == q.shape and o.dtype == dtype and torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), flash_decode_ref(q, k, v, qpos).float(),
+                               rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("hq,hkv,sa,dh", [(64, 8, 1600, 128),    # llama-3.2-vision
+                                          (12, 12, 1500, 64)])   # whisper-small
+def test_cross_read_is_one_kernel_per_call_on_card(dev, hq, hkv, sa, dh):
+    """A bf16 cross read is one device kernel, its splits merged inside it:
+    one call captured in a graph holds one node, a kernel (no fill of
+    positions, no merge kernel), and counts one launch."""
+    from repro_torch.kernels.flash_decode import flash_decode_cross
+
+    g = _gen(dev, sa + dh)
+    q = torch.randn(4, 6, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(4, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(4, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+    with ops.launches_apart() as counted:
+        assert _graph_node_types(lambda: flash_decode_cross(q, k, v)) == [0]
+    assert counted == {"flash_decode_cross": 2}           # the warm-up and the capture
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -1888,6 +1983,43 @@ def test_family_graph_replay_equals_eager_on_card(dev, arch, drafter):
     assert (g_eng._programs.captures, e_eng._programs.captures) == (1, 0)
     vanilla = SpecEngine(model, SpecConfig(temperature=0.0, verifier="w8a8",
                                            drafter="vanilla")).generate(raw, prompts, 16,
+                                                                        aux_embeds=aux)
+    n = prompts.shape[1] + 16
+    assert torch.equal(graph.tokens[:, :n], vanilla.tokens[:, :n])
+
+
+@pytest.mark.parametrize("arch,kernel", [("whisper-small", "flash_decode_cross"),
+                                         ("quasar-paper-7b", "norm_smooth_quant")])
+def test_bf16_step_replay_equals_eager_on_card(dev, arch, kernel):
+    """A W8A8 spec step at full width in bf16 (two decoder layers; whisper's
+    encoder whole over its 1500 frames): whisper's through the cross read's
+    sliced body (dh 64, S 1500), the 7B's through the fused norm's body at
+    (24, 4096); captured as a graph it gives the eager step's tokens bit
+    for bit, with the same launches, and speculation gives vanilla's."""
+    from repro_torch.core.config import SpecConfig
+    from repro_torch.serving.engine import SpecEngine
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    model = Model(cfg, device=dev)
+    raw = model.init_params(_gen(dev, 3))
+    aux = None
+    if cfg.num_audio_frames:
+        aux = (torch.randn(4, cfg.num_audio_frames, cfg.d_model, generator=_gen(dev, 8),
+                           device=dev) * 0.5).to(cfg.dtype)
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, cfg.vocab_size, (4, 7))
+    prompts = torch.from_numpy(np.tile(pat, 10).astype(np.int32)).to(dev)
+    scfg = SpecConfig(temperature=0.0, verifier="w8a8", **GRAPH_DRAFTERS["ngram"])
+    prep = SpecEngine(model, scfg).prepare_params(raw)
+    out = _eager_and_graph(model, scfg,
+                           lambda eng: eng.generate(prep, prompts, 16, aux_embeds=aux))
+    (eager, n_eager, _), (graph, n_graph, g_eng) = out[False], out[True]
+    assert graph.steps == eager.steps >= 3
+    assert torch.equal(graph.tokens, eager.tokens) and not graph.bad.any()
+    assert n_graph == n_eager and n_graph[kernel] >= graph.steps
+    assert g_eng._programs.captures == 1
+    vanilla = SpecEngine(model, SpecConfig(temperature=0.0, verifier="w8a8",
+                                           drafter="vanilla")).generate(prep, prompts, 16,
                                                                         aux_embeds=aux)
     n = prompts.shape[1] + 16
     assert torch.equal(graph.tokens[:, :n], vanilla.tokens[:, :n])

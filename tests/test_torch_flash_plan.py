@@ -6,9 +6,11 @@ Imports only ``repro_torch.kernels.flash_decode`` (no card, no nvcc)."""
 import pytest
 import torch
 
-from repro_torch.kernels.flash_decode import (HEAD_DIMS, MAX_SMEM, MMA_ROWS, RING_CHUNK,
-                                              RING_ROWS, RING_SLICES, SPLIT_LEN, TILE,
-                                              launch_plan, ring_slices_bytes, ring_split_len)
+from repro_torch.kernels.flash_decode import (CROSS_ROWS, HEAD_DIMS, MAX_SMEM, MMA_ROWS,
+                                              RING_CHUNK, RING_MAX_SPLIT, RING_ROWS,
+                                              RING_SLICES, SPLIT_LEN, TILE, cross_plan,
+                                              cross_split_len, launch_plan, ring_slices_bytes,
+                                              ring_split_len)
 
 # (q dtype, K/V dtype) pairs the kernel is instantiated for
 TYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
@@ -119,8 +121,9 @@ def test_ring_plan_fits_the_card(dh, kv_dtype):
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", TYPES)
 def test_non_ring_plans_are_unchanged_by_the_ring_body(q_dtype, kv_dtype):
-    """A chain, tree, paged or cross read keeps 128-key splits and its
-    plan; an f32 ring keeps the f32 body's plan (128-key splits)."""
+    """A chain, tree or paged read (and an f32 cross read) keeps 128-key
+    splits and its plan; an f32 ring keeps the f32 body's plan (128-key
+    splits)."""
     for dh in HEAD_DIMS:
         for rows in ROWS:
             for S in (128, 1152, 4224):
@@ -128,3 +131,54 @@ def test_non_ring_plans_are_unchanged_by_the_ring_body(q_dtype, kv_dtype):
                 assert (p.split_len, p.slices, p.nsplit) == (SPLIT_LEN, 1, -(-S // SPLIT_LEN))
                 if q_dtype == torch.float32:
                     assert launch_plan(rows, S, dh, q_dtype, kv_dtype, ring=True) == p
+
+
+CROSS_S = (1, 8, 16, 40, 100, 127, 128, 200, 255, 256, 500, 511, 512, 1000, 1500, 1600,
+           2047, 2048, 2049, 3000, 8192)
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_cross_split_and_slices_depend_on_s_and_dh_alone(dh):
+    """The cross read's split length, split count and key slices follow S
+    (and dh) alone: the same for every B (no argument of the plan), T and
+    G, so a row sums its keys in the same order whatever window and batch
+    it sits in."""
+    for S in CROSS_S:
+        plans = [cross_plan(g * t, S, dh) for g in (1, 2, 3, 4, 8, 16) for t in (1, 2, 5, 6, 22, 64)]
+        split = cross_split_len(S)
+        assert {(p.split_len, p.nsplit, p.slices, p.stages) for p in plans} == {
+            (split, -(-S // split), RING_SLICES, plans[0].stages)}
+        assert split % RING_CHUNK == 0 and split <= RING_MAX_SPLIT
+        # every split holds keys: no block of the grid idles
+        assert (-(-S // split) - 1) * split < S <= -(-S // split) * split
+
+
+def test_cross_splits_at_the_families_shapes():
+    """Whisper's 1500 frames and vision's 1600 image tokens: four splits of
+    whole 16-key chunks, so B 4 runs 4·12·4 = 192 and 4·8·4 = 128 blocks,
+    one round on the 132 SMs; short S take one split."""
+    assert (cross_split_len(1500), -(-1500 // cross_split_len(1500))) == (384, 4)
+    assert (cross_split_len(1600), -(-1600 // cross_split_len(1600))) == (400, 4)
+    assert cross_split_len(100) == 112 and cross_split_len(300) == 160
+    p = cross_plan(48, 1600, 128)                     # vision: 64/8 heads, T 6
+    assert (p.rows_per_block, p.threads) == (48, 32 * RING_SLICES * 3)
+    p = cross_plan(6, 1500, 64)                       # whisper: 12/12 heads, T 6
+    assert (p.rows_per_block, p.threads) == (6, 32 * RING_SLICES)
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_cross_plan_fits_the_card_and_tiles_rows(dh):
+    """Up to CROSS_ROWS rows (32 at dh 160) share one block, so vision's 48
+    rows per KV head read K/V once; a training window spreads over row
+    blocks that cover its rows; the block fits the card's shared memory."""
+    cap = CROSS_ROWS if dh <= 128 else RING_ROWS
+    for rows in list(range(1, 130)) + [512, 1024, 2048]:
+        p = cross_plan(rows, 1600, dh)
+        assert 0 < p.smem <= MAX_SMEM
+        blocks = -(-rows // p.rows_per_block)
+        if rows <= cap:
+            assert p.rows_per_block == rows and blocks == 1
+        else:
+            assert p.rows_per_block % TILE == 0 and p.rows_per_block <= cap
+        assert (blocks - 1) * p.rows_per_block < rows <= blocks * p.rows_per_block
+        assert p.threads == 32 * RING_SLICES * -(-p.rows_per_block // TILE)

@@ -87,7 +87,7 @@ def main(argv=None) -> int:
                     run()
                 torch.cuda.synchronize()
             for e in prof.key_averages():
-                for part, keys in (("split", ("flash_split", "flash_ring")),
+                for part, keys in (("split", ("flash_split", "flash_sliced")),
                                    ("merge", ("flash_merge",))):
                     if any(k in e.key for k in keys) and e.self_device_time_total > 0:
                         ms[f"{name} {part}"] = e.self_device_time_total / 1e3 / 10

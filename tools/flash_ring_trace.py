@@ -1,15 +1,18 @@
 """Where a block of the ring read's kernel spends its time, phase by phase.
 
-    python3 tools/flash_ring_trace.py [--out FILE]
+    python3 tools/flash_ring_trace.py [--out FILE] [--cross]
 
 Builds a copy of ``src/repro_torch/csrc/flash_decode.cu`` in which thread 0
-of every block of ``flash_ring_mma_kernel`` writes ``%globaltimer`` at the
+of every block of ``flash_sliced_kernel`` writes ``%globaltimer`` at the
 boundaries of its phases into a device array (into ``csrc/_build``, beside
 the kernels' libraries), loads it in place of the ``flash_decode`` library,
 and runs the ring read once (after three warm-up calls and an L2 flush, as
 ``chip_smoke.time_ms``) at chip_smoke's ring rows: the 7B's 4224-slot ring
 at B 4 and T 6 (bf16 and int8 K/V), B 1, T 1 and a ring filled by a
-1024-token prefill.  For each it prints the kernel's span, the median
+1024-token prefill; with ``--cross``, the cross-attention read (the same
+body without positions, whose first phase holds only the query rows'
+copies) at whisper's (4, 6, 12/12, 1500, 64) and vision's (4, 6, 64/8,
+1600, 128) instead.  For each it prints the kernel's span, the median
 block's duration and each phase's median and 10th/90th percentile across
 blocks (the merge's phases over the blocks that merged), and when the
 blocks and the merging blocks end.  The phases: the skip test's loads, the
@@ -96,6 +99,7 @@ def instrumented(src: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--cross", action="store_true", help="the cross read's rows instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -108,7 +112,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_decode import flash_decode, launch_plan
+    from repro_torch.kernels.flash_decode import (cross_plan, flash_decode, flash_decode_cross,
+                                                  launch_plan)
 
     ops.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = ops.BUILD_DIR / "flash_ring_trace.cu"
@@ -134,24 +139,37 @@ def main(argv=None) -> int:
     zeros = np.zeros(32768 * SLOTS, dtype=np.uint64)
     past = cs.RING_PROMPT + 100
     report = {}
-    for label, b, t, int8, fill in [("B4 T6 bf16", 4, 6, False, past),
-                                    ("B4 T6 int8", 4, 6, True, past),
-                                    ("B1 T6 bf16", 1, 6, False, past),
-                                    ("B4 T1 bf16", 4, 1, False, past),
-                                    ("B4 T6 bf16 partly filled", 4, 6, False, cs.RING_FILL)]:
+
+    def ring_row(label, b, t, int8, fill):
         q, k, v, qpos, kw = cs.ring_inputs(torch, dev, g, b, t, cfg.num_heads, cfg.num_kv_heads,
                                            cfg.head_dim, int8, fill)
         plan = launch_plan(cfg.num_heads // cfg.num_kv_heads * t, k.shape[1], cfg.head_dim,
                            torch.bfloat16, k.dtype, ring=True)
-        n = b * cfg.num_kv_heads * plan.nsplit
+        return label, lambda: flash_decode(q, k, v, qpos, **kw), plan, b * cfg.num_kv_heads
+
+    def cross_row(label, b, t, hq, hkv, sa, dh):
+        q = torch.randn(b, t, hq, dh, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(b, sa, hkv, dh, generator=g, device=dev).to(torch.bfloat16)
+        return label, lambda: flash_decode_cross(q, k, v), cross_plan(hq // hkv * t, sa, dh), b * hkv
+
+    if args.cross:
+        rows = [cross_row("whisper B4 T6", 4, 6, 12, 12, 1500, 64),
+                cross_row("vision B4 T6", 4, 6, 64, 8, 1600, 128)]
+    else:
+        rows = [ring_row("B4 T6 bf16", 4, 6, False, past), ring_row("B4 T6 int8", 4, 6, True, past),
+                ring_row("B1 T6 bf16", 1, 6, False, past), ring_row("B4 T1 bf16", 4, 1, False, past),
+                ring_row("B4 T6 bf16 partly filled", 4, 6, False, cs.RING_FILL)]
+    for label, run, plan, heads in rows:
+        n = heads * plan.nsplit
         for _ in range(3):
-            flash_decode(q, k, v, qpos, **kw)
+            run()
         torch.cuda.synchronize()
         if lib.ring_trace_clear(zeros.ctypes.data, zeros.nbytes):
             raise RuntimeError("flash_ring_trace: clearing the trace failed")
         flush.zero_()
         torch.cuda.synchronize()
-        flash_decode(q, k, v, qpos, **kw)
+        run()
         torch.cuda.synchronize()
         buf = np.zeros_like(zeros)
         if lib.ring_trace_copy(buf.ctypes.data, buf.nbytes):
@@ -179,7 +197,6 @@ def main(argv=None) -> int:
         print("   blocks end (deciles, us):", " ".join(f"{x:.1f}" for x in row["blocks_end_us_deciles"]))
         print("   merging blocks end (us):", " ".join(f"{x:.1f}" for x in row["merging_blocks_end_us"][-8:]))
         report[label] = row
-        del q, k, v, kw
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, rows=report)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
