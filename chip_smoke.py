@@ -112,7 +112,11 @@
    paged admission's prefill, the batch prefill; the paged tree too for the
    batched kernel): ``int8_matmul_batched`` (the W8A8 expert product,
    every expert in one launch) bit-equal at each C (1 to 480) for up/gate
-   and down, timed beside a bf16 ``torch.bmm``; ``smooth_quant`` on o's
+   and down with every row kept, timed beside a bf16 ``torch.bmm``, and
+   again at the fills the spec W8A8 run's routing gave (its decode and
+   prefill passes at the median share of experts keeping a slot), each
+   with two bounds: over the bytes and operations that fill needs and over
+   every expert's; ``smooth_quant`` on o's
    rows and the dispatched (E·C, 2048) and (E·C, 1408) rows,
    ``norm_smooth_quant`` at d 2048 (3 readers and 1), ``int8_matmul`` at
    q/k/v/o and ``lm_head``, ``int4_matmul`` at the W4A8 run's, all exact;
@@ -128,8 +132,9 @@
    vanilla (drops make a row depend on its batch, so they need not be
    equal); the W8A8 chain step's launches must be
    ``moe_launches_per_chain_step``'s.  Each run again eagerly, with forward
-   hooks that count the dropped slots (the graphs carry no counting):
-   replay tokens == eager tokens, bit for bit.  The lossless gate on a dropless copy of the
+   hooks that count the dropped slots and the experts keeping a slot (per
+   layer too; the graphs carry no counting): replay tokens == eager
+   tokens, bit for bit.  The lossless gate on a dropless copy of the
    config (the same weights, capacity factor = 64 experts), W8A8, 256-token
    prompts: spec, tree and pruned == vanilla (batch 2), paged == contiguous
    (4 requests through 2 slots).
@@ -200,6 +205,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -216,7 +222,7 @@ B, GAMMA, PROMPT, NEW = 4, 5, 1024, 64
 ARCH = "quasar-paper-7b"
 FLASH_TOL = dict(rtol=2 ** -7, atol=1e-5)   # one bf16 rounding step
 SDPA_TOL = 1e-2                    # the yardstick keeps bf16 intermediates; a sanity check
-SLEEP_CYCLES = 4_000_000           # ~2 ms of device time at H100 clocks
+SLEEP_CYCLES, SLEEP_MS = 4_000_000, 2.0   # ~2 ms of device time at H100 clocks
 PROFILE_STEPS = 6
 TREE = (3, 2, 1, 1)                 # the token-tree template of the tree runs
 TREE_FLAGS = ["--tree-branches", ",".join(map(str, TREE))]
@@ -284,6 +290,7 @@ W8A8_CHAIN_LAUNCHES = {"norm_smooth_quant": 65, "smooth_quant": 64, "int8_matmul
 KERNEL_SYMBOLS = {                 # launch counter -> its device kernel: a name holding
     "norm_smooth_quant": [("norm_quant_kernel",)],             # every substring of one tuple
     "flash_decode_cross": [("flash_sliced_kernel", "false>")],
+    "int8_matmul_batched": [("batched_swap_kernel",), ("batched_tiled_kernel",)],
 }
 SERVER_REQUESTS, SERVER_SLOTS = 16, 8
 HOPELESS = (5, 9, 11)              # (s1): priority 1, a deadline no slot frees in time
@@ -337,16 +344,22 @@ def time_ms(torch, fn, iters: int, flush, host: list | None = None) -> float:
     L2 flush (the decode step streams far more than L2 holds, so the main
     path finds its operands cold).  A device-side sleep before each start
     event lets the host enqueue ``fn`` before the device reaches it, so the
-    interval holds device work only; the host's enqueue time of each call
-    is appended to ``host`` (ms)."""
+    interval holds device work only: ~2 ms before the first, and before
+    each later one twice the host's enqueue time of a warm call (the
+    device's lag behind the host then grows with every launch); the host's
+    enqueue time of each call is appended to ``host`` (ms)."""
+    warm = []
     for _ in range(3):
+        t0 = time.perf_counter()
         fn()
+        warm.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
+    later = int(SLEEP_CYCLES * min(1.0, 2 * max(warm[1:]) / SLEEP_MS))
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(iters)]
-    for start, end in ev:
+    for i, (start, end) in enumerate(ev):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(SLEEP_CYCLES if i == 0 else later)
         start.record()
         t0 = time.perf_counter()
         fn()
@@ -2030,6 +2043,65 @@ def moe_rows(cfg) -> dict:
                             cfg.moe_capacity_factor)) for k, n in rows.items()}
 
 
+def batched_bounds(fill, c: int, k: int, n: int) -> dict:
+    """The batched product's bounds at the per-expert kept rows ``fill``
+    (E,): ``bound_ms``/``bound_by`` over the bytes the function must move
+    at that fill (the W and scales of each expert that keeps a slot, the
+    kept rows of X and their scales, Y written whole: the kernel zeroes
+    the rest) and the kept rows' operations; ``bound_every_expert_ms``/
+    ``_by`` over every expert's W, X and scales and every row's operations
+    (the product with no ``rows``); the experts keeping a slot and the kept
+    rows."""
+    E, kept = fill.shape[0], int(fill.sum())
+    live = int((fill > 0).sum())
+    lms, lby = bound_ms(live * (n * k + 4 * n) + kept * (k + 4) + E * 2 * c * n,
+                        2 * kept * n * k, "int8")
+    bms, by = bound_ms(E * (c * k + n * k + 4 * (c + n) + 2 * c * n), 2 * E * c * n * k,
+                       "int8")
+    return dict(bound_ms=lms, bound_by=lby, bound_every_expert_ms=bms,
+                bound_every_expert_by=by, live_experts=live, kept_rows=kept)
+
+
+def batched_fill_rows(torch, dev, flush, cfg, fills: dict) -> list:
+    """``int8_matmul_batched`` at moonshot's up/gate and down with the fills
+    a run's routing gave (``fills``: {"<regime>_run_fill": (E,) int32 on the
+    card}, the regime's C from :func:`moe_rows`), held
+    bit-equal to its plain version with the same ``rows``, timed, and
+    bounded (:func:`batched_bounds`) over the bytes and operations that
+    fill needs and over every expert's."""
+    from repro_torch.kernels.int8_matmul import int8_matmul_batched, int8_matmul_batched_ref
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    E, D, FE = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    out = []
+    for regime, fill in fills.items():
+        c = moe_rows(cfg)[regime.removesuffix("_run_fill")][1]
+        for k, n in ((D, FE), (FE, D)):
+            xq = torch.randint(-127, 128, (E, c, k), generator=g, device=dev, dtype=torch.int8)
+            w = torch.randint(-127, 128, (E, n, k), generator=g, device=dev, dtype=torch.int8)
+            dx = torch.rand(E, c, generator=g, device=dev) * 1e-2
+            dw = torch.rand(E, n, generator=g, device=dev) * 1e-3
+            y = int8_matmul_batched(xq, w, dx, dw, rows=fill)
+            ry = int8_matmul_batched_ref(xq, w, dx, dw, rows=fill)
+            torch.cuda.synchronize()
+            if not torch.equal(y, ry):
+                raise AssertionError(f"int8_matmul_batched ({E},{c},{k},{n}) at the run's fill "
+                                     "differs from its plain version")
+            del y, ry
+            row = dict(shape=[E, c, k, n], regime=regime, max_abs_err=0.0,
+                       **batched_bounds(fill, c, k, n),
+                       **timed(torch, lambda: int8_matmul_batched(xq, w, dx, dw, rows=fill),
+                               lambda: int8_matmul_batched_ref(xq, w, dx, dw, rows=fill), None,
+                               20 if c > 64 else 50, flush))
+            out.append(row)
+            log(f"  int8_matmul_batched {regime:18s} {str(row['shape']):24s} "
+                f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                f"every expert's {row['bound_every_expert_ms']:.4f} live experts "
+                f"{row['live_experts']}/{E}, kept rows {row['kept_rows']}/{E * c}")
+            del xq, w
+    return out
+
+
 def moe_kernel_phase(torch, dev, flush, cfg):
     """Every kernel of the MoE phase's path at moonshot's shapes, held
     against its plain version as :func:`kernel_phase` holds them at 7B:
@@ -2071,13 +2143,12 @@ def moe_kernel_phase(torch, dev, flush, cfg):
             del y, ry
             xb = torch.randn(E, c, k, generator=g, device=dev).to(torch.bfloat16)
             wb = torch.randn(E, k, n, generator=g, device=dev).to(torch.bfloat16)
-            # every expert's weight is read (an expert with no token still
-            # gets its tiles), X and the scales once, Y written once
-            nbytes, ops_ = E * (c * k + n * k + 4 * (c + n) + 2 * c * n), 2 * E * c * n * k
-            bms, by = bound_ms(nbytes, ops_, "int8")
+            # every row kept: every expert's weight, X and the scales read
+            # once, Y written once
+            bound = batched_bounds(torch.full((E,), c), c, k, n)
             iters = 20 if c > 64 else 50
-            row = dict(shape=[E, c, k, n], regime=regime, max_abs_err=0.0, bound_ms=bms,
-                       bound_by=by,
+            row = dict(shape=[E, c, k, n], regime=regime, max_abs_err=0.0,
+                       bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                        **timed(torch, lambda: int8_matmul_batched(xq, w, dx, dw),
                                lambda: int8_matmul_batched_ref(xq, w, dx, dw), None,
                                iters, flush))
@@ -2086,7 +2157,7 @@ def moe_kernel_phase(torch, dev, flush, cfg):
             rows.append(row)
             log(f"  int8_matmul_batched {regime:10s} {str(row['shape']):24s} "
                 f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"bound_ms={row['bound_ms']:.4f} ({by}) "
+                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                 f"bmm_bf16_ms={row['yardstick_bmm_bf16_ms']:.4f} host_ms={row['host_ms']:.4f}")
             del xq, w, xb, wb
     out = {"int8_matmul_batched": rows, "flash_decode": [], "flash_decode_tree": []}
@@ -2186,27 +2257,42 @@ def moe_launches_per_chain_step(layers: int) -> dict:
             "flash_decode": layers}
 
 
-def moe_drop_hooks(params, counter, t_window: int) -> list:
+def moe_drop_hooks(params, counter, t_window: int, per_layer=None, fills=None) -> list:
     """Forward pre-hooks on every MoE layer of ``params`` that route the
     layer's input again (``moe.route``, the layer's own function on its own
-    rows, so the same ``keep``) and add its dropped and routed (token, slot)
-    counts to ``counter`` (4,) int64 in place: [0:2] for forwards whose
-    window is ``t_window`` tokens (the decode step), [2:4] for the rest
-    (prefills).  For eager runs only: hooks run while a graph is captured,
-    so a captured step would carry them.  Returns the hook handles."""
+    rows, so the same ``keep`` and ``fill``) and add to ``counter`` (8,)
+    int64 in place its dropped and routed (token, slot) counts and its
+    experts with a kept slot and experts: [0:2], [4:6] for forwards whose
+    window is ``t_window`` tokens (the decode step), [2:4], [6:8] for the
+    rest (prefills).  ``per_layer`` (layers, 2) int64: each layer's experts
+    with a kept slot and experts over the decode forwards; ``fills``: a
+    list that gets (decode?, the fill (E,) int32) of every forward.  For
+    eager runs only: hooks run while a graph is captured, so a captured
+    step would carry them.  Returns the hook handles."""
     from repro_torch.models import moe
 
-    def count(layer, args):
+    def count(i, layer, args):
         x = args[0]
         cfg = layer.cfg
-        keep = moe.route(moe.router_logits(x.reshape(-1, x.shape[-1]), layer.router.w),
-                         cfg.experts_per_token, cfg.num_experts, cfg.moe_capacity_factor)["keep"]
-        at = 0 if x.shape[1] == t_window else 2
+        r = moe.route(moe.router_logits(x.reshape(-1, x.shape[-1]), layer.router.w),
+                      cfg.experts_per_token, cfg.num_experts, cfg.moe_capacity_factor)
+        keep, live = r["keep"], (r["fill"] > 0).sum()
+        decode = x.shape[1] == t_window
+        at = 0 if decode else 2
         counter[at].add_((~keep).sum())
         counter[at + 1].add_(keep.numel())
+        counter[at + 4].add_(live)
+        counter[at + 5].add_(cfg.num_experts)
+        if decode and per_layer is not None:
+            per_layer[i, 0].add_(live)
+            per_layer[i, 1].add_(cfg.num_experts)
+        if fills is not None:
+            fills.append((decode, r["fill"].clone()))
 
-    return [m.register_forward_pre_hook(count) for m in params.modules()
-            if isinstance(m, moe.MoE)]
+    # the index rides with the hook: a step may run copies of the layers
+    # (``with_config``), which share their hooks
+    return [m.register_forward_pre_hook(functools.partial(count, i))
+            for i, m in enumerate(m for m in params.modules() if isinstance(m, moe.MoE))]
 
 
 def moe_phase(torch, dev, flush):
@@ -2283,15 +2369,18 @@ def moe_phase(torch, dev, flush):
     want = moe_launches_per_chain_step(L)
     runs, toks = {}, {}
 
-    def eager_drops(name, params, scfg, t_window, run, graph_out, graph_launches):
+    def eager_drops(name, params, scfg, t_window, run, graph_out, graph_launches,
+                    fills=None):
         """The run again with ``graphs=False`` and :func:`moe_drop_hooks` on
         every MoE layer: its tokens and launches must equal the graph run's
-        (replay ≡ eager), so the drops it counts are the graph run's.  The
-        graph run's programs carry no counting ops."""
+        (replay ≡ eager), so the drops and kept experts it counts are the
+        graph run's (``fills``: a list for every forward's fill).  The graph
+        run's programs carry no counting ops."""
         gc.collect()
         eng = SpecEngine(model, scfg, graphs=False)
-        counter = torch.zeros(4, dtype=torch.int64, device=dev)
-        hooks = moe_drop_hooks(params, counter, t_window)
+        counter = torch.zeros(8, dtype=torch.int64, device=dev)
+        per_layer = torch.zeros(L, 2, dtype=torch.int64, device=dev)
+        hooks = moe_drop_hooks(params, counter, t_window, per_layer, fills)
         try:
             ops.reset_launch_counts()
             got = run(eng)
@@ -2305,12 +2394,16 @@ def moe_phase(torch, dev, flush):
         if launches != graph_launches:
             raise AssertionError(f"moe {name}: launches differ between graphs and eager: "
                                  f"{launches} != {graph_launches}")
-        d_dec, r_dec, d_other, r_other = counter.tolist()
+        d_dec, r_dec, d_other, r_other, l_dec, e_dec, l_other, e_other = counter.tolist()
         del eng
         return dict(dropped_share_decode=d_dec / max(r_dec, 1),
-                    dropped_share_prefill=d_other / max(r_other, 1))
+                    dropped_share_prefill=d_other / max(r_other, 1),
+                    live_expert_share_decode=l_dec / max(e_dec, 1),
+                    live_expert_share_prefill=l_other / max(e_other, 1),
+                    live_expert_share_decode_by_layer=[
+                        a / max(b, 1) for a, b in per_layer.tolist()])
 
-    def generate_run(name, params, verifier, drafter, branches, needed):
+    def generate_run(name, params, verifier, drafter, branches, needed, fills=None):
         scfg = SpecConfig(gamma=GAMMA, drafter=drafter, verifier=verifier,
                           tree_branches=branches)
         eng = SpecEngine(model, scfg)
@@ -2342,18 +2435,34 @@ def moe_phase(torch, dev, flush):
                     else 1 if drafter == "vanilla" else GAMMA + 1)
         info.update(eager_drops(name, params, scfg, t_window,
                                 lambda e: e.generate(params, prompts, NEW).tokens, graph_out,
-                                info["launches"]))
+                                info["launches"], fills))
         log(f"  moe {name}: {json.dumps(info)}")
         return info
 
     # -- W8A8 at the config's capacity factor (1.25): slots may drop --
     prep = prepare("w8a8")
     attn = ("int8_matmul_batched", "int8_matmul", "smooth_quant", "norm_smooth_quant")
+    fills = []
     runs["moe_spec_w8a8"] = generate_run("spec_w8a8", prep, "w8a8", "ngram", None,
-                                         attn + ("flash_decode",))
-    per_step = runs["moe_spec_w8a8"]["window"]["launches_per_step"]
+                                         attn + ("flash_decode",), fills)
+    spec = runs["moe_spec_w8a8"]
+    per_step = spec["window"]["launches_per_step"]
     if per_step != want:
         raise AssertionError(f"moe W8A8 chain step launches {per_step}, expected {want}")
+    log(f"  moe spec W8A8 graph step: device busy {spec['window']['device_busy_ms_per_step']} "
+        f"ms, step {spec['window']['step_ms']:.3f} ms, batched kernel in the graph "
+        f"{spec['window']['in_graph_ms_per_launch'].get('int8_matmul_batched')} ms per "
+        f"launch; experts keeping a slot: {spec['live_expert_share_decode']:.4f} of decode "
+        f"passes, {spec['live_expert_share_prefill']:.4f} at prefill")
+    # the batched kernel at the run's own fills: the decode pass and the
+    # prefill pass at the median share of experts keeping a slot
+    picked = {}
+    for regime, decode in (("chain_run_fill", True), ("prefill_run_fill", False)):
+        seen = sorted((f for d, f in fills if d == decode), key=lambda f: int((f > 0).sum()))
+        picked[regime] = seen[len(seen) // 2]
+    del fills
+    kern["int8_matmul_batched"].extend(batched_fill_rows(torch, dev, flush, cfg, picked))
+    out["run_fills"] = {k: v.tolist() for k, v in picked.items()}
     runs["moe_vanilla_w8a8"] = generate_run("vanilla_w8a8", prep, "w8a8", "vanilla", None,
                                             attn + ("flash_decode",))
     runs["moe_tree_w8a8"] = generate_run("tree_w8a8", prep, "w8a8", "ngram-tree", TREE,
@@ -3839,7 +3948,7 @@ def main() -> int:
                   "src/repro/kernels/flash_decode.py:273", run)
            for run, (_, _, name) in PAGED_RUNS.items()},
         # not a TPU kernel: the reference's expert product is a jnp dot_general
-        "int8_matmul_batched": ("src/repro_torch/csrc/int8_matmul.cu",
+        "int8_matmul_batched": ("src/repro_torch/csrc/int8_batched.cu",
                                 "src/repro/models/moe.py:72", "moe_spec_w8a8"),
         # not a TPU kernel: the reference's SSD recurrence is a lax.scan
         "ssd_update": ("src/repro_torch/csrc/ssd_update.cu", "src/repro/models/ssm.py:89",

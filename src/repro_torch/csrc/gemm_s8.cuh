@@ -96,13 +96,40 @@ __device__ __forceinline__ void emit(const float* __restrict__ dx,
   }
 }
 
+// The K split's exchange across a cluster, by every thread of the block
+// (the cluster barriers need all of them; `consumer`: the threads that hold
+// sums, each past its last product, so the ring is drained).  They store
+// their accumulators over the ring; after a cluster barrier each block sums
+// its share of the 8-column blocks from every block's shared memory, in rank
+// order, and hands each sum to put(j, v, sum) (column block j, fragment v);
+// a second barrier keeps every block alive until the others have read it.
+// Integer sums are exact, so the result does not depend on the split.
+template <int R, int CONSUMERS, class Put>
+__device__ __forceinline__ void cluster_sum(const uint32_t (&acc)[R], uint8_t* tiles,
+                                            int cluster, int rank, bool consumer, Put put) {
+  uint32_t* part = reinterpret_cast<uint32_t*>(tiles);
+  if (consumer) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) part[i * CONSUMERS + threadIdx.x] = acc[i];
+  }
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  cl.sync();  // every block's partial sums are in its shared memory
+  if (consumer) {
+    const int j0 = rank * (R / 4) / cluster, j1 = (rank + 1) * (R / 4) / cluster;
+    for (int j = j0; j < j1; ++j)
+      for (int v = 0; v < 4; ++v) {
+        const int i = (4 * j + v) * CONSUMERS + threadIdx.x;
+        uint32_t sum = 0;
+        for (int c = 0; c < cluster; ++c) sum += cl.map_shared_rank(part, c)[i];
+        put(j, v, sum);
+      }
+  }
+  cl.sync();  // no block leaves while another still reads its shared memory
+}
+
 // After the main loop, by every thread of the block (the cluster barriers
-// need all of them).  Without a K split the consumers write their tile.  With
-// one (cluster > 1), they store their accumulators over the drained ring;
-// after a cluster barrier each block sums its share of the 8-column blocks
-// from every block's shared memory, in rank order, and writes it; a second
-// barrier keeps every block alive until the others have read it.  Integer
-// sums are exact, so the result does not depend on the split.
+// need all of them).  Without a K split the consumers write their tile;
+// with one (cluster > 1), the cluster sums it (cluster_sum).
 template <int NW, int WGS, bool SWAP, int SHIFT>
 __device__ __forceinline__ void finish(uint32_t (&acc)[NW / 2], uint8_t* tiles, int cluster,
                                        int rank, int a0, int b0,
@@ -125,27 +152,14 @@ __device__ __forceinline__ void finish(uint32_t (&acc)[NW / 2], uint8_t* tiles, 
     }
     return;
   }
-  uint32_t* part = reinterpret_cast<uint32_t*>(tiles);
-  if (consumer) {
-    // every consumer warp is past its last product: the ring may be reused
-    asm volatile("bar.sync 1, %0;\n" ::"r"(CONSUMERS) : "memory");
-#pragma unroll
-    for (int i = 0; i < R; ++i) part[i * CONSUMERS + threadIdx.x] = acc[i];
-  }
-  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
-  cl.sync();  // every block's partial sums are in its shared memory
-  if (consumer) {
-    const int j0 = rank * (R / 4) / cluster, j1 = (rank + 1) * (R / 4) / cluster;
-    for (int j = j0; j < j1; ++j)
-      for (int v = 0; v < 4; ++v) {
-        const int i = (4 * j + v) * CONSUMERS + threadIdx.x;
-        uint32_t sum = 0;
-        for (int c = 0; c < cluster; ++c) sum += cl.map_shared_rank(part, c)[i];
-        emit<SWAP, SHIFT>(dx, dw, out, out_bf16, M, N, a0 + row + 8 * (v >> 1),
-                          b0 + 8 * j + col + (v & 1), sum);
-      }
-  }
-  cl.sync();  // no block leaves while another still reads its shared memory
+  // every consumer warp is past its last product: the ring may be reused
+  if (consumer) asm volatile("bar.sync 1, %0;\n" ::"r"(CONSUMERS) : "memory");
+  cluster_sum<R, CONSUMERS>(acc, tiles, cluster, rank, consumer,
+                            [&](int j, int v, uint32_t sum) {
+                              emit<SWAP, SHIFT>(dx, dw, out, out_bf16, M, N,
+                                                a0 + row + 8 * (v >> 1),
+                                                b0 + 8 * j + col + (v & 1), sum);
+                            });
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -49,20 +49,8 @@
 // M, the regime nor the split.  The ring, the cluster reduction, the
 // epilogue and the launch are gemm_s8.cuh's, shared with int4_matmul.cu.
 //
-// Batched over experts (E > 1): the W8A8 branch of the MoE expert product
-// (repro/models/moe.py:72-87 _expert_linear, a jnp dot_general over experts
-// in the reference, not a Pallas kernel), X (E, C, K) times W (E, N, K) ->
-// (E, C, N), is this kernel with the experts as the grid's z dimension: one
-// launch per expert linear.  Expert e's blocks read the tensors as (E*C, K)
-// and (E*N, K) row matrices from rows e*C and e*N, with M = C; the plan is
-// the one-expert plan of (C, N, K) with E times the tiles (gemm_plan's E).
-// An X tile's `width` rows (or a W tile's rows) that run past expert e's C
-// (N) rows into expert e+1's are multiplied but never written: the epilogue
-// masks m < C and n < N, and past the last expert TMA fills zeros.  At
-// decode (C 3, moonshot's 64 experts of 1408 x 2048) the swapped regime reads
-// every weight byte once: 22 tiles of 64 W rows per expert, 1408 blocks, no
-// K split.  torch has no batched int8 product with int32 sums on CUDA, and
-// torch._int_mm is 2-D and needs more than 16 rows.
+// The batched expert product (moe.py's W8A8 _expert_linear) has a body of
+// its own: int8_batched.cu.
 #include "gemm_s8.cuh"
 
 namespace {
@@ -82,12 +70,6 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
   const int wg = threadIdx.x / 128;
   const int rank = blockIdx.x % cluster;
   const int a0 = blockIdx.x / cluster * A_ROWS, b0 = blockIdx.y * NW;
-  // expert e (blockIdx.z): its rows of X and W, its scales and its output
-  const int e = blockIdx.z;
-  const int a_row = (SWAP ? e * N : e * M) + a0, b_row = (SWAP ? e * M : e * N) + b0;
-  dx += static_cast<int64_t>(e) * M;
-  dw += static_cast<int64_t>(e) * N;
-  out = static_cast<uint8_t*>(out) + static_cast<int64_t>(e) * M * N * (out_bf16 ? 2 : 4);
   const int kt0 = rank * kt_per_split;
   const int nk = max(0, min(ktiles, kt0 + kt_per_split) - kt0);
 
@@ -105,8 +87,8 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         uint8_t* st = ring.stage(t, STAGE);
         const int k = (kt0 + t) * KT;
         mbar_expect_tx(ring.full_bar(t), STAGE);
-        tma_load_2d(st, &tmA, ring.full_bar(t), k, a_row);
-        tma_load_2d(st + A_BYTES, &tmB, ring.full_bar(t), k, b_row);
+        tma_load_2d(st, &tmA, ring.full_bar(t), k, a0);
+        tma_load_2d(st + A_BYTES, &tmB, ring.full_bar(t), k, b0);
       }
     }
   } else {
@@ -133,23 +115,23 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
 
 template <int NW, int WGS, bool SWAP>
 cudaError_t launch(const int8_t* X, const int8_t* W, const float* dx, const float* dw,
-                   void* out, int out_bf16, int E, int M, int N, int K, int cluster,
-                   int stages, int smem, cudaStream_t st) {
+                   void* out, int out_bf16, int M, int N, int K, int cluster, int stages,
+                   int smem, cudaStream_t st) {
   constexpr int A_ROWS = 64 * WGS;
   if (cluster > 1 && smem < kReserve + 256 * WGS * NW)  // the int32 partial sums
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  const bool ok = SWAP ? tensor_map(&ma, W, E * N, K, A_ROWS, KT, sw) &&
-                             tensor_map(&mb, X, E * M, K, NW, KT, sw)
-                       : tensor_map(&ma, X, E * M, K, A_ROWS, KT, sw) &&
-                             tensor_map(&mb, W, E * N, K, NW, KT, sw);
+  const bool ok = SWAP ? tensor_map(&ma, W, N, K, A_ROWS, KT, sw) &&
+                             tensor_map(&mb, X, M, K, NW, KT, sw)
+                       : tensor_map(&ma, X, M, K, A_ROWS, KT, sw) &&
+                             tensor_map(&mb, W, N, K, NW, KT, sw);
   if (!ok) return cudaErrorInvalidValue;
   static int smem_set[kMaxDevices] = {};
   const int ktiles = (K + KT - 1) / KT;
   const int per = (ktiles + cluster - 1) / cluster;
-  const dim3 grid = SWAP ? dim3((N + A_ROWS - 1) / A_ROWS * cluster, 1, E)
-                         : dim3((M + A_ROWS - 1) / A_ROWS, (N + NW - 1) / NW, E);
+  const dim3 grid = SWAP ? dim3((N + A_ROWS - 1) / A_ROWS * cluster, 1, 1)
+                         : dim3((M + A_ROWS - 1) / A_ROWS, (N + NW - 1) / NW, 1);
   return launch_gemm(int8_gemm_kernel<NW, WGS, SWAP>, smem_set, grid, WGS * 128 + 32, smem,
                      cluster, st, ma, mb, dx, dw, out, out_bf16, M, N, ktiles, per, stages,
                      cluster);
@@ -157,9 +139,9 @@ cudaError_t launch(const int8_t* X, const int8_t* W, const float* dx, const floa
 
 }  // namespace
 
-// X: (E, M, K) int8, W: (E, N, K) int8, both K-contiguous and 16-byte aligned
-// with K % 16 == 0; dx: (E, M) f32; dw: (E, N) f32; out: (E, M, N) bf16
-// (out_is_bf16 != 0) or f32; E = 1 is the plain GEMM.  The plan
+// X: (M, K) int8, W: (N, K) int8, both K-contiguous and 16-byte aligned
+// with K % 16 == 0; dx: (M,) f32; dw: (N,) f32; out: (M, N) bf16
+// (out_is_bf16 != 0) or f32.  The plan
 // (kernels/int8_matmul.py gemm_plan): swap = 1 for the
 // swapped regime (M <= 256), width = wgmma N, tile_n = the N extent of a
 // block's output tile (64 or 128 W rows swapped, 256 otherwise), cluster =
@@ -167,13 +149,11 @@ cudaError_t launch(const int8_t* X, const int8_t* W, const float* dx, const floa
 // bytes.  A plan outside the built kernels is refused with
 // cudaErrorInvalidValue.  Returns the launch's error or cudaGetLastError().
 extern "C" int int8_matmul_launch(const int8_t* X, const int8_t* W, const float* dx,
-                                  const float* dw, void* out, int out_is_bf16, int E,
-                                  int M, int N, int K, int swap, int width, int tile_n,
+                                  const float* dw, void* out, int out_is_bf16, int M,
+                                  int N, int K, int swap, int width, int tile_n,
                                   int cluster, int stages, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (E <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (E > 65535 || static_cast<int64_t>(E) * (M > N ? M : N) > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   if (encoder() == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   const int a_rows = swap ? tile_n : 128;  // rows of a block's A tile
   if (K <= 0 || K % 16 || stages < 1 || !cluster_ok(cluster) || (!swap && cluster != 1) ||
@@ -182,8 +162,8 @@ extern "C" int int8_matmul_launch(const int8_t* X, const int8_t* W, const float*
   cudaError_t e = cudaErrorInvalidValue;
 #define INT8_GEMM(NW, WGS, SWAP)                                                     \
   if ((swap != 0) == SWAP && width == NW && tile_n == (SWAP ? 64 * WGS : NW))         \
-    e = launch<NW, WGS, SWAP>(X, W, dx, dw, out, out_is_bf16, E, M, N, K, cluster,     \
-                              stages, smem, st);
+    e = launch<NW, WGS, SWAP>(X, W, dx, dw, out, out_is_bf16, M, N, K, cluster, stages, \
+                              smem, st);
   INT8_GEMM(8, 1, true)
   INT8_GEMM(24, 1, true)
   INT8_GEMM(48, 1, true)

@@ -1,11 +1,12 @@
-// Hopper building blocks of the s8 GEMMs (int8_matmul.cu, int4_matmul.cu):
+// Hopper building blocks of the s8 GEMMs (int8_matmul.cu, int4_matmul.cu,
+// int8_batched.cu):
 // mbarrier waits, TMA tile loads, the shared-memory matrix descriptor of a
 // K-major tile written by TMA with 128-byte swizzle, and the s8 warpgroup
 // product wgmma.mma_async.m64nNk32.s32.s8.s8 (int32 accumulators in
 // registers), one wrapper per width N that the launch plans use
-// (kernels/int8_matmul.py WIDTHS; the PTX ISA allows 8, 16, 24, 32 and
-// multiples of 16 up to 256 for s8), with A from shared memory (mma) or from
-// registers (mma_rs).
+// (kernels/int8_matmul.py WIDTHS and TILED_WIDTHS; the PTX ISA allows 8,
+// 16, 24, 32 and multiples of 16 up to 256 for s8), with A from shared
+// memory (mma) or from registers (mma_rs).
 //
 // Accumulator layout of m64nN (each of the 128 threads of the warpgroup
 // holds N/2 values): thread t = 32*w + l holds, for every 8-column block j,
@@ -122,6 +123,10 @@ struct Wgmma;
 #define WG_REGS_48                                                                  \
   WG_REGS_24 ", %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
              "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_REGS_88                                                                     \
+  WG_REGS_48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "    \
+             "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
+             "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87"
 #define WG_REGS_96                                                                     \
   WG_REGS_48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "    \
              "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
@@ -138,6 +143,7 @@ struct Wgmma;
 #define WG_OPS_12 WG_D12(0)
 #define WG_OPS_24 WG_D12(0), WG_D12(1)
 #define WG_OPS_48 WG_OPS_24, WG_D12(2), WG_D12(3)
+#define WG_OPS_88 WG_OPS_48, WG_D12(4), WG_D12(5), WG_D12(6), WG_D4(21)
 #define WG_OPS_96 WG_OPS_48, WG_D12(4), WG_D12(5), WG_D12(6), WG_D12(7)
 #define WG_OPS_128 WG_OPS_96, WG_D12(8), WG_D12(9), WG_D4(30), WG_D4(31)
 
@@ -170,12 +176,14 @@ WGMMA_S8(8, 4, 4, 5, 6, 4, 5, 6, 7, 8, 9)
 WGMMA_S8(24, 12, 12, 13, 14, 12, 13, 14, 15, 16, 17)
 WGMMA_S8(48, 24, 24, 25, 26, 24, 25, 26, 27, 28, 29)
 WGMMA_S8(96, 48, 48, 49, 50, 48, 49, 50, 51, 52, 53)
+WGMMA_S8(176, 88, 88, 89, 90, 88, 89, 90, 91, 92, 93)
 WGMMA_S8(192, 96, 96, 97, 98, 96, 97, 98, 99, 100, 101)
 WGMMA_S8(256, 128, 128, 129, 130, 128, 129, 130, 131, 132, 133)
 
 #undef WGMMA_S8
 #undef WG_OPS_128
 #undef WG_OPS_96
+#undef WG_OPS_88
 #undef WG_OPS_48
 #undef WG_OPS_24
 #undef WG_OPS_12
@@ -184,6 +192,7 @@ WGMMA_S8(256, 128, 128, 129, 130, 128, 129, 130, 131, 132, 133)
 #undef WG_D4
 #undef WG_REGS_128
 #undef WG_REGS_96
+#undef WG_REGS_88
 #undef WG_REGS_48
 #undef WG_REGS_24
 #undef WG_REGS_12

@@ -11,7 +11,9 @@ epilogue is the same sequence of f32 roundings, so outputs are equal.
 ``int8_matmul_batched`` is the W8A8 branch of the reference's MoE expert
 product (``repro/models/moe.py:72-87`` ``_expert_linear``, a jnp
 ``dot_general`` over experts, no Pallas kernel): x̂ (E, C, K) × W (E, N, K)
-→ (E, C, N), one launch of the same kernel with an expert grid dimension.
+→ (E, C, N), one launch of a kernel of its own (``csrc/int8_batched.cu``)
+that takes each expert's kept rows (``rows``, the fill ``moe.route``
+gives), writes +0 past them and reads no weight of an expert with none.
 """
 from __future__ import annotations
 
@@ -42,13 +44,18 @@ def int8_matmul_ref(x_int8, w_nk, dx, dw, out_dtype=torch.bfloat16):
     return y.to(out_dtype)
 
 
-def int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype=torch.bfloat16):
+def int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype=torch.bfloat16, rows=None):
     """Plain version of the batched product: x̂ (E, C, K) int8 × W (E, N, K)
     int8 → (E, C, N) ``out_dtype`` = (float(acc) · Δx[e, c]) · Δw[e, n], the
-    reference's order.  One exact :func:`int32_acc` per expert, so the card
-    allocates one expert's float64 operands at a time."""
+    reference's order, and +0 in every row c ≥ ``rows[e]`` (``rows``: (E,)
+    int32 kept rows per expert; None keeps every row).  One exact
+    :func:`int32_acc` per expert, so the card allocates one expert's float64
+    operands at a time."""
     acc = torch.stack([int32_acc(x_int8[e], w_enk[e]) for e in range(x_int8.shape[0])])
     y = acc.float() * dx[:, :, None] * dw[:, None, :]
+    if rows is not None:
+        kept = torch.arange(x_int8.shape[1], device=y.device)[None, :] < rows[:, None]
+        y = torch.where(kept[:, :, None], y, 0.0)
     return y.to(out_dtype)
 
 
@@ -107,12 +114,13 @@ def _every_rank_has_k(ktiles: int, cluster: int) -> bool:
 
 
 def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True,
-              experts: int = 1) -> Plan:
-    """The swapped regime of both s8 GEMMs (``csrc/gemm_s8.cuh``), M <= 256:
+              experts: int = 1, static: int = 0) -> Plan:
+    """The swapped regime of the s8 GEMMs (``csrc/gemm_s8.cuh``), M <= 256:
     W tiles are wgmma's A, all M rows of X its N, so each weight byte is
     read once.  ``w_row_bytes``: bytes of one W row in a ring stage (128 for
-    int8, 64 for packed int4).  ``experts``: the batched product's grid
-    holds that many copies of one expert's W tiles.
+    int8, 64 for packed int4).  ``experts``: the batched product's items
+    are that many copies of one expert's W tiles; ``static``: the kernel's
+    static shared memory per block.
 
     One 64-row W tile per consumer warpgroup (two above width 48); up to
     three blocks per SM; K split across a cluster (a split costs two
@@ -126,7 +134,7 @@ def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True,
     tile_n = 64 if width <= 48 else 128
     stage = tile_n * w_row_bytes + width * KT
     for per_sm in (3, 2, 1):    # the most blocks per SM that leave four stages
-        room = min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - 1024) - SMEM_RESERVE
+        room = min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - 1024) - static - SMEM_RESERVE
         stages = min(MAX_STAGES, room // stage)
         if stages >= 4 or per_sm == 1:
             break
@@ -142,15 +150,63 @@ def swap_plan(M: int, N: int, K: int, w_row_bytes: int, tma: bool = True,
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_plan(M: int, N: int, K: int, E: int = 1) -> Plan:
+def gemm_plan(M: int, N: int, K: int) -> Plan:
     """The card kernel's launch, chosen from the shapes alone: M <= 256 the
     swapped regime (:func:`swap_plan`); M > 256 128 x 256 output tiles, X
-    the A operand and W the B operand, four stages.  ``E`` > 1: the batched
-    product, M = C rows per expert, every expert's tiles in one grid."""
+    the A operand and W the B operand, four stages."""
     if M > SMALL_M:
         stage = (128 + 256) * KT
         return Plan("tiled", 256, 256, 1, 4, SMEM_RESERVE + 4 * stage)
-    return swap_plan(M, N, K, KT, experts=E)
+    return swap_plan(M, N, K, KT)
+
+
+# -- the batched kernel's launch plan (csrc/int8_batched.cu) -------------------
+
+MAX_EXPERTS = 256          # the kernel's item list lives in static shared memory:
+BATCHED_STATIC = 5632      # 4 * (2 * MAX_EXPERTS + 1) bytes, and two items' scales
+TILE_M = 128               # X rows per tiled item (two consumer warpgroups)
+TILED_WIDTHS = (256, 176)  # N tiles of the tiled regime: the experts' own widths
+SWAP_MAX_C = 48            # rows per expert up to here: the swapped regime (one
+                           # warpgroup, three blocks per SM); past it the tiled one
+                           # was faster at moonshot's C 64-120 (PERF.md §6)
+MAX_TILED_STAGES = 4
+
+
+class BatchedPlan(NamedTuple):
+    regime: str     # "swap" (C <= SWAP_MAX_C) or "tiled"
+    tile_n: int     # W rows per item: 64 swapped, the N tile tiled
+    width: int      # wgmma N: C rounded up to a built width swapped, the N tile tiled
+    cluster: int    # blocks splitting K (swapped; 1 tiled)
+    stages: int     # depth of the TMA ring
+    smem: int       # dynamic shared memory bytes per block
+    grid: int       # blocks at most: the kernel walks its items persistently
+
+
+@functools.lru_cache(maxsize=1024)
+def batched_plan(C: int, N: int, K: int, E: int) -> BatchedPlan:
+    """The batched kernel's launch from the shapes alone (C rows per expert).
+    C <= SWAP_MAX_C: :func:`swap_plan` over every expert's W tiles, a
+    persistent grid of the blocks the card holds at once, or with a K split
+    one cluster per item.  Past it: 128-row M tiles times an N tile of a
+    built width that divides N (else 256), the bf16 output tile staged in
+    shared memory, and beside it a ring of up to four stages (176: four,
+    256: three; five ran no faster than four), one block per SM."""
+    if C > SWAP_MAX_C:
+        bn = next((w for w in TILED_WIDTHS if N % w == 0), TILED_WIDTHS[0])
+        items = E * -(-C // TILE_M) * -(-N // bn)
+        stage, staged = (TILE_M + bn) * KT, TILE_M * (2 * bn + 16)   # + the bf16 tile
+        stages = min(MAX_TILED_STAGES,
+                     (SMEM_PER_BLOCK - BATCHED_STATIC - SMEM_RESERVE - staged) // stage)
+        return BatchedPlan("tiled", bn, bn, 1, stages, SMEM_RESERVE + stages * stage + staged,
+                           min(items, NUM_SMS))
+    p = swap_plan(C, N, K, KT, experts=E, static=BATCHED_STATIC)
+    items = -(-N // p.tile_n) * E
+    if p.cluster > 1:
+        grid = items * p.cluster
+    else:
+        per_sm = min(3, SMEM_PER_SM // (p.smem + BATCHED_STATIC + 1024))
+        grid = min(items, NUM_SMS * per_sm)
+    return BatchedPlan("swap", p.tile_n, p.width, p.cluster, p.stages, p.smem, grid)
 
 
 _FN = None
@@ -161,26 +217,52 @@ def _kernel_fn():
     if _FN is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _FN = ops.c_function("int8_matmul", "int8_matmul_launch",
-                             [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p])
+                             [p] * 5 + [i] * 10 + [p])
     return _FN
 
 
-def _launch(x, w, dx, dw, out_dtype, name="int8_matmul"):
-    """One launch for x (E, M, K) and w (E, N, K) (E = 1: the plain GEMM)."""
-    E, M, K = x.shape
-    N = w.shape[1]
+def _aligned(name, x, w) -> None:
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows with TMA in 16-byte "
                          "units; x and w must be 16-byte aligned")
-    out = torch.empty((E, M, N), dtype=out_dtype, device=x.device)
-    plan = gemm_plan(M, N, K, E)
+
+
+def _launch(x, w, dx, dw, out_dtype):
+    """One launch for x (M, K) and w (N, K)."""
+    M, K = x.shape
+    N = w.shape[0]
+    _aligned("int8_matmul", x, w)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    plan = gemm_plan(M, N, K)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn()(x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                       out.data_ptr(), out_dtype == torch.bfloat16, E, M, N, K,
+                       out.data_ptr(), out_dtype == torch.bfloat16, M, N, K,
                        plan.regime == "swap", plan.width, plan.tile_n, plan.cluster,
                        plan.stages, plan.smem, stream)
     ops.check("int8_matmul", err)
-    ops.LAUNCHES[name] += 1
+    ops.LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+def _launch_batched(x, w, dx, dw, rows, out_dtype):
+    """One launch of the batched kernel for x (E, C, K) and w (E, N, K)."""
+    E, C, K = x.shape
+    N = w.shape[1]
+    _aligned("int8_matmul_batched", x, w)
+    if E > MAX_EXPERTS:
+        raise ValueError(f"int8_matmul_batched: the kernel takes at most {MAX_EXPERTS} "
+                         f"experts, got {E}")
+    out = torch.empty((E, C, N), dtype=out_dtype, device=x.device)
+    plan = batched_plan(C, N, K, E)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = ops.c_function("int8_batched", "int8_batched_launch", [p] * 6 + [i] * 12 + [p])
+    err = fn(x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+             None if rows is None else rows.data_ptr(), out.data_ptr(),
+             out_dtype == torch.bfloat16, E, C, N, K, plan.regime == "swap", plan.width,
+             plan.tile_n, plan.cluster, plan.stages, plan.smem, plan.grid,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    ops.check("int8_batched", err)
+    ops.LAUNCHES["int8_matmul_batched"] += 1
     return out
 
 
@@ -190,13 +272,16 @@ def int8_matmul(x_int8, w_nk, dx, dw, *, out_dtype=torch.bfloat16):
     _check(x_int8, w_nk, dx, dw, out_dtype)
     return ops.dispatch(
         x_int8, lambda: int8_matmul_ref(x_int8, w_nk, dx, dw, out_dtype),
-        lambda: _launch(x_int8[None], w_nk[None], dx, dw, out_dtype)[0], (dx, dw))
+        lambda: _launch(x_int8, w_nk, dx, dw, out_dtype), (dx, dw))
 
 
-def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16):
+def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16, rows=None):
     """x̂ (E, C, K) int8, W (E, N, K) int8, Δx (E, C) f32, Δw (E, N) f32 →
     (E, C, N) ``out_dtype`` = float(x̂[e]·W[e]ᵀ) · Δx[e, c] · Δw[e, n]: every
-    expert's GEMM in one launch (``int8_matmul_batched`` in the counts)."""
+    expert's GEMM in one launch (``int8_matmul_batched`` in the counts).
+    ``rows`` (E,) int32 on the same device: expert e's kept rows; rows c ≥
+    ``rows[e]`` are +0 (the kernel loads neither X nor W for them).  None:
+    every row is computed."""
     if x_int8.dim() != 3 or w_enk.dim() != 3 or x_int8.shape[0] != w_enk.shape[0]:
         raise ValueError(f"int8_matmul_batched: need x (E, C, K) and w (E, N, K), got "
                          f"{tuple(x_int8.shape)} and {tuple(w_enk.shape)}")
@@ -210,7 +295,11 @@ def int8_matmul_batched(x_int8, w_enk, dx, dw, *, out_dtype=torch.bfloat16):
                          "(E, N, K), K contiguous)")
     _check(x_int8.view(E * C, K), w_enk.view(E * N, w_enk.shape[2]), dx.view(-1),
            dw.view(-1), out_dtype)
+    if rows is not None and (rows.shape != (E,) or rows.dtype != torch.int32
+                             or rows.device != x_int8.device or not rows.is_contiguous()):
+        raise ValueError(f"int8_matmul_batched: rows must be ({E},) int32, contiguous, on "
+                         f"{x_int8.device}; got {tuple(rows.shape)} {rows.dtype} on "
+                         f"{rows.device}")
     return ops.dispatch(
-        x_int8, lambda: int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype),
-        lambda: _launch(x_int8, w_enk, dx, dw, out_dtype, "int8_matmul_batched"),
-        (dx, dw))
+        x_int8, lambda: int8_matmul_batched_ref(x_int8, w_enk, dx, dw, out_dtype, rows),
+        lambda: _launch_batched(x_int8, w_enk, dx, dw, rows, out_dtype), (dx, dw))

@@ -34,7 +34,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = _CSRC / "_build"
-SOURCES = ("smooth_quant", "int8_matmul", "int4_matmul", "flash_decode", "ssd_update")
+SOURCES = ("smooth_quant", "int8_matmul", "int8_batched", "int4_matmul", "flash_decode",
+           "ssd_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -288,14 +289,15 @@ def w8a8_expert_matmul(
     w_int8: torch.Tensor,    # (E, N, K) int8, K contiguous
     w_scale: torch.Tensor,   # (E, N) f32
     smooth: torch.Tensor,    # (K,) f32, shared by the experts
+    rows: torch.Tensor | None = None,   # (E,) int32 kept rows per expert
 ) -> torch.Tensor:
     """The W8A8 expert product of an MoE layer (``repro/models/moe.py``
     ``_expert_linear``): every row smoothed and quantized per token, then
     every expert's int8 GEMM in one ``int8_matmul_batched`` launch →
-    (E, C, N) in ``x.dtype``."""
+    (E, C, N) in ``x.dtype``, +0 in each expert's rows past ``rows``."""
     from repro_torch.kernels.int8_matmul import int8_matmul_batched
 
     E, C, K = x.shape
     xq, dx = quantize_act(x, smooth)
     return int8_matmul_batched(xq.view(E, C, K), w_int8, dx.view(E, C), w_scale,
-                               out_dtype=x.dtype)
+                               out_dtype=x.dtype, rows=rows)

@@ -106,20 +106,25 @@ class W4A8Linear(nn.Module):
 
 class ExpertLinear(nn.Module):
     """Batched expert weights ``w`` (E, din, dout): x (E, C, din) → (E, C,
-    dout), the reference's ``einsum("ecd,edf->ecf")`` as one ``bmm``."""
+    dout), the reference's ``einsum("ecd,edf->ecf")`` as one ``bmm``
+    (``rows``, the kept rows per expert, is not read: every row is
+    computed)."""
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
         self.register_buffer("w", w)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
         return torch.bmm(x, self.w.to(x.dtype))
 
 
 class W8A8ExpertLinear(nn.Module):
     """W8A8 expert weights: ``w_int8`` (E, dout, din), din contiguous (the
     transpose of the reference's (E, din, dout), for the same reason as
-    :class:`W8A8Linear`), ``w_scale`` (E, dout) f32, ``smooth`` (din,) f32."""
+    :class:`W8A8Linear`), ``w_scale`` (E, dout) f32, ``smooth`` (din,) f32.
+    ``rows`` (E,) int32, the kept rows per expert: rows past them come out
+    +0 (what the reference's product gives the zero rows gathered there),
+    and an expert with none reads no weight on the card."""
 
     def __init__(self, w_int8: torch.Tensor, w_scale: torch.Tensor, smooth: torch.Tensor):
         super().__init__()
@@ -127,5 +132,5 @@ class W8A8ExpertLinear(nn.Module):
         self.register_buffer("w_scale", w_scale)
         self.register_buffer("smooth", smooth)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.w8a8_expert_matmul(x, self.w_int8, self.w_scale, self.smooth)
+    def forward(self, x: torch.Tensor, rows: torch.Tensor | None = None) -> torch.Tensor:
+        return ops.w8a8_expert_matmul(x, self.w_int8, self.w_scale, self.smooth, rows)

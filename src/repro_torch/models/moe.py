@@ -7,7 +7,9 @@ optional dense residual branch (arctic-480b).  The router stays f32 (its
 path is in ``quant/apply._EXCLUDE``); the experts are
 :class:`~repro_torch.models.linear.ExpertLinear` (E, din, dout) tensors,
 quantized to W8A8 as a batch (``quant/int8.quantize_batched``) and run on
-the card by one ``int8_matmul_batched`` launch per expert linear.
+the card by one ``int8_matmul_batched`` launch per expert linear, which
+takes each expert's kept rows (``route``'s ``fill``) and reads no weight of
+an expert that keeps none.
 
 Dispatch, exactly the reference's (``models/moe.py:206-262``): a stable
 ranking of every (token, slot) within its expert's queue, ``keep = pos <
@@ -61,9 +63,9 @@ def capacity(n_tokens: int, num_experts: int, k: int, factor: float) -> int:
                       math.ceil(n_tokens * k * factor / num_experts)))
 
 
-def rank_positions(ids: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Position of each element within its bin, by a stable sort (the
-    reference's ``_rank_positions``); ``ids`` (nK,) in ``[0, n_bins]``."""
+def _rank_and_count(ids: torch.Tensor, n_bins: int):
+    """(position of each element within its bin, by a stable sort; the
+    elements of each bin, (n_bins + 1,) int64)."""
     nK = ids.shape[0]
     ids = ids.long()
     order = torch.argsort(ids, stable=True)
@@ -71,7 +73,13 @@ def rank_positions(ids: torch.Tensor, n_bins: int) -> torch.Tensor:
     counts.scatter_add_(0, ids, torch.ones_like(ids))
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(nK, device=ids.device) - starts[ids[order]]
-    return torch.empty_like(ids).scatter_(0, order, pos_sorted)
+    return torch.empty_like(ids).scatter_(0, order, pos_sorted), counts
+
+
+def rank_positions(ids: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Position of each element within its bin, by a stable sort (the
+    reference's ``_rank_positions``); ``ids`` (nK,) in ``[0, n_bins]``."""
+    return _rank_and_count(ids, n_bins)[0]
 
 
 def router_logits(xf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -95,13 +103,16 @@ def route(logits: torch.Tensor, k: int, num_experts: int, factor: float) -> dict
     ``eidx`` (n, K), ``pos`` (n, K) within the expert's queue, ``keep``
     (n, K), ``p_flat`` (nK,) the slot each (token, slot) reads (C-1 when
     dropped), ``slot_tok`` (E·C,) the token in each expert slot (n: empty),
+    ``fill`` (E,) int32 the slots each expert keeps, min(count, C) (its
+    rows 0 … fill-1 of the dispatch hold tokens, the rest the zero row),
     and the capacity ``C``."""
     n, E, K = logits.shape[0], num_experts, k
     probs = torch.softmax(logits, dim=-1)
     gates, eidx = top_k(probs, K)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     e_flat = eidx.reshape(-1)
-    pos = rank_positions(e_flat, E).view(n, K)
+    pos, counts = _rank_and_count(e_flat, E)
+    pos = pos.view(n, K)
     C = capacity(n, E, K, factor)
     keep = pos < C
     keep_flat, pos_flat = keep.view(-1), pos.view(-1)
@@ -111,16 +122,19 @@ def route(logits: torch.Tensor, k: int, num_experts: int, factor: float) -> dict
     slot_tok = torch.full((E * C + 1,), n, dtype=torch.int64, device=logits.device)
     slot_tok = slot_tok.scatter_(0, slot_ids, token_idx)[:E * C]
     return dict(probs=probs, gates=gates, eidx=eidx, pos=pos, keep=keep, p_flat=p_flat,
-                slot_tok=slot_tok, C=C)
+                slot_tok=slot_tok, fill=counts[:E].clamp(max=C).to(torch.int32), C=C)
 
 
-def _expert_linear(lin: nn.Module, x: torch.Tensor, collect=None, path: str = ""):
+def _expert_linear(lin: nn.Module, x: torch.Tensor, collect=None, path: str = "",
+                   rows: Optional[torch.Tensor] = None):
     """Batched expert GEMM x (E, C, din) → (E, C, dout), bf16 or W8A8,
     recording calibration stats over every gathered row (zero pad rows
-    leave the maxima as they are)."""
+    leave the maxima as they are).  ``rows``: each expert's kept rows (the
+    W8A8 product writes +0 past them, the reference's product of the zero
+    rows there; the combine reads none of them)."""
     if collect is not None:
         record_act_stats(collect, path, x.reshape(-1, x.shape[-1]))
-    return lin(x)
+    return lin(x, rows)
 
 
 class MoE(nn.Module):
@@ -160,12 +174,13 @@ class MoE(nn.Module):
         xe = torch.cat([xf, xf.new_zeros(1, D)]).index_select(0, r["slot_tok"])
         xe = xe.view(E, C, D)
 
-        up = _expert_linear(self.up, xe, collect, f"{path}/up")
+        fill = r["fill"]
+        up = _expert_linear(self.up, xe, collect, f"{path}/up", fill)
         if self.gate is not None:
-            h = activation(cfg, _expert_linear(self.gate, xe, collect, f"{path}/gate")) * up
+            h = activation(cfg, _expert_linear(self.gate, xe, collect, f"{path}/gate", fill)) * up
         else:
             h = activation(cfg, up)
-        ye = _expert_linear(self.down, h, collect, f"{path}/down")          # (E, C, D)
+        ye = _expert_linear(self.down, h, collect, f"{path}/down", fill)    # (E, C, D)
 
         # combine: each (token, slot)'s expert row times its gate (0 when
         # dropped), rounded to the model dtype as the reference's product is,

@@ -1551,20 +1551,24 @@ def test_streaming_server_captures_on_its_thread_on_card(dev):
 
 # -- MoE (models/moe.py): the batched expert GEMM, row invariance, graphs ------
 
-@pytest.mark.parametrize("e,c,k,n", [
+BATCHED_SHAPES = [
     (64, 3, 2048, 1408), (64, 11, 2048, 1408), (64, 21, 1408, 2048),   # moonshot decode
     (64, 480, 2048, 1408), (64, 480, 1408, 2048),                      # moonshot prefill
     (16, 4, 4096, 6400), (16, 4, 6400, 4096), (16, 300, 4096, 6400),   # phi3.5-moe
-    (4, 1, 16 * 37, 200), (3, 9, 144, 72), (5, 257, 48, 130), (2, 200, 4096, 64)])
+    (4, 1, 16 * 37, 200), (3, 9, 144, 72), (5, 257, 48, 130), (2, 200, 4096, 64),
+    (2, 40, 4096, 64)]
+
+
+@pytest.mark.parametrize("e,c,k,n", BATCHED_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_batched_bit_equal_on_card(dev, e, c, k, n, out_dtype):
     """Every expert's GEMM in one launch, bit-equal to the plain version at
     moonshot's and phi3.5-moe's expert shapes (decode C 3, 11, 21 and
-    prefill C 480 on moonshot) and at the plan's edges: C 1 and 9 (wgmma
-    widths 8, 24), 257 (tiled), N not a multiple of the W tile, K not of the
-    128-byte step, a K split across a cluster (few experts, few tiles).  An
-    expert's X tile runs past its C rows into the next expert's: those
-    products are never written."""
+    prefill C 480 on moonshot) and at the plan's edges: C 1, 9 and 40
+    (wgmma widths 8, 24, 48), 200 and 257 (tiled), N not a multiple of the
+    W tile, K not of the 128-byte step, a K split across a cluster (few
+    experts, few tiles).  An expert's X tile runs past its C rows into the
+    next expert's: those products are never written."""
     g = _gen(dev, e * c + k + n)
     x = torch.randint(-127, 128, (e, c, k), generator=g, device=dev, dtype=torch.int8)
     w = torch.randint(-127, 128, (e, n, k), generator=g, device=dev, dtype=torch.int8)
@@ -1606,18 +1610,73 @@ def _graph_node_types(fn) -> list:
     return types
 
 
+@pytest.mark.parametrize("with_rows", [False, True])
 @pytest.mark.parametrize("c", [3, 480])
-def test_int8_matmul_batched_is_one_kernel_per_call_on_card(dev, c):
+def test_int8_matmul_batched_is_one_kernel_per_call_on_card(dev, c, with_rows):
     """One device kernel per expert linear (no memset, no second kernel), at
-    decode (swapped) and at prefill (tiled): one call captured in a graph
-    holds one node, a kernel, and counts one launch."""
+    decode (swapped) and at prefill (tiled), with every row or with fills
+    (experts with none, whose rows the same kernel zeroes): one call
+    captured in a graph holds one node, a kernel, and counts one launch."""
     x = torch.randint(-127, 128, (64, c, 2048), device=dev, dtype=torch.int8)
     w = torch.randint(-127, 128, (64, 1408, 2048), device=dev, dtype=torch.int8)
     dx, dw = torch.rand(64, c, device=dev), torch.rand(64, 1408, device=dev)
+    rows = _fills(64, c, _gen(dev, c)) if with_rows else None
     ops.reset_launch_counts()
     with ops.launches_apart() as counted:
-        assert _graph_node_types(lambda: int8_matmul_batched(x, w, dx, dw)) == [0]
+        assert _graph_node_types(lambda: int8_matmul_batched(x, w, dx, dw, rows=rows)) == [0]
     assert counted == {"int8_matmul_batched": 2}          # the warm-up and the capture
+
+
+def _fills(e, c, g):
+    """Per-expert kept rows drawn from {0, 1, partial, C} (int32, on g's
+    device); expert 0 keeps none, expert 1 all."""
+    choice = torch.randint(0, 4, (e,), generator=g, device=g.device)
+    partial = torch.randint(0, c + 1, (e,), generator=g, device=g.device)
+    rows = torch.stack([torch.zeros_like(partial), torch.ones_like(partial), partial,
+                        torch.full_like(partial, c)])[choice, torch.arange(e, device=g.device)]
+    rows[0], rows[min(1, e - 1)] = 0, c
+    return rows.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("e,c,k,n", BATCHED_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_batched_rows_bit_equal_on_card(dev, e, c, k, n, out_dtype):
+    """With per-expert fills from {0, 1, partial, C}: bit-equal to the plain
+    version, +0 past each fill; expert 0 keeps no row and has NaN scales,
+    and its output is zeros from both (the kernel reads none of its W)."""
+    g = _gen(dev, e * c + k + n + 1)
+    x = torch.randint(-127, 128, (e, c, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (e, n, k), generator=g, device=dev, dtype=torch.int8)
+    dx = torch.rand(e, c, generator=g, device=dev) * 1e-2
+    dw = torch.rand(e, n, generator=g, device=dev) * 1e-3
+    dw[0] = float("nan")
+    rows = _fills(e, c, g)
+    y = int8_matmul_batched(x, w, dx, dw, out_dtype=out_dtype, rows=rows)
+    want = int8_matmul_batched_ref(x, w, dx, dw, out_dtype, rows)
+    assert torch.equal(y, want)
+    assert torch.equal(y[0], torch.zeros_like(y[0]))
+    past = torch.arange(c, device=dev)[None, :] >= rows[:, None]
+    assert not y[past].float().signbit().any() and (y[past] == 0).all()
+
+
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)])
+def test_int8_matmul_batched_row_does_not_depend_on_c_on_card(dev, k, n):
+    """An expert's row has the same bits whatever C the engine makes (1 and
+    3 vanilla and chain, 6 paged, 11 and 21 trees, 120 paged admission, 257
+    and 480 prefill: every regime and width), with every row and with fills."""
+    g = _gen(dev, k + n)
+    E, CMAX = 64, 480
+    x = torch.randint(-127, 128, (E, CMAX, k), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (E, n, k), generator=g, device=dev, dtype=torch.int8)
+    dx = torch.rand(E, CMAX, generator=g, device=dev) * 1e-2
+    dw = torch.rand(E, n, generator=g, device=dev) * 1e-3
+    fill = _fills(E, CMAX, g).clamp(min=1)
+    first = int8_matmul_batched(x[:, :1].contiguous(), w, dx[:, :1].contiguous(), dw)
+    for c in (3, 6, 11, 21, 120, 257, 480):
+        xc, dxc = x[:, :c].contiguous(), dx[:, :c].contiguous()
+        assert torch.equal(int8_matmul_batched(xc, w, dxc, dw)[:, :1], first), c
+        rows = fill.clamp(max=c).to(torch.int32)
+        assert torch.equal(int8_matmul_batched(xc, w, dxc, dw, rows=rows)[:, :1], first), c
 
 
 def _moe_layer(dev, cfg, verifier="w8a8"):
