@@ -341,7 +341,7 @@ class SpecEngine:
                           *, pmax: Optional[int] = None, drafter=None, draft_params=None,
                           pool: Optional[BlockPool] = None, rid: Optional[int] = None,
                           shared_blocks: int = 0, shared_rows: int = 0,
-                          aux_embeds=None) -> dict:
+                          aux_embeds=None, tracer=None, trace_tid: int = 0) -> dict:
         """Admit ``request`` into slot ``row`` of a live decode state, **in
         place** (returns the same dict).
 
@@ -365,9 +365,12 @@ class SpecEngine:
         group's maximum); ``params`` must already be prepared.
         ``aux_embeds`` (1, Sa, D): this request's image or audio
         embeddings; the prefill writes the row's cross caches with the rest
-        of its row.
+        of its row.  ``tracer`` (``trace_tid``) gets the admission's parts as
+        device spans: ``prefill.rows``, ``prefill.forward``,
+        ``prefill.scatter`` (paged) and ``prefill.drafter``.
         """
         drafter = drafter if drafter is not None else self.drafter
+        tr = tracer if tracer is not None else NULL_TRACER
         dev = self.model.device
         if aux_embeds is not None:
             aux_embeds = aux_embeds.to(dev)
@@ -376,64 +379,67 @@ class SpecEngine:
         pmax = P if pmax is None else pmax
         if not P <= pmax <= buf:
             raise ValueError(f"pmax {pmax} outside [{P}, {buf}]")
-        prompt = torch.from_numpy(pad_prompt(request.prompt, pmax)).to(dev)[None]  # (1, pmax)
-
-        state["tokens"][row] = 0
-        state["tokens"][row, :pmax] = prompt[0]
-        state["length"][row] = P
-        state["target"][row] = P + request.max_new_tokens
-        prng.reseed(state["generators"][row], request.seed)
-        for name in ("commits", "row_steps", "bad"):
-            state["stats"][name][row] = 0
-
-        # KV cache row: zeroed + single-row prefill.  The padded prefill
-        # writes junk K/V at positions [P-1, pmax-1), but verify windows
-        # rewrite every position before the causal frontier reaches it.
         paged = "bt" in state["cache"]
+        if paged and (pool is None or rid is None):
+            raise ValueError("paged admission needs pool= and rid=")
+
+        with tr.span("prefill.rows", tid=trace_tid, device=True):
+            prompt = torch.from_numpy(pad_prompt(request.prompt, pmax)).to(dev)[None]  # (1, pmax)
+            state["tokens"][row] = 0
+            state["tokens"][row, :pmax] = prompt[0]
+            state["length"][row] = P
+            state["target"][row] = P + request.max_new_tokens
+            prng.reseed(state["generators"][row], request.seed)
+            for name in ("commits", "row_steps", "bad"):
+                state["stats"][name][row] = 0
+            # KV cache row: zeroed + single-row prefill.  The padded prefill
+            # writes junk K/V at positions [P-1, pmax-1), but verify windows
+            # rewrite every position before the causal frontier reaches it.
+            if paged:
+                row_cache = self.model.init_cache(1, buf)
+            else:          # the state's own row, as views that write through
+                row_cache = cache_rows(state["cache"], row)
+                reset_cache(row_cache)
+        with tr.span("prefill.forward", tid=trace_tid, device=True):
+            if paged and shared_rows > 0 and self.model.cfg.kv_cache_dtype != "int8":
+                c = int(shared_rows)
+                idx = torch.as_tensor(pool.owned(rid)[:int(shared_blocks)], device=dev)
+                for pool_l, row_l in zip(state["cache"]["layers"], row_cache["layers"]):
+                    for name, buf_l in pool_l.items():
+                        warm = buf_l[idx].reshape((-1,) + tuple(buf_l.shape[2:]))[:c]
+                        row_l[name][0, :c] = warm.to(row_l[name].dtype)
+                if P - 1 > c:
+                    self.model.prefill_chunk(params, row_cache, prompt[:, c:P - 1], c)
+            else:
+                self.model.prefill(params, row_cache, prompt[:, :-1], aux_embeds=aux_embeds)
         if paged:
-            if pool is None or rid is None:
-                raise ValueError("paged admission needs pool= and rid=")
-            row_cache = self.model.init_cache(1, buf)
-        else:          # the state's own row, as views that write through
-            row_cache = cache_rows(state["cache"], row)
-            reset_cache(row_cache)
-        if paged and shared_rows > 0 and self.model.cfg.kv_cache_dtype != "int8":
-            c = int(shared_rows)
-            idx = torch.as_tensor(pool.owned(rid)[:int(shared_blocks)], device=dev)
-            for pool_l, row_l in zip(state["cache"]["layers"], row_cache["layers"]):
-                for name, buf_l in pool_l.items():
-                    warm = buf_l[idx].reshape((-1,) + tuple(buf_l.shape[2:]))[:c]
-                    row_l[name][0, :c] = warm.to(row_l[name].dtype)
-            if P - 1 > c:
-                self.model.prefill_chunk(params, row_cache, prompt[:, c:P - 1], c)
-        else:
-            self.model.prefill(params, row_cache, prompt[:, :-1], aux_embeds=aux_embeds)
-        if paged:
-            n_shared = int(shared_blocks)
-            fork = n_shared > 0 and int(shared_rows) % pool.block_size != 0
-            if fork:
-                # the last shared block is a partially-matched boundary:
-                # fork it copy-on-write so our tail rows never touch the
-                # donor's copy; the scatter below rewrites the fork block
-                # wholesale (gathered shared rows + computed tail + zeros)
-                old = pool.owned(rid)[n_shared - 1]
-                if pool.cow(rid, old) == old and pool.prefix is not None:
-                    # sole owner (a resurrected cached block): written in
-                    # place, so drop the donor's boundary entry, which may
-                    # claim rows beyond what we matched
-                    pool.prefix.evict_block(old)
-            pool.alloc(rid, pool.blocks_for(P) - n_shared)
-            ids = pool.owned(rid)
-            w0 = n_shared - (1 if fork else 0)   # first block we must write
-            _write_table_row(state["cache"]["bt"], row, ids)
-            for pool_l, row_l in zip(state["cache"]["layers"], row_cache["layers"]):
-                scatter_prefill_rows(pool_l, ids[w0:], row_l, pool.block_size,
-                                     first_block=w0)
-        # the drafter gets the UNPADDED prompt (see Drafter.prefill_row)
-        state["drafter_state"] = drafter.prefill_row(
-            self.model, params, state["drafter_state"], row,
-            torch.tensor(request.prompt, device=dev)[None], buf, aux_embeds=aux_embeds,
-            draft_params=draft_params)
+            with tr.span("prefill.scatter", tid=trace_tid, device=True):
+                n_shared = int(shared_blocks)
+                fork = n_shared > 0 and int(shared_rows) % pool.block_size != 0
+                if fork:
+                    # the last shared block is a partially-matched boundary:
+                    # fork it copy-on-write so our tail rows never touch the
+                    # donor's copy; the scatter below rewrites the fork block
+                    # wholesale (gathered shared rows + computed tail + zeros)
+                    old = pool.owned(rid)[n_shared - 1]
+                    if pool.cow(rid, old) == old and pool.prefix is not None:
+                        # sole owner (a resurrected cached block): written in
+                        # place, so drop the donor's boundary entry, which may
+                        # claim rows beyond what we matched
+                        pool.prefix.evict_block(old)
+                pool.alloc(rid, pool.blocks_for(P) - n_shared)
+                ids = pool.owned(rid)
+                w0 = n_shared - (1 if fork else 0)   # first block we must write
+                _write_table_row(state["cache"]["bt"], row, ids)
+                for pool_l, row_l in zip(state["cache"]["layers"], row_cache["layers"]):
+                    scatter_prefill_rows(pool_l, ids[w0:], row_l, pool.block_size,
+                                         first_block=w0)
+        with tr.span("prefill.drafter", tid=trace_tid, device=True):
+            # the drafter gets the UNPADDED prompt (see Drafter.prefill_row)
+            state["drafter_state"] = drafter.prefill_row(
+                self.model, params, state["drafter_state"], row,
+                torch.tensor(request.prompt, device=dev)[None], buf, aux_embeds=aux_embeds,
+                draft_params=draft_params)
         return state
 
     def _check_paged_supported(self):
@@ -929,14 +935,16 @@ class PagedGroup:
         self.live[slot] = (rid, self.demand_tokens(rid))
         if ids and rows % bs != 0:
             self.cow_forks += 1          # prefill_into_slot forks below
-        with self._tr.span("prefill", tid=self.trace_tid, rid=rid, shared_rows=rows,
-                           cold_rows=max(P - 1 - rows, 0)):
+        with self._tr.span("prefill", tid=self.trace_tid, device=True, rid=rid,
+                           shared_rows=rows, cold_rows=max(P - 1 - rows, 0), P=P, pmax=pmax):
             state = self.engine.prefill_into_slot(
                 params, state, slot, r, pmax=pmax, drafter=drafter,
                 draft_params=draft_params, pool=self.pool, rid=rid,
-                shared_blocks=len(ids), shared_rows=rows, aux_embeds=aux)
+                shared_blocks=len(ids), shared_rows=rows, aux_embeds=aux,
+                tracer=self._tr, trace_tid=self.trace_tid)
         if sharing:
-            self.index.register(r.prompt, self.pool.owned(rid), include_boundary=donate)
+            with self._tr.span("prefix.register", tid=self.trace_tid):
+                self.index.register(r.prompt, self.pool.owned(rid), include_boundary=donate)
         return state
 
     def release(self, state: dict, slot: int, rid: int) -> dict:

@@ -379,10 +379,12 @@ class Scheduler:
         ``self.results``.
         """
         with self._tr.span("tick", tid=self.trace_tid, step=self.steps):
-            return self._tick_inner(
+            out = self._tick_inner(
                 state, admit=admit, step=step, can_admit=can_admit,
                 release=release, preempt=preempt, on_tokens=on_tokens,
                 on_fail=on_fail, clock=clock, guard=guard)
+        self._tr.tick_end(self.trace_tid)
+        return out
 
     def _tick_inner(
         self,
@@ -509,9 +511,12 @@ class Scheduler:
                 state = step(state)
                 # the one host read of the tick; it waits for the card, so
                 # the step time covers the device's work too
-                host = host_view(state)
+                with self._tr.span("step.read", tid=self.trace_tid, device=True):
+                    host = host_view(state)
+                    self._tr.anchor()
                 if guard is not None:
-                    state, host = guard(state, host)
+                    with self._tr.span("step.guard", tid=self.trace_tid):
+                        state, host = guard(state, host)
         except RequestFault as rf:
             # attributable step failure: adopt the coherent state the
             # raiser carries (when it has one) and fail only the named
@@ -552,15 +557,16 @@ class Scheduler:
                 self.on_step_stats(accepted, step_s, sum(accepted))
         tokens_np = host["tokens"]
         if on_tokens is not None:
-            for s in occupied:
-                ev = self._slots[s]
-                P = self.requests[ev.request_index].prompt.size
-                committed = int(min(lengths[s], targets[s])) - P
-                if committed > ev.streamed:
-                    on_tokens(ev.request_index,
-                              tokens_np[s, P + ev.streamed:
-                                        P + committed].copy())
-                    ev.streamed = committed
+            with self._tr.span("stream", tid=self.trace_tid):
+                for s in occupied:
+                    ev = self._slots[s]
+                    P = self.requests[ev.request_index].prompt.size
+                    committed = int(min(lengths[s], targets[s])) - P
+                    if committed > ev.streamed:
+                        on_tokens(ev.request_index,
+                                  tokens_np[s, P + ev.streamed:
+                                            P + committed].copy())
+                        ev.streamed = committed
 
         done = [s for s in occupied if lengths[s] >= targets[s]]
         harvested: List[int] = []

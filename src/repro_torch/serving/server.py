@@ -56,6 +56,10 @@ Where the port differs from the reference:
   reference's ``jit`` reuses its trace.  A degrade lane's engine shares
   the primary engine's prepared params (the same verifier prepares them
   identically) instead of preparing a second copy.
+* **Admission is stamped before the prefill.**  ``ServerMetrics.on_admit``
+  gets the time the admission began (reported once it holds), so the
+  metrics' queue wait equals the scheduler's ``queue_s``; the reference
+  stamps it after the prefill.
 
 With ``SpecConfig(kv_layout="paged")`` each lane owns a block pool sized
 for its slot count's worst-case demand, a prefix-cache index and a host
@@ -345,10 +349,14 @@ class _Lane:
             if faults.fire("nan_verify", lane=self.tid):
                 # transient: poison only this step's local view
                 params = poison_params(self.params)
+        tr = loop.tracer
         if self.ctx is not None:
-            state = self.ctx.prepare_step(state)
-        self.pre.take(state)           # the step writes in place
-        state = self.step(params, state)
+            with tr.span("step.prepare", tid=self.tid, device=True):
+                state = self.ctx.prepare_step(state)
+        with tr.span("step.snapshot", tid=self.tid):
+            self.pre.take(state)       # the step writes in place
+        with tr.span("step.launch", tid=self.tid, device=True):
+            state = self.step(params, state)
         # fires inside the scheduler's "decode" span: a virtual-clock
         # driver advances time here
         if loop.step_hook is not None:
@@ -688,8 +696,12 @@ class ServingLoop:
                 self.metrics.on_tokens(h.rid, t_emit, toks.size)
 
             def admit(st, slot, i, _lane=lane):
+                # stamped before the prefill, as the scheduler's queue_s
+                # is (the prefill is service, not queueing); reported once
+                # the admission holds, so a failed one is never admitted
+                t_admit = self.clock()
                 st = _lane.admit(st, slot, i)
-                self.metrics.on_admit(_lane.handles[i].rid, self.clock())
+                self.metrics.on_admit(_lane.handles[i].rid, t_admit)
                 return st
 
             can_admit = release = preempt = None

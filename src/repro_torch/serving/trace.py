@@ -37,6 +37,23 @@ Event model (Chrome trace-event JSON, ``ts`` in microseconds):
   :meth:`Tracer.counter` (``ph: C``) for gauges (occupancy, free
   blocks), :meth:`Tracer.thread_name` (``ph: M``) to label tracks.
 
+Device times (``annotate_device=True`` on a machine with CUDA): a span
+opened with ``device=True`` also records a CUDA timing event on the current
+stream at its begin and at its end (none while the stream is capturing a
+graph).  The events are read without a synchronise: :meth:`Tracer.anchor`,
+called where the program already waits for the card (the tick's host read),
+pairs a fresh event with the tracer's clock, and :meth:`Tracer.tick_end`
+(and :meth:`export`) resolve the events that have completed against the
+nearest anchor, so each device span's ``E`` event gets ``dev_t0``/``dev_t1``
+args in µs on the tracer's own clock, and :meth:`export` adds one
+``device`` track per lane (``tid + DEVICE_TRACK``) of complete (``ph: X``)
+events.  The same mode turns ``torch.cuda``'s sync debug mode to "warn" while
+any such tracer lives and counts each synchronising CUDA call made on the
+tracer's own thread (the one that opens its first span) by the innermost
+span open there: :meth:`Tracer.tick_end` emits them as one ``host_syncs``
+counter per tick (``{span name: calls}``; ``outside`` for calls under no
+span).
+
 The reference's ``tools/check_trace.py`` validates the structural
 invariants (matched B/E nesting per track, non-decreasing timestamps,
 balanced async begin/end per id, required attrs).
@@ -44,8 +61,14 @@ balanced async begin/end per id, required attrs).
 from __future__ import annotations
 
 import json
+import threading
 import time
+import warnings
+import weakref
 from typing import Any, Callable, Dict, List, Optional
+
+DEVICE_TRACK = 1000      # a lane's device track is tid + DEVICE_TRACK
+SYNC_WARNING = "called a synchronizing CUDA operation"   # torch's sync debug mode
 
 
 class _NullSpan:
@@ -72,8 +95,14 @@ class NullTracer:
 
     __slots__ = ()
 
-    def span(self, name: str, *, tid: int = 0, **args):
+    def span(self, name: str, *, tid: int = 0, device: bool = False, **args):
         return _NULL_SPAN
+
+    def anchor(self) -> None:
+        pass
+
+    def tick_end(self, tid: int = 0) -> None:
+        pass
 
     def begin_async(self, name: str, aid: int, *, cat: str = "request",
                     **args) -> None:
@@ -102,32 +131,41 @@ NULL_TRACER = NullTracer()
 
 class _Span:
     """Context manager emitting a ``B``/``E`` pair (plus an optional
-    ``torch.profiler.record_function`` range)."""
+    ``torch.profiler.record_function`` range and device events)."""
 
-    __slots__ = ("_tr", "_name", "_tid", "_args", "_recorded", "_device")
+    __slots__ = ("_tr", "_name", "_tid", "_args", "_recorded", "_ann", "_timed", "_mark")
 
     def __init__(self, tracer: "Tracer", name: str, tid: int,
-                 args: Optional[dict]):
+                 args: Optional[dict], timed: bool):
         self._tr = tracer
         self._name = name
         self._tid = tid
         self._args = args
         self._recorded = False
-        self._device = None
+        self._ann = None
+        self._timed = timed
+        self._mark = None
 
     def __enter__(self):
-        self._recorded = self._tr._emit(
+        tr = self._tr
+        if tr._syncs is not None:
+            tr._syncs.enter(self._name)
+        self._recorded = tr._emit(
             {"ph": "B", "name": self._name, "tid": self._tid,
              **({"args": self._args} if self._args else {})})
-        ann = self._tr._annotation
-        if ann is not None:
-            self._device = ann(self._name)
-            self._device.__enter__()
+        if tr._annotation is not None:
+            self._ann = tr._annotation(self._name)
+            self._ann.__enter__()
+        if self._timed and self._recorded and tr._device is not None:
+            self._mark = tr._device.record()
         return self
 
     def __exit__(self, *exc):
-        if self._device is not None:
-            self._device.__exit__(*exc)
+        tr = self._tr
+        if self._ann is not None:
+            self._ann.__exit__(*exc)
+        if tr._syncs is not None:
+            tr._syncs.exit()
         if self._recorded:
             # E must pair with its B: only emit if the B made it in
             # (the max_events cap can drop the B but never orphan an E)
@@ -136,8 +174,170 @@ class _Span:
                 # span ended by an exception — tag the closing event so
                 # fault-containment paths are visible in the trace
                 ev["args"] = {"error": exc[0].__name__}
-            self._tr._emit(ev, force=True)
+            if self._mark is not None:
+                tr._device.end(self._mark, ev)
+            tr._emit(ev, force=True)
         return False
+
+
+def _cuda_timing():
+    """(a new timing event, "is the current stream capturing?") where
+    CUDA is available, else None."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    return (lambda: torch.cuda.Event(enable_timing=True),
+            torch.cuda.is_current_stream_capturing)
+
+
+class _DeviceTimes:
+    """CUDA events at the begin and end of device spans, put on the
+    tracer's clock through anchors: an event recorded where the host has
+    just waited for the card completes at once, so its device time is the
+    host time taken with it.  An event resolves against the last anchor
+    before it (the first one after it, for events older than any anchor),
+    so the two clocks never drift apart by more than a tick."""
+
+    def __init__(self, new_event: Callable[[], Any], capturing: Callable[[], bool]):
+        self._new = new_event
+        self._capturing = capturing
+        self._anchor = None      # (event, host µs) of the last wait
+        self._pending: List[list] = []   # [E event, begin, end, anchor before, after]
+
+    def record(self):
+        """A timing event recorded on the current stream (None while it
+        captures a graph)."""
+        if self._capturing():
+            return None
+        ev = self._new()
+        ev.record()
+        return ev
+
+    def end(self, begin, e_event: dict) -> None:
+        end = self.record()
+        if end is not None:
+            self._pending.append([e_event, begin, end, self._anchor, None])
+
+    def anchor(self, now_us: float) -> None:
+        ev = self.record()
+        if ev is None:
+            return
+        a = (ev, now_us)
+        for p in self._pending:
+            if p[3] is None and p[4] is None:
+                p[4] = a
+        self._anchor = a
+
+    def resolve(self) -> None:
+        """Stamp ``dev_t0``/``dev_t1`` on the spans whose events have
+        completed (``Event.query``: no synchronise)."""
+        keep = []
+        for p in self._pending:
+            ev, begin, end, before, after = p
+            if not end.query():
+                keep.append(p)
+            elif before is not None:
+                a, t = before
+                ev.setdefault("args", {}).update(dev_t0=t + 1e3 * a.elapsed_time(begin),
+                                                 dev_t1=t + 1e3 * a.elapsed_time(end))
+            elif after is not None and after[0].query():
+                a, t = after
+                ev.setdefault("args", {}).update(dev_t0=t - 1e3 * begin.elapsed_time(a),
+                                                 dev_t1=t - 1e3 * end.elapsed_time(a))
+            else:
+                keep.append(p)
+        self._pending = keep
+
+
+class _SyncCount:
+    """One tracer's synchronising CUDA calls by the innermost span open on
+    its own thread: the thread that opens its first span (the loop's
+    driving thread).  Spans opened on any other thread are not tracked, and
+    calls made there are not counted."""
+
+    def __init__(self):
+        self.owner: Optional[int] = None
+        self.open: List[str] = []
+        self.counts: Dict[str, int] = {}
+
+    def enter(self, name: str) -> None:
+        me = threading.get_ident()
+        if self.owner is None:
+            self.owner = me
+        if me == self.owner:
+            self.open.append(name)
+
+    def exit(self) -> None:
+        if threading.get_ident() == self.owner:
+            self.open.pop()
+
+    def count(self) -> None:
+        name = self.open[-1] if self.open else "outside"
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+
+class _SyncHook:
+    """The process-wide half of the count, installed while at least one
+    counting tracer lives: ``torch.cuda``'s sync debug mode at "warn" (a mode
+    set before is kept), an "always" filter for its warning (not once per
+    location) and ``warnings.showwarning``.  A sync warning goes to every
+    live counter whose thread raised it, and on to the ``showwarning`` it
+    replaced only where the sync debug mode was on before; other warnings
+    pass on."""
+
+    def __init__(self):
+        self.counters: List[_SyncCount] = []
+        self._show = None        # the showwarning it replaced
+        self._saved = None       # (its filter, the sync debug mode before)
+
+    def add(self, counter: _SyncCount) -> None:
+        if not self.counters:
+            self._install()
+        self.counters.append(counter)
+
+    def remove(self, counter: _SyncCount) -> None:
+        self.counters.remove(counter)
+        if not self.counters:
+            self._uninstall()
+
+    def showwarning(self, message, category, filename, lineno, file=None, line=None):
+        if str(message).startswith(SYNC_WARNING):
+            me = threading.get_ident()
+            for c in self.counters:
+                if c.owner == me:
+                    c.count()
+            if not self._saved[1]:
+                return
+        self._show(message, category, filename, lineno, file, line)
+
+    def _install(self) -> None:
+        import torch
+
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        mode = None
+        if torch.cuda.is_available():
+            mode = torch.cuda.get_sync_debug_mode()
+            if not mode:
+                torch.cuda.set_sync_debug_mode("warn")
+        self._saved = (warnings.filters[0], mode)
+        self._show = warnings.showwarning
+        warnings.showwarning = self.showwarning
+
+    def _uninstall(self) -> None:
+        import torch
+
+        flt, mode = self._saved
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode(mode)
+        if flt in warnings.filters:
+            warnings.filters.remove(flt)
+            warnings._filters_mutated()
+        if warnings.showwarning == self.showwarning:
+            warnings.showwarning = self._show
+
+
+_SYNC_HOOK = _SyncHook()
 
 
 class Tracer:
@@ -160,7 +360,9 @@ class Tracer:
     annotate_device:
         When True, each :meth:`span` additionally enters a
         ``torch.profiler.record_function`` range of the same name, so the
-        span shows up in ``torch.profiler`` traces.
+        span shows up in ``torch.profiler`` traces; where CUDA is
+        available, ``device=True`` spans also get device times and
+        synchronising CUDA calls are counted (module docstring).
     """
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter, *,
@@ -174,10 +376,19 @@ class Tracer:
         self.dropped = 0
         self.events: List[Dict[str, Any]] = []
         self._open_async: Dict[tuple, int] = {}   # (cat, id, name) -> depth
+        self._names: Dict[int, str] = {}          # tid -> track label
         self._annotation = None
+        self._device: Optional[_DeviceTimes] = None
+        self._syncs: Optional[_SyncCount] = None
         if annotate_device:
             from torch.profiler import record_function
             self._annotation = record_function
+            self._syncs = _SyncCount()
+            timing = _cuda_timing()
+            if timing is not None:
+                self._device = _DeviceTimes(*timing)
+                _SYNC_HOOK.add(self._syncs)
+                weakref.finalize(self, _SYNC_HOOK.remove, self._syncs).atexit = False
 
     @property
     def enabled(self) -> bool:
@@ -201,13 +412,29 @@ class Tracer:
         return True
 
     # ------------------------------------------------------------------
-    def span(self, name: str, *, tid: int = 0, **args):
+    def span(self, name: str, *, tid: int = 0, device: bool = False, **args):
         """Synchronous duration span (``with tracer.span("decode", ...):``).
 
         Spans on one ``tid`` must nest (LIFO) — the Chrome duration-event
-        contract).
+        contract).  ``device=True`` marks a span of work on the card, which
+        gets device times when they are on.
         """
-        return _Span(self, name, tid, args or None)
+        return _Span(self, name, tid, args or None, device)
+
+    def anchor(self) -> None:
+        """The host has just waited for the card: pair the tracer's clock
+        with a device event here (see :class:`_DeviceTimes`)."""
+        if self._device is not None:
+            self._device.anchor(self._now_us())
+
+    def tick_end(self, tid: int = 0) -> None:
+        """End of a scheduler tick on track ``tid``: resolve the device
+        events that have completed and emit the tick's ``host_syncs``."""
+        if self._device is not None:
+            self._device.resolve()
+        if self._syncs is not None and self._syncs.counts:
+            self.counter("host_syncs", self._syncs.counts, tid=tid)
+            self._syncs.counts = {}
 
     def begin_async(self, name: str, aid: int, *, cat: str = "request",
                     **args) -> None:
@@ -249,15 +476,38 @@ class Tracer:
 
     def thread_name(self, tid: int, name: str) -> None:
         """Label track ``tid`` (metadata event, no timestamp)."""
+        self._names[tid] = name
         self._emit({"ph": "M", "name": "thread_name", "tid": tid,
                     "args": {"name": name}}, force=True)
 
     # ------------------------------------------------------------------
     def export(self) -> dict:
-        """Trace-event JSON object (``{"traceEvents": [...], ...}``)."""
-        return {"traceEvents": list(self.events),
+        """Trace-event JSON object (``{"traceEvents": [...], ...}``), with
+        a ``device`` track per lane when device times are on."""
+        events = list(self.events)
+        if self._device is not None:
+            self._device.resolve()
+            events += self._device_tracks()
+        return {"traceEvents": events,
                 "displayTimeUnit": "ms",
                 "otherData": {"dropped_events": self.dropped}}
+
+    def _device_tracks(self) -> List[Dict[str, Any]]:
+        """A complete event per device span with its times, by start, on
+        its lane's device track."""
+        timed = sorted(((ev["tid"], ev["args"]["dev_t0"], -ev["args"]["dev_t1"], ev["name"])
+                        for ev in self.events
+                        if ev["ph"] == "E" and "dev_t0" in ev.get("args", ())))
+        out, named = [], set()
+        for tid, t0, neg_t1, name in timed:
+            if tid not in named:
+                named.add(tid)
+                label = self._names.get(tid, f"lane {tid}")
+                out.append({"ph": "M", "name": "thread_name", "pid": self.pid,
+                            "tid": tid + DEVICE_TRACK, "args": {"name": f"{label} device"}})
+            out.append({"ph": "X", "name": name, "pid": self.pid, "tid": tid + DEVICE_TRACK,
+                        "ts": t0, "dur": -neg_t1 - t0})
+        return out
 
     def dumps(self) -> str:
         """Deterministic serialisation: sorted keys, fixed separators —
